@@ -1,0 +1,23 @@
+from . import constraints
+from .delta import Delta
+from .discrete import Bernoulli, Categorical
+from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution
+from .hmm import DiscreteHMM
+from .multivariate import Dirichlet
+from .transforms import StickBreakingTransform, biject_to, transform_to
+
+__all__ = [
+    "Bernoulli",
+    "Categorical",
+    "Delta",
+    "Dirichlet",
+    "DiscreteHMM",
+    "Distribution",
+    "ExpandedDistribution",
+    "Independent",
+    "MaskedDistribution",
+    "StickBreakingTransform",
+    "biject_to",
+    "constraints",
+    "transform_to",
+]

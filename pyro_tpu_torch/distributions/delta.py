@@ -1,0 +1,45 @@
+"""Delta: a point mass (counterpart of ``pyro_tpu/distributions/delta.py``);
+used by AutoDelta guides."""
+
+from __future__ import annotations
+
+import torch
+
+from . import constraints
+from .distribution import Distribution
+from .util import sum_rightmost
+
+
+class Delta(Distribution):
+    """Point mass at ``v`` with optional importance weight ``log_density``."""
+
+    arg_constraints = {"v": constraints.dependent, "log_density": constraints.real}
+    has_rsample = True
+
+    def __init__(self, v, log_density=0.0, event_dim=0):
+        v = torch.as_tensor(v)
+        if event_dim > v.ndim:
+            raise ValueError(f"expected event_dim <= v.ndim, got {event_dim} > {v.ndim}")
+        batch_dim = v.ndim - event_dim
+        batch_shape = v.shape[:batch_dim]
+        self.v = v
+        dtype = v.dtype if v.is_floating_point() else torch.get_default_dtype()
+        self.log_density = torch.as_tensor(log_density, dtype=dtype, device=v.device).expand(batch_shape)
+        self._event_dim_arg = event_dim
+        super().__init__(batch_shape, v.shape[batch_dim:])
+
+    @property
+    def support(self):  # type: ignore[override]
+        if self.event_dim:
+            return constraints.independent(constraints.real, self.event_dim)
+        return constraints.real
+
+    def rsample(self, generator=None, sample_shape=()):
+        return self.v.expand(self.shape(sample_shape))
+
+    def log_prob(self, value):
+        shape = torch.broadcast_shapes(self.v.shape, value.shape)
+        v = self.v.expand(shape)
+        value = value.expand(shape)
+        lp = torch.where(value == v, 0.0, -torch.inf).to(self.log_density.dtype)
+        return sum_rightmost(lp, self._event_dim_arg) + self.log_density

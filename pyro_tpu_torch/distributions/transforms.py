@@ -1,0 +1,250 @@
+"""Bijective transforms and the ``biject_to``/``transform_to`` registries
+(the part of ``pyro_tpu/distributions/transforms.py`` this package uses).
+The param store keeps unconstrained values and maps them through
+``transform_to(constraint)`` on access."""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import constraints
+from .util import clamp_probs, sum_rightmost
+
+
+class Transform:
+    domain: constraints.Constraint = constraints.real
+    codomain: constraints.Constraint = constraints.real
+
+    @property
+    def inv(self) -> "Transform":
+        return _InverseTransform(self)
+
+    def __call__(self, x):
+        raise NotImplementedError
+
+    def _inverse(self, y):
+        raise NotImplementedError
+
+    def log_abs_det_jacobian(self, x, y):
+        raise NotImplementedError
+
+    def forward_shape(self, shape):
+        return tuple(shape)
+
+    def inverse_shape(self, shape):
+        return tuple(shape)
+
+    def __repr__(self):
+        return self.__class__.__name__ + "()"
+
+
+class _InverseTransform(Transform):
+    def __init__(self, transform: Transform):
+        self._base = transform
+
+    @property
+    def domain(self):  # type: ignore[override]
+        return self._base.codomain
+
+    @property
+    def codomain(self):  # type: ignore[override]
+        return self._base.domain
+
+    @property
+    def inv(self):  # type: ignore[override]
+        return self._base
+
+    def __call__(self, x):
+        return self._base._inverse(x)
+
+    def _inverse(self, y):
+        return self._base(y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return -self._base.log_abs_det_jacobian(y, x)
+
+    def forward_shape(self, shape):
+        return self._base.inverse_shape(shape)
+
+    def inverse_shape(self, shape):
+        return self._base.forward_shape(shape)
+
+
+class IndependentTransform(Transform):
+    def __init__(self, base_transform: Transform, reinterpreted_batch_ndims: int):
+        self.base_transform = base_transform
+        self.reinterpreted_batch_ndims = reinterpreted_batch_ndims
+
+    @property
+    def domain(self):  # type: ignore[override]
+        return constraints.independent(self.base_transform.domain, self.reinterpreted_batch_ndims)
+
+    @property
+    def codomain(self):  # type: ignore[override]
+        return constraints.independent(self.base_transform.codomain, self.reinterpreted_batch_ndims)
+
+    def __call__(self, x):
+        return self.base_transform(x)
+
+    def _inverse(self, y):
+        return self.base_transform._inverse(y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return sum_rightmost(self.base_transform.log_abs_det_jacobian(x, y), self.reinterpreted_batch_ndims)
+
+    def forward_shape(self, shape):
+        return self.base_transform.forward_shape(shape)
+
+    def inverse_shape(self, shape):
+        return self.base_transform.inverse_shape(shape)
+
+
+class IdentityTransform(Transform):
+    def __call__(self, x):
+        return x
+
+    def _inverse(self, y):
+        return y
+
+    def log_abs_det_jacobian(self, x, y):
+        return torch.zeros_like(x)
+
+
+identity_transform = IdentityTransform()
+
+
+class ExpTransform(Transform):
+    codomain = constraints.positive
+
+    def __call__(self, x):
+        return torch.exp(x)
+
+    def _inverse(self, y):
+        return torch.log(y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return x
+
+
+class SigmoidTransform(Transform):
+    codomain = constraints.unit_interval
+
+    def __call__(self, x):
+        return clamp_probs(torch.sigmoid(x))
+
+    def _inverse(self, y):
+        y = clamp_probs(y)
+        return torch.log(y) - torch.log1p(-y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return -F.softplus(-x) - F.softplus(x)
+
+
+def _offset(x):
+    """K - k for k = 0 .. K-1 along the last dim of ``x`` (K = x.shape[-1])."""
+    return x.shape[-1] + 1 - torch.cumsum(torch.ones_like(x), dim=-1)
+
+
+class StickBreakingTransform(Transform):
+    """Unconstrained R^{K-1} -> K-simplex."""
+
+    domain = constraints.real_vector
+    codomain = constraints.simplex
+
+    def __call__(self, x):
+        z = clamp_probs(torch.sigmoid(x - torch.log(_offset(x))))
+        z_cumprod = torch.cumprod(1 - z, dim=-1)
+        ones = torch.ones(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
+        z_padded = torch.cat([z, ones], dim=-1)
+        z_cumprod_shifted = torch.cat([ones, z_cumprod], dim=-1)
+        return z_padded * z_cumprod_shifted
+
+    def _inverse(self, y):
+        y_crop = y[..., :-1]
+        offset = y_crop.shape[-1] - torch.cumsum(torch.ones_like(y_crop), dim=-1) + 1
+        # remaining stick after each step
+        sf = (1.0 - torch.cumsum(y_crop, dim=-1)).clamp(min=torch.finfo(y.dtype).tiny)
+        return torch.log(y_crop) - torch.log(sf) + torch.log(offset)
+
+    def log_abs_det_jacobian(self, x, y):
+        z = clamp_probs(torch.sigmoid(x - torch.log(_offset(x))))
+        return (torch.log1p(-z) + torch.log(clamp_probs(y[..., :-1]))).sum(-1)
+
+    def forward_shape(self, shape):
+        return shape[:-1] + (shape[-1] + 1,)
+
+    def inverse_shape(self, shape):
+        return shape[:-1] + (shape[-1] - 1,)
+
+
+class SoftmaxTransform(Transform):
+    domain = constraints.real_vector
+    codomain = constraints.simplex
+
+    def __call__(self, x):
+        return torch.softmax(x, dim=-1)
+
+    def _inverse(self, y):
+        return torch.log(clamp_probs(y))
+
+
+class ConstraintRegistry:
+    """Maps constraint types to transform factories."""
+
+    def __init__(self):
+        self._registry = {}
+
+    def register(self, constraint, factory=None):
+        if factory is None:
+            return lambda f: self.register(constraint, f)
+        if isinstance(constraint, constraints.Constraint):
+            constraint = type(constraint)
+        self._registry[constraint] = factory
+        return factory
+
+    def __call__(self, constraint) -> Transform:
+        try:
+            factory = self._registry[type(constraint)]
+        except KeyError:
+            raise NotImplementedError(f"Cannot transform {type(constraint).__name__} constraints") from None
+        return factory(constraint)
+
+
+biject_to = ConstraintRegistry()
+transform_to = ConstraintRegistry()
+
+
+@biject_to.register(constraints.real)
+@transform_to.register(constraints.real)
+def _transform_to_real(constraint):
+    return identity_transform
+
+
+@biject_to.register(constraints.independent)
+@transform_to.register(constraints.independent)
+def _biject_to_independent(constraint):
+    # both registries take the bijection of the base, as the JAX package does
+    return IndependentTransform(biject_to(constraint.base_constraint), constraint.reinterpreted_batch_ndims)
+
+
+@biject_to.register(constraints.positive)
+@transform_to.register(constraints.positive)
+def _transform_to_positive(constraint):
+    return ExpTransform()
+
+
+@biject_to.register(constraints.unit_interval)
+@transform_to.register(constraints.unit_interval)
+def _transform_to_unit_interval(constraint):
+    return SigmoidTransform()
+
+
+@biject_to.register(constraints.simplex)
+def _biject_to_simplex(constraint):
+    return StickBreakingTransform()
+
+
+@transform_to.register(constraints.simplex)
+def _transform_to_simplex(constraint):
+    return SoftmaxTransform()

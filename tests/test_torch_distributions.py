@@ -1,0 +1,169 @@
+"""The port's distributions and transforms against the JAX package's, on
+the CPU.  Each case builds the same distribution in both packages from
+seeded numpy arrays.  Tolerances: values rtol 1e-5 (atol 1e-5 for values
+near 0); the DiscreteHMM gradient rtol 1e-4 with atol 1e-6."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import pyro_tpu.distributions as jdist
+import pyro_tpu_torch as pyro
+import pyro_tpu_torch.distributions as tdist
+from pyro_tpu.distributions import transforms as jtransforms
+from pyro_tpu_torch.distributions import constraints, transforms
+
+RNG = np.random.default_rng(0)
+F32 = np.float32
+
+
+def _a(*shape, scale=1.0):
+    return (RNG.normal(size=shape) * scale).astype(F32)
+
+
+def _probs(*shape):
+    return RNG.uniform(0.05, 0.95, size=shape).astype(F32)
+
+
+def _simplex(*shape):
+    return RNG.dirichlet(np.ones(shape[-1]), size=shape[:-1]).astype(F32)
+
+
+def _bits(*shape):
+    return (RNG.random(shape) < 0.5).astype(F32)
+
+
+LOGITS, BITS = _a(3, 4, scale=3), _bits(2, 3, 4)
+PROBS = _probs(3, 4)
+CAT_LOGITS, CAT_VALUE = _a(5, 6), RNG.integers(0, 6, size=(2, 5))
+CAT_PROBS = _simplex(5, 6)
+CONC, DIR_VALUE = RNG.uniform(0.5, 3.0, size=(3, 4)).astype(F32), _simplex(2, 3, 4)
+DELTA_V = _a(3, 2)
+MASK = RNG.random((2, 3)) < 0.5
+
+
+def _hmm(init, trans, obs_logits):
+    """Builder of a DiscreteHMM over Bernoulli emissions in package ``d``."""
+
+    def build(d, a):
+        obs = d.Bernoulli(logits=a(obs_logits)).to_event(1)
+        return d.DiscreteHMM(a(init), a(trans), obs)
+
+    return build
+
+
+HMM_INIT = np.log(_simplex(4))
+HMM_INIT_NEG_INF = np.where(np.arange(4) == 0, 0.0, -np.inf).astype(F32)
+HMM_TRANS = _a(4, 4)
+
+# name -> (build(d, a) -> distribution, value)
+CASES = {
+    "bernoulli_logits": (lambda d, a: d.Bernoulli(logits=a(LOGITS)), BITS),
+    "bernoulli_probs": (lambda d, a: d.Bernoulli(probs=a(PROBS)), BITS),
+    "categorical_logits": (lambda d, a: d.Categorical(logits=a(CAT_LOGITS)), CAT_VALUE),
+    "categorical_probs": (lambda d, a: d.Categorical(probs=a(CAT_PROBS)), CAT_VALUE),
+    "dirichlet": (lambda d, a: d.Dirichlet(a(CONC)), DIR_VALUE),
+    "delta": (lambda d, a: d.Delta(a(DELTA_V)), DELTA_V),
+    "delta_event": (lambda d, a: d.Delta(a(DELTA_V), event_dim=1, log_density=a(np.ones(3, F32))), DELTA_V),
+    "delta_miss": (lambda d, a: d.Delta(a(DELTA_V), event_dim=1), DELTA_V + 1),
+    "independent": (lambda d, a: d.Bernoulli(logits=a(LOGITS)).to_event(1), BITS),
+    "independent_nested": (lambda d, a: d.Bernoulli(logits=a(LOGITS)).to_event(1).to_event(1), BITS),
+    "masked": (lambda d, a: d.Bernoulli(logits=a(LOGITS)).mask(a(MASK[..., None])), BITS),
+    "masked_false": (lambda d, a: d.Bernoulli(logits=a(LOGITS)).mask(False), BITS),
+    "masked_event": (lambda d, a: d.Bernoulli(logits=a(LOGITS)).to_event(1).mask(a(MASK)), BITS),
+    "expanded": (lambda d, a: d.ExpandedDistribution(d.Bernoulli(logits=a(LOGITS)), (2, 3, 4)), BITS),
+    "expanded_dirichlet": (lambda d, a: d.Dirichlet(a(CONC)).expand((2, 3)), DIR_VALUE),
+    "hmm_t7": (_hmm(HMM_INIT, HMM_TRANS, _a(2, 7, 4, 5, scale=2)), _bits(2, 7, 5)),
+    "hmm_t13": (_hmm(HMM_INIT, HMM_TRANS, _a(2, 13, 4, 5, scale=2)), _bits(2, 13, 5)),
+    "hmm_t13_neg_inf_init": (_hmm(HMM_INIT_NEG_INF, HMM_TRANS, _a(2, 13, 4, 5, scale=2)), _bits(2, 13, 5)),
+    "hmm_batched_trans": (_hmm(HMM_INIT, _a(2, 7, 4, 4), _a(2, 7, 4, 5, scale=2)), _bits(3, 2, 7, 5)),
+}
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    pyro.set_default_device("cpu")
+    pyro.clear_param_store()
+    yield
+    pyro.clear_param_store()
+
+
+def _jax(x):
+    return jnp.asarray(x)
+
+
+def _torch(x):
+    return torch.as_tensor(np.asarray(x))
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_log_prob_matches_jax(case):
+    build, value = CASES[case]
+    jd = build(jdist, _jax)
+    expected = np.asarray(jax.jit(jd.log_prob)(_jax(value)))
+    d = build(tdist, _torch)
+    actual = d.log_prob(_torch(value)).numpy()
+    assert actual.shape == expected.shape
+    assert (d.batch_shape, d.event_shape) == (jd.batch_shape, jd.event_shape)
+    np.testing.assert_allclose(actual, expected, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("time", [7, 13])
+def test_discrete_hmm_gradient_matches_jax(time):
+    obs_logits, value = _a(2, time, 4, 5, scale=2), _bits(2, time, 5)
+
+    def jax_loss(trans):
+        obs = jdist.Bernoulli(logits=_jax(obs_logits)).to_event(1)
+        return jdist.DiscreteHMM(_jax(HMM_INIT_NEG_INF), trans, obs).log_prob(_jax(value)).sum()
+
+    expected = np.asarray(jax.jit(jax.grad(jax_loss))(_jax(HMM_TRANS)))
+    trans = torch.tensor(HMM_TRANS, requires_grad=True)
+    obs = tdist.Bernoulli(logits=_torch(obs_logits)).to_event(1)
+    tdist.DiscreteHMM(_torch(HMM_INIT_NEG_INF), trans, obs).log_prob(_torch(value)).sum().backward()
+    np.testing.assert_allclose(trans.grad.numpy(), expected, rtol=1e-4, atol=1e-6)
+
+
+def test_discrete_hmm_rejects_bad_time_axis():
+    build, _ = CASES["hmm_t7"]
+    with pytest.raises(ValueError):
+        build(tdist, _torch).log_prob(_torch(_bits(2, 6, 5)))
+
+
+X_SB = _a(3, 5, scale=2)
+
+
+@pytest.mark.parametrize("what", ["forward", "inverse", "log_abs_det_jacobian"])
+def test_stick_breaking_matches_jax(what):
+    jt, tt = jtransforms.StickBreakingTransform(), transforms.StickBreakingTransform()
+    jy, ty = jt(_jax(X_SB)), tt(_torch(X_SB))
+    expected = {"forward": jy, "inverse": jt.inv(jy), "log_abs_det_jacobian": jt.log_abs_det_jacobian(_jax(X_SB), jy)}
+    actual = {"forward": ty, "inverse": tt.inv(ty), "log_abs_det_jacobian": tt.log_abs_det_jacobian(_torch(X_SB), ty)}
+    np.testing.assert_allclose(actual[what].numpy(), np.asarray(expected[what]), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "name", ["real", "positive", "unit_interval", "simplex", "independent_simplex"]
+)
+def test_transform_to_matches_jax(name):
+    from pyro_tpu.distributions import constraints as jconstraints
+
+    def constraint(c):
+        return c.independent(c.simplex, 1) if name == "independent_simplex" else getattr(c, name)
+
+    x = _a(3, 4)
+    for registry in ("biject_to", "transform_to"):
+        jt = getattr(jdist, registry)(constraint(jconstraints))
+        tt = getattr(tdist, registry)(constraint(constraints))
+        np.testing.assert_allclose(tt(_torch(x)).numpy(), np.asarray(jt(_jax(x))), rtol=1e-5, atol=1e-6)
+
+
+def test_broadcast_shape():
+    from pyro_tpu_torch.distributions.util import broadcast_shape
+
+    assert broadcast_shape((3, 1), (4,), ()) == (3, 4)
+    with pytest.raises(ValueError):
+        broadcast_shape((3,), (4,))
+    with pytest.raises(ValueError):
+        broadcast_shape((1,), (4,), strict=True)
