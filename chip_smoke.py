@@ -5,21 +5,49 @@
 
 Phases (any failure exits non-zero):
   1. device and build: the card's name and power limit, and the CUDA
-     kernels built from ``pyro_tpu_torch/csrc`` with nvcc;
+     kernels (``log_matmul.cu``, ``markov_scan.cu``) built from
+     ``pyro_tpu_torch/csrc`` with one nvcc each, started together;
   2. K1, log-matmul-exp forward and backward, against its plain PyTorch
      version on the card at the main path's shape and at others, timed at
      the main path's shape beside the plain version, ``torch.matmul`` (the
      product alone) and the card's bound;
-  3. the slice at full width: model_7 of ``examples/hmm.py`` (B=32
+  3. slice 1 at full width: model_7 of ``examples/hmm.py`` (B=32
      sequences, T=128, D=51 tones, S=256 states) trained for 5 SVI steps
      with AutoDelta, Trace_ELBO and Adam, counting kernel launches;
-  4. a ``kernels`` JSON line, then the result line.
+  4. K2, the Markov-chain scan, forward and the gradients of all its
+     inputs, against its plain PyTorch version (a loop of plain
+     log-matmul-exp steps) at the main path's shape (B=32, T=127, S=256,
+     emissions about -35 per step), a ragged small shape with L, one A
+     per row, A with -inf entries and a -inf column, and a row of alpha0
+     all -inf; at the main path's shape with a quarter of the states
+     unreachable at the first step (z clipped at FLT_MIN), each gradient
+     against the float64 plain version; the first sequence's forward
+     against a float64 filter; timed forward and backward in turns with
+     the plain version, beside the bound and a loop of 127 K1 forward
+     launches (the route without K2);
+  5. slice 2 at full width: model_1v of ``examples/hmm.py`` (the same
+     shape, ``vectorized_markov``) trained for 5 SVI steps with AutoDelta,
+     ``TraceEnum_ELBO(max_plate_nesting=3)`` and Adam: the step-0 ELBO
+     through K2 against the same ELBO through the plain scan, finite
+     losses, exactly 5 K2 forward and 5 K2 backward launches and no K1
+     launch, and one profiled step;
+  6. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+     backward), the card's name and power limit, then the result line.
 
-Tolerances: forward atol 1e-4 on log values; gradients rtol 1e-4 with atol
-1e-5 * max|g| (the kernel sums in another order than cuBLAS); the HMM
+Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
+atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS); the HMM
 log-likelihood rtol 1e-4 against the same reduction through the plain
-version.  Without a CUDA device, or without the package beside this
-script, it exits non-zero and prints no result.
+version.  K2 forward atol 1e-4 plus rtol 1e-6 against the plain version
+(the carry grows like T times the emission scale, and float32 rounds it at
+that size), and the first row atol 1e-4 plus 1e-5 * max|alpha| against a
+float64 filter; each gradient within rtol 1e-4 plus atol 1e-5 * max|grad|
+of the plain version's at the small shapes, rtol 1e-3 plus atol
+1e-4 * max|grad| at the main path's 127 dependent steps, where the plain
+version's own float32 gradient is about 7e-4 * max|grad| from float64's
+(both distances are printed); with states unreachable at the first step,
+each gradient within 1e-3 * max|grad| of the float64 plain version; the model_1v ELBO rtol 1e-5 against the same
+ELBO through the plain scan.  Without a CUDA device, or without the
+package beside this script, it exits non-zero and prints no result.
 """
 
 import json
@@ -35,6 +63,7 @@ PEAK_FP32_FLOPS = 67e12  # float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
 B, T, D, S, NN_DIM, NN_CHANNELS, STEPS = 32, 128, 51, 256, 32, 2, 5
+EMISSION = -35.0  # a step's summed emission log-factor on the main path, about
 
 
 class SmokeFailure(Exception):
@@ -168,11 +197,6 @@ def phase_k1(torch, lm):
     fwd_bytes = 4 * n * (M * K + K * N + M * N)
     bwd_flops = 4 * n * M * N * K + n * (2 * M * K + 2 * K * N + 2 * M * N)
     bwd_bytes = 4 * n * (2 * M * K + 2 * K * N + 2 * M * N)
-
-    def bound(flops, nbytes):
-        t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
     fb, bb = bound(fwd_flops, fwd_bytes), bound(bwd_flops, bwd_bytes)
     print(f"  timing at ({n}, {M}, {K}) @ ({n}, {K}, {N}) f32, strided halves:")
     print(f"    forward  kernel {fwd['kernel']:.4f} ms  plain {fwd['plain']:.4f} ms  bound {fb[0]:.4f} ms ({fb[1]})")
@@ -183,6 +207,12 @@ def phase_k1(torch, lm):
         "backward": {"max_abs_err": bwd_err, "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound": bb},
         "matmul_ms": matmul_ms,
     }
+
+
+def bound(flops, nbytes):
+    """The card's least time in ms for the work, and what bounds it."""
+    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def phase_slice(torch, lm):
@@ -234,6 +264,229 @@ def phase_slice(torch, lm):
     return launches, step_ms
 
 
+def filter64(alpha0, A, R, L=None):
+    """The scan's forward in float64 with the kernel's clip, for one row:
+    alpha0 (S,), A (S, S), R and L (T', S)."""
+    import torch
+
+    alpha0, A, R = alpha0.double(), A.double(), R.double()
+    finite = lambda v: torch.where(torch.isfinite(v), v, torch.zeros_like(v))  # noqa: E731
+    c = finite(A.amax(0))
+    Q = torch.exp(A - c)
+    alpha = alpha0
+    for t in range(R.shape[0]):
+        h = alpha if L is None else alpha + L[t].double()
+        m = finite(h.max())
+        z = torch.exp(h - m) @ Q
+        alpha = torch.log(z.clamp(min=torch.finfo(torch.float32).tiny)) + m + c + R[t]
+    return alpha
+
+
+def compare_k2(ms, inputs, g, label, grad_rtol, grad_atol):
+    """K2 forward and the gradients of all its inputs against the plain
+    version, and the first row's forward against ``filter64``; prints each
+    gradient's distance to the float64 plain version, for kernel and plain,
+    over that gradient's largest entry.  A gradient passes within
+    ``grad_atol * max|grad| + grad_rtol * |grad|`` of the plain one.
+    Returns the largest forward and gradient errors."""
+    import torch
+
+    outs, grads = [], []
+    for fn in (ms.markov_scan, ms.markov_scan_plain):
+        leaves = [None if t is None else t.detach().clone().requires_grad_() for t in inputs]
+        n = dict(ms.launches)
+        out = fn(*leaves)
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        if fn is ms.markov_scan:
+            check(ms.launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1},
+                  f"{label}: expected one K2 launch each way, got {ms.launches} after {n}")
+        outs.append(out.detach())
+        grads.append([None if t is None else t.grad for t in leaves])
+    out_k, out_p = outs
+    fwd_err = max_err(out_k, out_p)
+    alpha0, A, R, L = inputs
+    ref = filter64(alpha0[0], A if A.ndim == 2 else A[0], R[:, 0], None if L is None else L[:, 0])
+    f64_err = max_err(out_k[0].double(), ref)
+    print(f"  {label}: forward max abs err {fwd_err:.3g}, first row to float64 {f64_err:.3g}")
+    # each gradient's distance to float64, through the plain version
+    leaves64 = [None if t is None else t.detach().double().requires_grad_() for t in inputs]
+    (ms.markov_scan_plain(*leaves64) * g.double()).sum().backward()
+    bwd_err, failures = 0.0, []
+    for name, a, b, c in zip(("alpha0", "A", "R", "L"), *grads, leaves64):
+        if a is None:
+            continue
+        scale = float(c.grad.abs().max()) + 1e-30
+        k64 = float((a.double() - c.grad).abs().max()) / scale
+        p64 = float((b.double() - c.grad).abs().max()) / scale
+        excess = float(((a - b).abs() - (grad_atol * float(b.abs().max()) + grad_rtol * b.abs())).max())
+        print(f"    d{name}: max abs err {max_err(a, b):.3g} (max|grad| {scale:.3g}); to float64 over "
+              f"max|grad|: kernel {k64:.3g}, plain {p64:.3g}")
+        bwd_err = max(bwd_err, max_err(a, b))
+        if not bool(torch.isfinite(a).all()):
+            failures.append(f"non-finite d{name}")
+        if excess > 0:
+            failures.append(f"d{name} outside atol {grad_atol} * max|grad| + rtol {grad_rtol} of plain by {excess:.3g}")
+    check(bool(torch.isfinite(out_k).all()), f"{label}: non-finite forward output")
+    fwd_excess = float(((out_k - out_p).abs() - (1e-4 + 1e-6 * out_p.abs())).max())
+    check(fwd_excess <= 0, f"{label}: forward outside atol 1e-4 + rtol 1e-6 of plain by {fwd_excess:.3g}")
+    check(f64_err <= 1e-4 + 1e-5 * float(ref.abs().max()), f"{label}: forward differs from float64 by {f64_err}")
+    check(not failures, f"{label}: " + "; ".join(failures))
+    return fwd_err, bwd_err
+
+
+def check_k2_f64(ms, inputs, g, label, tol):
+    """K2's forward against the plain version, and each gradient within
+    ``tol * max|grad|`` of the plain version's in float64."""
+    import torch
+
+    leaves = [None if t is None else t.detach().clone().requires_grad_() for t in inputs]
+    out = ms.markov_scan(*leaves)
+    (out * g).sum().backward()
+    out = out.detach()
+    with torch.no_grad():
+        out_p = ms.markov_scan_plain(*inputs)
+    leaves64 = [None if t is None else t.detach().double().requires_grad_() for t in inputs]
+    (ms.markov_scan_plain(*leaves64) * g.double()).sum().backward()
+    torch.cuda.synchronize()
+    fwd_excess = float(((out - out_p).abs() - (1e-4 + 1e-6 * out_p.abs())).max())
+    check(fwd_excess <= 0, f"{label}: forward outside atol 1e-4 + rtol 1e-6 of plain by {fwd_excess:.3g}")
+    errs = []
+    for name, a, c in zip(("alpha0", "A", "R", "L"), leaves, leaves64):
+        if a is None:
+            continue
+        check(bool(torch.isfinite(a.grad).all()), f"{label}: non-finite d{name}")
+        err = float((a.grad.double() - c.grad).abs().max()) / (float(c.grad.abs().max()) + 1e-30)
+        errs.append(f"d{name} {err:.3g}")
+        check(err <= tol, f"{label}: d{name} is {err:.3g} * max|grad| from float64, over {tol}")
+    print(f"  {label}: forward max abs err {max_err(out, out_p):.3g}; to float64 over max|grad|: {', '.join(errs)}")
+
+
+def phase_k2(torch, lm, ms):
+    print("phase 4: K2 Markov-chain scan against its plain version")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def log_transition(*shape):
+        return torch.log_softmax(randn(*shape, scale=2.0), dim=-1)
+
+    steps = T - 1
+    main = [randn(B, S), log_transition(S, S), randn(steps, B, S, scale=3.0) + EMISSION, None]
+    g = randn(B, S)
+    fwd_err, bwd_err = compare_k2(ms, main, g, f"B={B}, T'={steps}, S={S}", grad_rtol=1e-3, grad_atol=1e-4)
+    compare_k2(ms, [randn(3, 37), log_transition(37, 37), randn(6, 3, 37), randn(6, 3, 37)], randn(3, 37),
+               "ragged B=3, T'=6, S=37, with L", grad_rtol=1e-4, grad_atol=1e-5)
+    compare_k2(ms, [randn(3, 37), log_transition(3, 37, 37), randn(6, 3, 37), None], randn(3, 37),
+               "one A per row, B=3, T'=6, S=37", grad_rtol=1e-4, grad_atol=1e-5)
+    A = log_transition(33, 33)
+    A[A < -5.0] = -float("inf")
+    A[:, 5] = -float("inf")
+    compare_k2(ms, [randn(4, 33), A, randn(7, 4, 33), None], randn(4, 33), "-inf entries and a -inf column of A",
+               grad_rtol=1e-4, grad_atol=1e-5)
+    alpha0 = randn(4, 33)
+    alpha0[2] = -float("inf")
+    compare_k2(ms, [alpha0, log_transition(33, 33), randn(7, 4, 33), None], randn(4, 33),
+               "an alpha0 row all -inf", grad_rtol=1e-4, grad_atol=1e-5)
+    # a quarter of the states unreachable at the first step: their z is 0,
+    # clipped at FLT_MIN, while every later step's z of those columns is not
+    A = log_transition(S, S)
+    A[: S // 4, 3 * S // 4:] = -float("inf")
+    alpha0 = randn(B, S)
+    alpha0[:, S // 4:] = -float("inf")
+    check_k2_f64(ms, [alpha0, A, main[2], None], g, f"B={B}, T'={steps}, S={S}, states unreachable at step 0", 1e-3)
+
+    # timing at the main path's shape
+    alpha0, A, R, _ = main
+    with torch.no_grad():
+        out, saved = ms._forward_cuda(alpha0, A, R)
+        fwd = alternate({
+            "kernel": lambda: ms._forward_cuda(alpha0, A, R),
+            "plain": lambda: ms.markov_scan_plain(alpha0, A, R),
+        })
+
+        def k1_loop():
+            a = alpha0
+            for t in range(steps):
+                a = lm._forward_cuda(a, A) + R[t]
+            return a
+
+        k1_loop_ms = cuda_ms(k1_loop, 10)
+    leaves = [t.detach().clone().requires_grad_() for t in (alpha0, A, R)]
+    out_p = ms.markov_scan_plain(*leaves)
+    bwd = alternate({
+        "kernel": lambda: ms._backward_cuda(A, None, saved, g),
+        "plain": lambda: torch.autograd.grad(out_p, leaves, g, retain_graph=True),
+    })
+    # forward: T' products of (B, S) @ (S, S) plus an exp per h and a log
+    # per output; bytes: alpha0, A, R in, alpha_T' out.  Backward: each
+    # step's out is known (alpha_{t+1} - R_t), so the gradient needs two
+    # products of that size per step, rx = u @ Q^T and the dA fold, plus the
+    # elementwise terms; bytes: A, the carry stack and g in, dalpha0, dA and
+    # dR out.
+    prod = 2 * steps * B * S * S
+    fwd_bound = bound(prod + 3 * steps * B * S, 4 * (2 * B * S + S * S + steps * B * S))
+    bwd_bound = bound(2 * prod + 6 * steps * B * S, 4 * (2 * B * S + 2 * S * S + 2 * steps * B * S))
+    print(f"  timing at B={B}, T'={steps}, S={S} f32 (A shared):")
+    print(f"    forward  kernel {fwd['kernel']:.4f} ms ({1e3 * fwd['kernel'] / steps:.2f} us/step)  "
+          f"plain {fwd['plain']:.4f} ms  bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
+    print(f"    backward kernel {bwd['kernel']:.4f} ms ({1e3 * bwd['kernel'] / steps:.2f} us/step)  "
+          f"plain {bwd['plain']:.4f} ms  bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
+    print(f"    the route without K2, {steps} K1 forward launches: {k1_loop_ms:.4f} ms")
+    return {
+        "forward": {"max_abs_err": fwd_err, "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound": fwd_bound},
+        "backward": {"max_abs_err": bwd_err, "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound": bwd_bound},
+        "k1_loop_ms": k1_loop_ms,
+    }
+
+
+def phase_enum_slice(torch, lm, ms):
+    print(f"phase 5: model_1v SVI (TraceEnum_ELBO) at B={B}, T={T}, D={D}, S={S}")
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import hmm as example
+    from pyro_tpu_torch.infer import TraceEnum_ELBO
+    from pyro_tpu_torch.ops import markov_product
+
+    args = example.parse_args([
+        "--model", "1v", "--hidden-dim", str(S), "--num-sequences", str(B), "--max-length", str(T),
+        "--data-dim", str(D), "--num-steps", str(STEPS),
+    ])
+    sequences, lengths = example.synthetic_sequences(args.seed, B, T, D)
+    pyro.clear_param_store()
+    model, guide, svi = example.make_svi(args, args.learning_rate)
+
+    # the step-0 ELBO through K2 against the same ELBO through the plain scan
+    elbo = TraceEnum_ELBO(max_plate_nesting=3)
+    loss_k = float(elbo.loss(model, guide, sequences, lengths))
+    markov_product.markov_scan = ms.markov_scan_plain
+    try:
+        loss_p = float(elbo.loss(model, guide, sequences, lengths))
+    finally:
+        markov_product.markov_scan = ms.markov_scan
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  step-0 loss through K2 {loss_k!r}, through the plain scan {loss_p!r}, rel diff {rel:.3g}")
+    check(rel <= 1e-5, f"model_1v loss through K2 differs from the plain scan by rtol {rel}")
+
+    lm.launches.update(forward=0, backward=0)
+    ms.launches.update(forward=0, backward=0)
+    losses, step_ms = [], []
+    for _ in range(STEPS):
+        t0 = time.perf_counter()
+        losses.append(svi.step(sequences, lengths))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    k1, k2 = dict(lm.launches), dict(ms.launches)
+    print(f"  losses {losses}")
+    print(f"  ms per step {[round(t, 3) for t in step_ms]}")
+    print(f"  launches over {STEPS} steps: K2 {k2}, K1 {k1}")
+    check(all(map(lambda l: l == l and abs(l) != float("inf"), losses)), "non-finite loss")
+    check(k2 == {"forward": STEPS, "backward": STEPS}, f"expected one K2 launch each way per step, got {k2}")
+    check(k1 == {"forward": 0, "backward": 0}, f"expected no K1 launch, got {k1}")
+    profile_step(torch, svi, sequences, lengths)
+    return k2, step_ms
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -252,8 +505,9 @@ def profile_step(torch, svi, sequences, lengths):
     )
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k1_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith("lme_")) / 1e3
+    k2_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith("ms_")) / 1e3
     print(f"  profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), K1 kernels {k1_ms:.3f} ms")
+          f"({100 * busy_ms / wall_ms:.1f}%), K1 kernels {k1_ms:.3f} ms, K2 kernels {k2_ms:.3f} ms")
     for e in kernels[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
 
@@ -271,6 +525,7 @@ def main():
           "pyro_tpu_torch must come from this checkout")
     from pyro_tpu_torch.ops import cuda_build
     from pyro_tpu_torch.ops import log_matmul as lm
+    from pyro_tpu_torch.ops import markov_scan as ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -283,23 +538,31 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(f"  {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    cuda_build.build_all(["log_matmul"])
-    print(f"  built log_matmul in {time.perf_counter() - t0:.2f} s")
-    for line in cuda_build.BUILD_LOGS.get("log_matmul", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print("   ", line.strip())
+    cuda_build.build_all(["log_matmul", "markov_scan"])
+    print(f"  built log_matmul and markov_scan in {time.perf_counter() - t0:.2f} s")
+    for name in ("log_matmul", "markov_scan"):
+        for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                print("   ", name, line.strip())
 
     k1 = phase_k1(torch, lm)
-    launches, step_ms = phase_slice(torch, lm)
+    k1_launches, _ = phase_slice(torch, lm)
+    k2 = phase_k2(torch, lm, ms)
+    k2_launches, _ = phase_enum_slice(torch, lm, ms)
 
     kernels = []
-    for name, direction, line in (("logmatmulexp_fwd", "forward", 36), ("logmatmulexp_bwd", "backward", 59)):
-        r = k1[direction]
+    for name, source, replaces, direction, result, launches in (
+        ("logmatmulexp_fwd", "log_matmul.cu", "pyro_tpu/ops/log_matmul.py:36", "forward", k1, k1_launches),
+        ("logmatmulexp_bwd", "log_matmul.cu", "pyro_tpu/ops/log_matmul.py:59", "backward", k1, k1_launches),
+        ("markov_scan_fwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:469", "forward", k2, k2_launches),
+        ("markov_scan_bwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:469", "backward", k2, k2_launches),
+    ):
+        r = result[direction]
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "pyro_tpu_torch/csrc/log_matmul.cu",
-            "replaces": f"pyro_tpu/ops/log_matmul.py:{line}",
+            "source": f"pyro_tpu_torch/csrc/{source}",
+            "replaces": replaces,
             "launches": launches[direction],
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],

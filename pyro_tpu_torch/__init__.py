@@ -8,7 +8,7 @@ discrete HMM runs as a hand-written CUDA kernel there.
 
 from . import distributions, infer, optim, poutine
 from .params.param_store import clear_param_store, get_param_store
-from .primitives import module, param, plate, sample
+from .primitives import module, param, plate, sample, vectorized_markov
 from .settings import get_default_device, set_default_device
 
 __version__ = "0.1.0"
@@ -26,4 +26,5 @@ __all__ = [
     "poutine",
     "sample",
     "set_default_device",
+    "vectorized_markov",
 ]

@@ -1,4 +1,5 @@
 from . import constraints
+from .continuous import Beta
 from .delta import Delta
 from .discrete import Bernoulli, Categorical
 from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution
@@ -8,6 +9,7 @@ from .transforms import StickBreakingTransform, biject_to, transform_to
 
 __all__ = [
     "Bernoulli",
+    "Beta",
     "Categorical",
     "Delta",
     "Dirichlet",

@@ -49,6 +49,14 @@ class Bernoulli(Distribution):
         logits = self.logits
         return value * logits - F.softplus(logits)
 
+    def enumerate_support(self, expand=True):
+        """The values 0 and 1 in a new leftmost dim, broadcast to the batch
+        shape only when ``expand``."""
+        param = self._probs if self._probs is not None else self._logits
+        values = torch.arange(2.0, dtype=param.dtype, device=param.device)
+        values = values.reshape((2,) + (1,) * len(self.batch_shape))
+        return values.expand((2,) + self.batch_shape) if expand else values
+
     def expand(self, batch_shape, _instance=None):
         batch_shape = tuple(batch_shape)
         if self._probs is not None:
@@ -102,3 +110,11 @@ class Categorical(Distribution):
         value = value.expand(shape).long()
         logits = logits.expand(shape + logits.shape[-1:])
         return torch.gather(logits, -1, value.unsqueeze(-1)).squeeze(-1)
+
+    def enumerate_support(self, expand=True):
+        """The categories in a new leftmost dim, broadcast to the batch
+        shape only when ``expand``."""
+        param = self._probs if self._probs is not None else self._logits
+        values = torch.arange(self._num_events, device=param.device)
+        values = values.reshape((self._num_events,) + (1,) * len(self.batch_shape))
+        return values.expand((self._num_events,) + self.batch_shape) if expand else values

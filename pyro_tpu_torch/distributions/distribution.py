@@ -163,6 +163,9 @@ class MaskedDistribution(Distribution):
     def sample(self, generator=None, sample_shape=()):
         return self.base_dist.expand(self.batch_shape).sample(generator, sample_shape)
 
+    def enumerate_support(self, expand=True):
+        return self.base_dist.enumerate_support(expand=expand)
+
     def rsample(self, generator=None, sample_shape=()):
         return self.base_dist.expand(self.batch_shape).rsample(generator, sample_shape)
 
@@ -219,6 +222,14 @@ class ExpandedDistribution(Distribution):
 
     def sample(self, generator=None, sample_shape=()):
         return self._draw(lambda s: self.base_dist.sample(generator, s), sample_shape)
+
+    def enumerate_support(self, expand=True):
+        support = self.base_dist.enumerate_support(expand=False)
+        n = support.shape[0]
+        support = support.reshape((n,) + (1,) * len(self.batch_shape) + self.event_shape)
+        if expand:
+            support = support.expand((n,) + self.batch_shape + self.event_shape)
+        return support
 
     def rsample(self, generator=None, sample_shape=()):
         return self._draw(lambda s: self.base_dist.rsample(generator, s), sample_shape)

@@ -1,12 +1,17 @@
-"""Neural discrete HMM (model 7 of ``examples/hmm.py``) trained with SVI.
+"""Discrete HMMs of ``examples/hmm.py`` trained with SVI.
 
-model_7 fuses a neural-emission HMM into one ``DiscreteHMM`` sample
-statement, so training runs the exact O(log T) marginalisation, whose
-log-matmul-exp is the CUDA kernel on the card.  With no enumerated site,
-``Trace_ELBO`` gives the loss that ``TraceEnum_ELBO`` gives in the JAX
-example.
+* model 7 (``--model 7``, the default) fuses a neural-emission HMM into one
+  ``DiscreteHMM`` sample statement, so training runs the exact O(log T)
+  marginalisation, whose log-matmul-exp is the CUDA kernel on the card.
+  With no enumerated site, ``Trace_ELBO`` gives the loss that
+  ``TraceEnum_ELBO`` gives in the JAX example.
+* model 1v (``--model 1v``) is the HMM with Bernoulli tones, its time
+  dimension vectorized by ``vectorized_markov`` and its hidden states
+  enumerated; ``TraceEnum_ELBO`` eliminates the chain with the Markov-chain
+  scan, the CUDA kernel of ``ops/markov_scan.py`` on the card.
 
-Run on the card:  python -m pyro_tpu_torch.examples.hmm --num-steps 20
+Run on the card:  python -m pyro_tpu_torch.examples.hmm --model 1v --num-steps 20
+(``--cpu`` for the CPU)
 """
 
 from __future__ import annotations
@@ -22,8 +27,9 @@ from torch import nn
 import pyro_tpu_torch as pyro
 import pyro_tpu_torch.distributions as dist
 from pyro_tpu_torch import poutine
-from pyro_tpu_torch.infer import SVI, Trace_ELBO
+from pyro_tpu_torch.infer import SVI, Trace_ELBO, TraceEnum_ELBO
 from pyro_tpu_torch.infer.autoguide import AutoDelta
+from pyro_tpu_torch.ops.indexing import Vindex
 from pyro_tpu_torch.optim import Adam
 
 
@@ -55,11 +61,12 @@ _FLAX_LAYERS = {"Conv_0": "conv", "Dense_0": "dense_x", "Dense_1": "dense_y", "D
 
 
 def params_from_jax(named):
-    """Map the JAX store's unconstrained model_7 params (name -> numpy array)
-    onto this package's names: flax Dense kernels (in, out) become
-    ``nn.Linear`` weights (out, in), the flax Conv kernel (width, in, out)
-    becomes the ``Conv1d`` weight (out, in, width); biases and
-    ``AutoDelta.probs_x`` (stick-breaking coordinates) are copied as is."""
+    """Map the JAX store's unconstrained model_7 or model_1v params (name ->
+    numpy array) onto this package's names: flax Dense kernels (in, out)
+    become ``nn.Linear`` weights (out, in), the flax Conv kernel (width, in,
+    out) becomes the ``Conv1d`` weight (out, in, width); biases,
+    ``AutoDelta.probs_x`` (stick-breaking coordinates) and
+    ``AutoDelta.probs_y`` (logits) are copied as is."""
     device = pyro.get_default_device()
     out = {}
     for name, value in named.items():
@@ -100,6 +107,43 @@ def model_7(sequences, lengths, args, include_prior=True):
         pyro.sample("y", hmm_dist, obs=y)
 
 
+def model_1v(sequences, lengths, args, include_prior=True):
+    """The HMM with Bernoulli tones, vectorized over sequences (dim -3) and,
+    by ``vectorized_markov``, over time (dim -2); tones at dim -1."""
+    num_sequences, max_length, data_dim = sequences.shape
+    device = sequences.device
+    with poutine.mask(mask=include_prior):
+        probs_x = pyro.sample(
+            "probs_x",
+            dist.Dirichlet(0.9 * torch.eye(args.hidden_dim, device=device) + 0.1).to_event(1),
+        )
+        probs_y = pyro.sample(
+            "probs_y",
+            dist.Beta(torch.tensor(0.1, device=device), torch.tensor(0.9, device=device))
+            .expand((args.hidden_dim, data_dim))
+            .to_event(2),
+        )
+    tones_plate = pyro.plate("tones", data_dim, dim=-1)
+    with pyro.plate("sequences", num_sequences, dim=-3) as batch:
+        lengths_b = lengths[batch]
+        batch = batch[:, None]
+        x_prev = 0
+        for t in pyro.vectorized_markov(name="time", size=max_length, dim=-2):
+            with poutine.mask(mask=(t < lengths_b[:, None])[..., None]):
+                x_curr = pyro.sample(
+                    f"x_{t}",
+                    dist.Categorical(Vindex(probs_x)[..., x_prev, :]),
+                    infer={"enumerate": "parallel"},
+                )
+                with tones_plate:
+                    pyro.sample(
+                        f"y_{t}",
+                        dist.Bernoulli(Vindex(probs_y)[..., x_curr.squeeze(-1), :]),
+                        obs=Vindex(sequences)[batch, t],
+                    )
+                x_prev = x_curr
+
+
 def synthetic_sequences(seed, num_sequences, max_length, data_dim, hidden_dim=4):
     """Sequences sampled with numpy from a random ground-truth HMM."""
     rng = np.random.default_rng(seed)
@@ -115,9 +159,23 @@ def synthetic_sequences(seed, num_sequences, max_length, data_dim, hidden_dim=4)
     return torch.tensor(ys, device=device), torch.full((num_sequences,), max_length, device=device)
 
 
+def _is_global(msg):
+    return msg["name"].startswith("probs_")
+
+
 def make_svi(args, lr=0.05):
-    """model_7, its AutoDelta guide and SVI with Trace_ELBO and Adam, as
-    ``examples/hmm.py::main`` builds them.  Sets ``args.tones_generator``."""
+    """The model chosen by ``args.model`` (7 when unset), its AutoDelta guide
+    and SVI with Adam, as ``examples/hmm.py::main`` builds them: model_7
+    with Trace_ELBO (sets ``args.tones_generator``), model_1v with
+    ``TraceEnum_ELBO(max_plate_nesting=3)``."""
+    if str(getattr(args, "model", "7")) == "1v":
+
+        def model_v(sequences, lengths):
+            return model_1v(sequences, lengths, args)
+
+        guide = AutoDelta(poutine.block(model_v, expose_fn=_is_global))
+        elbo = TraceEnum_ELBO(max_plate_nesting=3)
+        return model_v, guide, SVI(model_v, guide, Adam({"lr": lr}), elbo, seed=args.seed)
     if getattr(args, "tones_generator", None) is None:
         torch.manual_seed(args.seed)
         args.tones_generator = TonesGenerator(args.hidden_dim, args.nn_dim, args.nn_channels, args.data_dim).to(
@@ -127,12 +185,12 @@ def make_svi(args, lr=0.05):
     def model(sequences, lengths):
         return model_7(sequences, lengths, args)
 
-    guide = AutoDelta(poutine.block(model, expose_fn=lambda msg: msg["name"].startswith("probs_")))
+    guide = AutoDelta(poutine.block(model, expose_fn=_is_global))
     return model, guide, SVI(model, guide, Adam({"lr": lr}), Trace_ELBO(), seed=args.seed)
 
 
 def run(args):
-    """Train model_7 on synthetic sequences; returns the per-step losses."""
+    """Train the chosen model on synthetic sequences; returns the per-step losses."""
     sequences, lengths = synthetic_sequences(args.seed, args.num_sequences, args.max_length, args.data_dim)
     pyro.clear_param_store()
     _, _, svi = make_svi(args, args.learning_rate)
@@ -149,6 +207,7 @@ def run(args):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--model", choices=["7", "1v"], default="7")
     p.add_argument("--hidden-dim", type=int, default=8)
     p.add_argument("--num-sequences", type=int, default=20)
     p.add_argument("--max-length", type=int, default=32)

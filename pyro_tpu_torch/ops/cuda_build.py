@@ -4,7 +4,8 @@ Each ``pyro_tpu_torch/csrc/<name>.cu`` has a plain C interface.  It is
 compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so``
 at the root of the checkout on first use (the hash is of the source, so an
 edited source is rebuilt) and loaded with ctypes.  ``build_all`` starts one
-``nvcc`` per source at once and waits for all of them.
+``nvcc`` per source at once and waits for all of them; the sources are
+``log_matmul.cu`` (K1) and ``markov_scan.cu`` (K2).
 """
 
 from __future__ import annotations

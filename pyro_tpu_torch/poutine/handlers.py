@@ -17,7 +17,8 @@ from .trace_struct import Trace
 
 
 class TraceMessenger(Messenger):
-    """Record sample and param sites into a Trace."""
+    """Record sample and param sites, and the ``markov_chain`` records of
+    ``vectorized_markov``, into a Trace."""
 
     def __init__(self, param_only: bool = False):
         super().__init__()
@@ -35,7 +36,9 @@ class TraceMessenger(Messenger):
         return self.trace
 
     def _postprocess_message(self, msg):
-        if msg["type"] in ("sample", "param") and (not self.param_only or msg["type"] == "param"):
+        if msg["type"] in ("sample", "param", "markov_chain") and (
+            not self.param_only or msg["type"] == "param"
+        ):
             site = dict(msg)
             site.pop("continuation", None)
             self.trace.add_node(msg["name"], **site)

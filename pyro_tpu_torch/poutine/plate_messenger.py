@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from ..distributions.distribution import Distribution
+from ..distributions.distribution import Distribution, ExpandedDistribution
 from ..settings import get_default_device
 from .messenger import Messenger
 from .runtime import _DIM_ALLOCATOR, CondIndepStackFrame, am_i_wrapped, apply_stack, new_message
@@ -109,4 +109,10 @@ class PlateMessenger(Messenger):
                 target[i] = actual[i] if len(actual) >= -i else 1
         target = tuple(target)
         if target != actual:
-            msg["fn"] = fn.expand(target)
+            if msg["infer"].get("enumerate") == "parallel":
+                # an enumerated site never draws plate-many samples: a lazy
+                # broadcast lets compute_log_prob keep its factor compact
+                # (size-1 plate axes, squeezed when packed)
+                msg["fn"] = ExpandedDistribution(fn, target)
+            else:
+                msg["fn"] = fn.expand(target)

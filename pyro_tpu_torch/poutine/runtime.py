@@ -9,6 +9,7 @@ sampling uses torch's global generator.
 
 from __future__ import annotations
 
+import functools
 from collections import namedtuple
 from typing import Any, Callable, Dict, List, Optional
 
@@ -58,6 +59,41 @@ class _DimAllocator:
 
 
 _DIM_ALLOCATOR = _DimAllocator()
+
+
+class _EnumAllocator:
+    """Enumeration dims, allocated to the left of every plate dim.
+    ``set_first_available_dim`` is called by enumeration-aware inference
+    with ``-1 - max_plate_nesting``."""
+
+    def __init__(self) -> None:
+        self.next_available_dim: Optional[int] = None
+        self.next_available_id = 0
+        self.dim_to_id: Dict[int, int] = {}
+
+    def set_first_available_dim(self, first_available_dim: int) -> None:
+        assert first_available_dim < 0
+        self.next_available_dim = first_available_dim
+        self.next_available_id = 0
+        self.dim_to_id.clear()
+
+    def allocate(self):
+        """A fresh dim, never recycled (``pyro.markov``'s recyclable local
+        dims are not ported), and its id."""
+        if self.next_available_dim is None:
+            raise ValueError(
+                "enumeration requires an enclosing enum handler: use TraceEnum_ELBO "
+                "or EnumMessenger(first_available_dim=...)"
+            )
+        dim = self.next_available_dim
+        id_ = self.next_available_id
+        self.next_available_id += 1
+        self.next_available_dim -= 1
+        self.dim_to_id[dim] = id_
+        return dim, id_
+
+
+_ENUM_ALLOCATOR = _EnumAllocator()
 
 
 def new_message(type: str, name: Optional[str], fn: Optional[Callable], args: tuple, kwargs: dict,
@@ -119,3 +155,21 @@ def apply_stack(msg: Dict[str, Any]) -> Dict[str, Any]:
 
 def am_i_wrapped() -> bool:
     return len(_PYRO_STACK) > 0
+
+
+def effectful(fn: Optional[Callable] = None, type: Optional[str] = None):
+    """Wrap ``fn`` so that, under handlers, a call becomes a message of
+    ``type`` sent down the stack (its default behaviour calls ``fn``)."""
+    if fn is None:
+        return functools.partial(effectful, type=type)
+    assert type is not None and type != "message"
+
+    @functools.wraps(fn)
+    def _fn(*args, name=None, infer=None, obs=None, **kwargs):
+        if not am_i_wrapped():
+            return fn(*args, **kwargs)
+        msg = new_message(type, name, fn, args, kwargs, value=obs, infer=infer or {})
+        msg["is_observed"] = obs is not None
+        return apply_stack(msg)["value"]
+
+    return _fn

@@ -1,5 +1,5 @@
 """Modeling primitives (counterpart of ``pyro_tpu/primitives.py``):
-sample, param, plate and module."""
+sample, param, plate, vectorized_markov and module."""
 
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from .distributions import constraints as _constraints
 from .params.param_store import get_param_store, param_with_module_name
 from .poutine.plate_messenger import PlateMessenger
 from .poutine.runtime import am_i_wrapped, apply_stack, new_message
+from .poutine.vectorized_markov import vectorized_markov
 
 
 def sample(name: str, fn, *args, obs=None, rng_key=None, infer: Optional[dict] = None, sample_shape=(), **kwargs):

@@ -71,7 +71,12 @@ def check_site_shape(site, max_plate_nesting: int) -> None:
         )
     if max_plate_nesting < len(actual_shape):
         actual_shape = actual_shape[len(actual_shape) - max_plate_nesting:]
+    # a model-enumerated site keeps a compact log_prob: size 1 stands for
+    # a plate its factor is constant over
+    compact_ok = site["infer"].get("_enumerate_dim") is not None
     for actual_size, expected_size in zip_longest(reversed(actual_shape), reversed(expected_shape), fillvalue=1):
+        if compact_ok and actual_size == 1:
+            continue
         if expected_size != -1 and expected_size != actual_size:
             raise ValueError(
                 f'at site "{site["name"]}", invalid log_prob shape\n'

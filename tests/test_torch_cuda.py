@@ -5,8 +5,14 @@ the JAX package, so on a machine without JAX run them as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: forward atol 1e-4 on log values; gradients rtol 1e-4 with atol
-1e-5 * max|g| (the kernel sums in another order than cuBLAS).
+Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
+atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS).  K2,
+the Markov-chain scan: forward atol 1e-4 plus rtol 1e-6 (the carry grows
+like T times the emission scale, and float32 rounds it at that size);
+gradients as K1's over a few steps, and rtol 1e-3 with atol 1e-4 times the
+gradient's largest entry over the main path's 127 dependent steps, where
+the plain version's own float32 gradient is about 7e-4 of that from
+float64's (``chip_smoke.py`` prints both distances).
 """
 
 import numpy as np
@@ -14,6 +20,7 @@ import pytest
 import torch
 
 from pyro_tpu_torch.ops import log_matmul as lm
+from pyro_tpu_torch.ops import markov_scan as ms
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +105,96 @@ def test_kernel_rejects_bad_operands(cuda):
         lm.logmatmulexp(x, x.T)
     with pytest.raises(ValueError):
         lm.logmatmulexp(torch.zeros(4, 8, device=cuda), torch.zeros(8, 4))
+
+
+def _scan_inputs(rng, B, T, S, cuda, per_row_A=False, with_L=False, r_scale=1.0):
+    A = rng.normal(size=(B, S, S) if per_row_A else (S, S)) * 2
+    alpha0 = rng.normal(size=(B, S))
+    R = rng.normal(size=(T, B, S)) * r_scale - (35.0 if r_scale > 1 else 0.0)
+    L = rng.normal(size=(T, B, S)) if with_L else None
+    return [None if a is None else torch.tensor(a, dtype=torch.float32, device=cuda) for a in (alpha0, A, R, L)]
+
+
+def _compare_scan(inputs, g, grad_rtol=1e-4, grad_atol=None):
+    leaves_k = [None if t is None else t.clone().requires_grad_() for t in inputs]
+    leaves_p = [None if t is None else t.clone().requires_grad_() for t in inputs]
+    n = dict(ms.launches)
+    out_k = ms.markov_scan(*leaves_k)
+    out_p = ms.markov_scan_plain(*leaves_p)
+    (out_k * g).sum().backward()
+    (out_p * g).sum().backward()
+    torch.cuda.synchronize()
+    assert ms.launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1}
+    assert torch.isfinite(out_k).all()
+    torch.testing.assert_close(out_k, out_p, rtol=1e-6, atol=1e-4)
+    for k, p in zip(leaves_k, leaves_p):
+        if k is not None:
+            assert torch.isfinite(k.grad).all()
+            atol = 1e-5 * g.abs().max().item() if grad_atol is None else grad_atol * p.grad.abs().max().item()
+            torch.testing.assert_close(k.grad, p.grad, rtol=grad_rtol, atol=atol)
+
+
+@pytest.mark.parametrize(
+    "B,T,S,per_row_A,with_L,r_scale",
+    [
+        (32, 127, 256, False, False, 3.0),  # the main path's shape, emissions about -35 per step
+        (3, 6, 37, False, False, 1.0),
+        (3, 6, 37, True, True, 1.0),
+        (1, 5, 300, False, True, 1.0),
+    ],
+)
+def test_scan_kernel_matches_plain(cuda, B, T, S, per_row_A, with_L, r_scale):
+    rng = np.random.default_rng(S)
+    inputs = _scan_inputs(rng, B, T, S, cuda, per_row_A, with_L, r_scale)
+    g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
+    if T > 100:
+        _compare_scan(inputs, g, grad_rtol=1e-3, grad_atol=1e-4)
+    else:
+        _compare_scan(inputs, g)
+
+
+def test_scan_kernel_neg_inf(cuda):
+    """Zero-probability transitions (-inf in A, a whole column among them)
+    and a row of alpha0 that is all -inf give finite gradients."""
+    rng = np.random.default_rng(3)
+    alpha0, A, R, _ = _scan_inputs(rng, 4, 7, 33, cuda)
+    A[A < -1.5] = -float("inf")
+    A[:, 5] = -float("inf")
+    alpha0[2] = -float("inf")
+    g = torch.tensor(rng.normal(size=(4, 33)), dtype=torch.float32, device=cuda)
+    _compare_scan([alpha0, A, R, None], g)
+
+
+@pytest.mark.parametrize("B,T,S,tol", [(4, 20, 16, 1e-4), (32, 127, 256, 1e-3)])
+def test_scan_kernel_unreachable_states(cuda, B, T, S, tol):
+    """Structural zeros of A leave a quarter of the states unreachable from
+    alpha0's support, so their z is 0, clipped at FLT_MIN, at the first
+    step and at no later one.  The dA fold must not let those entries set
+    the shift of their columns for every step: each gradient stays within
+    ``tol * max|grad|`` of the plain version's in float64."""
+    rng = np.random.default_rng(11)
+    A = np.log(rng.dirichlet(np.ones(S), size=S))
+    A[: S // 4, 3 * S // 4:] = -np.inf
+    alpha0 = rng.normal(size=(B, S))
+    alpha0[:, S // 4:] = -np.inf
+    R = rng.normal(size=(T, B, S)) * 3 - 35.0
+    inputs = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in (alpha0, A, R)]
+    g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    out = ms.markov_scan(*leaves)
+    (out * g).sum().backward()
+    leaves64 = [t.double().requires_grad_() for t in inputs]
+    out64 = ms.markov_scan_plain(*leaves64)
+    (out64 * g.double()).sum().backward()
+    torch.testing.assert_close(out.double(), out64, rtol=1e-6, atol=1e-4)
+    for k, p in zip(leaves, leaves64):
+        assert torch.isfinite(k.grad).all()
+        torch.testing.assert_close(k.grad.double(), p.grad, rtol=0, atol=tol * p.grad.abs().max().item())
+
+
+def test_scan_kernel_rejects_bad_operands(cuda):
+    alpha0 = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError):
+        ms.markov_scan(alpha0, torch.zeros(8, 8, device=cuda), torch.zeros(3, 4, 9, device=cuda))
+    with pytest.raises(TypeError):
+        ms.markov_scan(alpha0.double(), torch.zeros(8, 8, device=cuda).double(), torch.zeros(3, 4, 8, device=cuda))

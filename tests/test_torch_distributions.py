@@ -82,6 +82,19 @@ CASES = {
 }
 
 
+# the Beta cases draw from a generator of their own, so that the draws
+# above and below keep their values
+_BETA_RNG = np.random.default_rng(1)
+BETA_C1, BETA_C0 = (_BETA_RNG.uniform(0.1, 3.0, size=(3, 4)).astype(F32) for _ in range(2))
+BETA_VALUE = _BETA_RNG.uniform(0.05, 0.95, size=(2, 3, 4)).astype(F32)
+CASES["beta"] = (lambda d, a: d.Beta(a(BETA_C1), a(BETA_C0)), BETA_VALUE)
+# model_1v's probs_y prior: scalar concentrations expanded to (S, D)
+CASES["beta_expanded_event"] = (
+    lambda d, a: d.Beta(a(F32(0.1)), a(F32(0.9))).expand((3, 4)).to_event(2),
+    BETA_VALUE,
+)
+
+
 @pytest.fixture(autouse=True)
 def _port_on_cpu():
     pyro.set_default_device("cpu")
@@ -167,3 +180,20 @@ def test_broadcast_shape():
         broadcast_shape((3,), (4,))
     with pytest.raises(ValueError):
         broadcast_shape((1,), (4,), strict=True)
+
+
+ENUMERABLE = {
+    "bernoulli": lambda d, a: d.Bernoulli(probs=a(PROBS)),
+    "categorical": lambda d, a: d.Categorical(logits=a(CAT_LOGITS)),
+    "expanded_categorical": lambda d, a: d.Categorical(logits=a(CAT_LOGITS[0])).expand((2, 5)),
+    "masked_bernoulli": lambda d, a: d.Bernoulli(logits=a(LOGITS)).mask(a(MASK[..., None])),
+}
+
+
+@pytest.mark.parametrize("expand", [True, False])
+@pytest.mark.parametrize("case", sorted(ENUMERABLE))
+def test_enumerate_support_matches_jax(case, expand):
+    expected = np.asarray(ENUMERABLE[case](jdist, _jax).enumerate_support(expand=expand))
+    actual = ENUMERABLE[case](tdist, _torch).enumerate_support(expand=expand).numpy()
+    assert actual.shape == expected.shape
+    np.testing.assert_array_equal(actual, expected)

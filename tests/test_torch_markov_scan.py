@@ -1,0 +1,246 @@
+"""The port's Markov-chain scan (``ops/markov_scan.py``, K2's plain version)
+and its chain elimination (``ops/markov_product.py::_try_scan_elimination``)
+against a float64 forward filter and the JAX package, on the CPU.
+
+The same packed factors (an initial potential ``alpha0`` over the chain's
+first state, a transition ``A`` shared by the plate rows or one per row, or
+one per step, emissions ``R`` on the current state and ``L`` on the
+previous one) go through the port's and the JAX ``_try_scan_elimination``;
+gradients go against ``jax.vjp`` of the JAX scan and against torch autograd
+of a float64 direct form with the same clip at FLT_MIN.
+Tolerances: values rtol 1e-5 with atol 1e-5 (float32 carries of size T
+times the emission scale); gradients rtol 1e-4 with atol 1e-5 * max|grad|
+(float32 products summed in another order).
+"""
+
+import functools
+from collections import OrderedDict
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pyro_tpu.ops import markov_product as jmp
+from pyro_tpu.ops import packed as jpacked
+import pyro_tpu_torch as pyro
+from pyro_tpu_torch.ops import markov_product as tmp
+from pyro_tpu_torch.ops import markov_scan as ms
+from pyro_tpu_torch.ops import packed as tpacked
+
+FLT_MIN = float(np.finfo(np.float32).tiny)
+
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    pyro.set_default_device("cpu")
+    yield
+
+
+def _case(seed, B, T, S, per_row_A=False, with_L=False, emission=0.0, time_varying=False):
+    rng = np.random.default_rng(seed)
+    a_dims, shape_A = ("tlr", (T, S, S)) if time_varying else ("blr", (B, S, S)) if per_row_A else ("lr", (S, S))
+    A = rng.normal(size=shape_A) * 2
+    A = A - np.log(np.exp(A).sum(-1, keepdims=True))  # log transition probabilities
+    out = {
+        "alpha0": rng.normal(size=(B, S)),
+        "A": A,
+        "R": rng.normal(size=(T, B, S)) + emission,
+        "L": rng.normal(size=(T, B, S)) if with_L else None,
+        "g": rng.normal(size=(B, S)),
+    }
+    out = {k: None if v is None else v.astype(np.float32) for k, v in out.items()}
+    out["a_dims"] = a_dims
+    return out
+
+
+def _neg_inf_A():
+    c = _case(3, 4, 6, 7)
+    diag = np.diag(c["A"]).copy()
+    c["A"][c["A"] < -3.0] = -np.inf
+    # every state keeps itself reachable, but for state 2, which no
+    # transition reaches: its log-potential is clipped to log(FLT_MIN) at
+    # every step
+    np.fill_diagonal(c["A"], diag)
+    c["A"][:, 2] = -np.inf
+    return c
+
+
+def _neg_inf_row():
+    c = _case(4, 4, 6, 7)
+    c["alpha0"][1] = -np.inf
+    return c
+
+
+CASES = {
+    "shared": lambda: _case(0, 4, 6, 7),
+    "with_L": lambda: _case(1, 3, 7, 5, with_L=True),
+    "per_row_A": lambda: _case(2, 3, 6, 5, per_row_A=True, with_L=True),
+    "neg_inf_A": _neg_inf_A,
+    "neg_inf_row": _neg_inf_row,
+    "large_emissions": lambda: _case(5, 4, 6, 7, emission=-35.0),
+}
+def _direct64(a_dims, alpha0, A, R, L=None):
+    """alpha_T by the definition, in float64 torch, with detached shifts
+    and the clip at FLT_MIN; A (S, S), (B, S, S) or, one per step, (T, S, S)."""
+    finite = lambda v: torch.where(torch.isfinite(v), v, torch.zeros_like(v))  # noqa: E731
+    alpha = alpha0
+    for t in range(R.shape[0]):
+        At = A[t] if a_dims == "tlr" else A
+        h = alpha if L is None else alpha + L[t]
+        m = finite(h.detach().amax(-1, keepdim=True))
+        c = finite(At.detach().amax(-2, keepdim=True))
+        if At.ndim == 2:
+            z = torch.exp(h - m) @ torch.exp(At - c)
+        else:
+            z = torch.einsum("bl,blr->br", torch.exp(h - m), torch.exp(At - c))
+        alpha = torch.log(z.clamp(min=FLT_MIN)) + m + c.squeeze(-2) + R[t]
+    return alpha
+
+
+def _torch_leaves(c, dtype=torch.float32):
+    return [
+        None if c[k] is None else torch.tensor(c[k], dtype=dtype, requires_grad=True)
+        for k in ("alpha0", "A", "R", "L")
+    ]
+
+
+def _grads(leaves):
+    return [None if x is None else x.grad.numpy() for x in leaves]
+
+
+def _close(actual, expected, rtol=1e-4):
+    for a, e in zip(actual, expected):
+        if e is None:
+            continue
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, e, rtol=rtol, atol=1e-5 * np.abs(e).max())
+
+
+def _filter64(c):
+    """alpha_T by a float64 numpy forward filter with the clip at FLT_MIN."""
+    A = c["A"].astype(np.float64)
+    alpha = c["alpha0"].astype(np.float64)
+    for t in range(c["R"].shape[0]):
+        h = alpha if c["L"] is None else alpha + c["L"][t]
+        At = A[t] if c["a_dims"] == "tlr" else A
+        m = np.nan_to_num(h.max(-1, keepdims=True), neginf=0.0)
+        cA = np.nan_to_num(At.max(-2, keepdims=True), neginf=0.0)
+        if At.ndim == 2:
+            z = np.exp(h - m) @ np.exp(At - cA)
+        else:
+            z = np.einsum("bl,blr->br", np.exp(h - m), np.exp(At - cA))
+        alpha = np.log(np.maximum(z, FLT_MIN)) + m + cA[..., 0, :] + c["R"][t]
+    return alpha
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_scan_forward_matches_float64_filter(name):
+    c = CASES[name]()
+    out = ms.markov_scan_plain(*(None if c[k] is None else torch.tensor(c[k]) for k in ("alpha0", "A", "R", "L")))
+    assert torch.isfinite(out).all()
+    np.testing.assert_allclose(out.detach().numpy(), _filter64(c), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_plain_scan_gradients_match_float64(name):
+    c = CASES[name]()
+    leaves = _torch_leaves(c)
+    (ms.markov_scan_plain(*leaves) * torch.tensor(c["g"])).sum().backward()
+    leaves64 = _torch_leaves(c, torch.float64)
+    (_direct64(c["a_dims"], *leaves64) * torch.tensor(c["g"], dtype=torch.float64)).sum().backward()
+    _close(_grads(leaves), _grads(leaves64))
+
+
+def _eliminate(pkg, a_dims, alpha0, A, R, L):
+    """Run ``pkg``'s ``_try_scan_elimination`` on the chain x_0 -> x_t with
+    plate b (rows), time t; returns the packed result's value."""
+    mp, packed = pkg
+    (T, B, S) = R.shape
+    reduced = [packed.PackedTensor(A, a_dims), packed.PackedTensor(R, "tbr")]
+    if L is not None:
+        reduced.append(packed.PackedTensor(L, "tbl"))
+    log_factors = OrderedDict([(frozenset("b"), [packed.PackedTensor(alpha0, "bx")])])
+    sum_dims = {"x", "l", "r"}
+    ok = mp._try_scan_elimination(
+        log_factors, sum_dims, reduced, "x", "l", "r", S, "t", frozenset("b"), {"b": B, "t": T}
+    )
+    assert ok and sum_dims == {"r"}
+    (term,) = log_factors[frozenset("b")]
+    assert term.dims == "br"
+    return term.value
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def _jax_value_and_grads(a_dims, alpha0, A, R, L, g):
+    def f(*args):
+        out = _eliminate((jmp, jpacked), a_dims, *args)
+        return (out * g).sum(), out
+
+    (_, out), grads = jax.value_and_grad(f, argnums=(0, 1, 2, 3), has_aux=True)(alpha0, A, R, L)
+    return out, grads
+
+
+@pytest.fixture(scope="module")
+def jax_runs():
+    runs = {}
+    for name, make in CASES.items():
+        c = make()
+        args = [None if c[k] is None else jnp.asarray(c[k]) for k in ("alpha0", "A", "R", "L", "g")]
+        out, grads = _jax_value_and_grads(c["a_dims"], *args)
+        runs[name] = np.asarray(out), [None if x is None else np.asarray(x) for x in grads]
+    return runs
+
+
+def _port_elimination(c):
+    leaves = _torch_leaves(c)
+    out = _eliminate((tmp, tpacked), c["a_dims"], *leaves)
+    (out * torch.tensor(c["g"])).sum().backward()
+    return out.detach().numpy(), _grads(leaves)
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_elimination_matches_jax(jax_runs, name):
+    out, _ = _port_elimination(CASES[name]())
+    np.testing.assert_allclose(out, jax_runs[name][0], rtol=1e-5, atol=1e-5)
+
+
+# an all -inf column of A or row of alpha0 meets the fault of the JAX
+# package's logmatmulexp backward (ROADMAP.md Queue 3): its shifts span
+# every row and column, so the clipped entry's -log Z sets them and the
+# other terms underflow; the port's gradients there are held against the
+# float64 direct form above
+_JAX_BWD_FAULT = pytest.mark.xfail(
+    strict=True, reason="pyro_tpu/ops/log_matmul.py::_bwd shift fault, ROADMAP.md Queue 3"
+)
+
+
+@pytest.mark.parametrize(
+    "name", [pytest.param(n, marks=_JAX_BWD_FAULT) if n in ("neg_inf_A", "neg_inf_row") else n for n in CASES]
+)
+def test_elimination_gradients_match_jax(jax_runs, name):
+    _, grads = _port_elimination(CASES[name]())
+    _close(grads, jax_runs[name][1])
+
+
+def test_time_varying_transition_matches_jax():
+    """A transition with a time axis takes the elementwise body in both."""
+    c = _case(6, 3, 5, 4, with_L=True, time_varying=True)
+    out, grads = _port_elimination(c)
+    args = [jnp.asarray(c[k]) for k in ("alpha0", "A", "R", "L", "g")]
+    jout, jgrads = _jax_value_and_grads(c["a_dims"], *args)
+    np.testing.assert_allclose(out, np.asarray(jout), rtol=1e-5, atol=1e-5)
+    _close(grads, [np.asarray(x) for x in jgrads])
+    leaves64 = _torch_leaves(c, torch.float64)
+    np.testing.assert_allclose(out, _direct64(c["a_dims"], *leaves64).detach().numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_scan_rejects_bad_shapes():
+    alpha0 = torch.zeros(4, 8)
+    with pytest.raises(ValueError):
+        ms.markov_scan(alpha0, torch.zeros(8, 8), torch.zeros(3, 4, 9))
+    with pytest.raises(ValueError):
+        ms.markov_scan(alpha0, torch.zeros(3, 8, 8), torch.zeros(3, 4, 8))
+    with pytest.raises(ValueError):
+        ms.markov_scan(alpha0, torch.zeros(8, 8), torch.zeros(3, 4, 8), torch.zeros(2, 4, 8))
