@@ -8,12 +8,18 @@ Phases (any failure exits non-zero):
      kernels (``log_matmul.cu``, ``markov_scan.cu``) built from
      ``pyro_tpu_torch/csrc`` with one nvcc each, started together;
   2. K1, log-matmul-exp forward and backward, against its plain PyTorch
-     version on the card at the main path's shape and at others, timed at
-     the main path's shape beside the plain version, ``torch.matmul`` (the
-     product alone) and the card's bound;
+     version on the card at the main path's shape (strided halves, never
+     copied by the wrapper) and at ragged others; at the main path's shape
+     with a quarter of the columns unreachable from half the rows' support
+     (z clipped at FLT_MIN), the gradients against the float64 direct
+     form; timed at the main path's shape beside the plain version,
+     ``torch.matmul`` (the product alone) and two bounds, on the tensor
+     cores (3xTF32) and on the f32 CUDA cores;
   3. slice 1 at full width: model_7 of ``examples/hmm.py`` (B=32
      sequences, T=128, D=51 tones, S=256 states) trained for 5 SVI steps
-     with AutoDelta, Trace_ELBO and Adam, counting kernel launches;
+     with AutoDelta, Trace_ELBO and Adam, counting kernel launches and
+     operand copies, and one profiled step with K1's (K3's) device time
+     beside K3's bound;
   4. K2, the Markov-chain scan, forward and the gradients of all its
      inputs, against its plain PyTorch version (a loop of plain
      log-matmul-exp steps) at the main path's shape (B=32, T=127, S=256,
@@ -35,7 +41,9 @@ Phases (any failure exits non-zero):
      backward), the card's name and power limit, then the result line.
 
 Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
-atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS); the HMM
+atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS, and its
+3xTF32 products round like float32); with clipped entries, each gradient
+within 1e-3 * max|grad| of float64; the HMM
 log-likelihood rtol 1e-4 against the same reduction through the plain
 version.  K2 forward atol 1e-4 plus rtol 1e-6 against the plain version
 (the carry grows like T times the emission scale, and float32 rounds it at
@@ -45,7 +53,9 @@ of the plain version's at the small shapes, rtol 1e-3 plus atol
 1e-4 * max|grad| at the main path's 127 dependent steps, where the plain
 version's own float32 gradient is about 7e-4 * max|grad| from float64's
 (both distances are printed); with states unreachable at the first step,
-each gradient within 1e-3 * max|grad| of the float64 plain version; the model_1v ELBO rtol 1e-5 against the same
+each gradient within 1e-3 * max|grad| of the float64 plain version (whose
+backward keeps the clipped entries as a class of their own); the model_1v
+ELBO rtol 1e-5 against the same
 ELBO through the plain scan.  Without a CUDA device, or without the
 package beside this script, it exits non-zero and prints no result.
 """
@@ -60,6 +70,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM data-sheet peaks (dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12  # float32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # TF32 on the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
 
 B, T, D, S, NN_DIM, NN_CHANNELS, STEPS = 32, 128, 51, 256, 32, 2, 5
@@ -151,6 +162,38 @@ def _halves(logits):
     return pairs[..., 0, :, :], pairs[..., 1, :, :]
 
 
+def check_k1_clipped(lm, logits, g, label):
+    """K1's gradients through the strided halves of ``logits``, in which
+    some entries' z is 0 (clipped at FLT_MIN), against the float64 direct
+    form with the kernel's own out, E = -(out - xs - ys):
+    dx = P * ((g exp(E)) @ Q^T), dy = Q * (P^T @ (g exp(E))).  Each within
+    1e-3 * max|grad|; the plain version's distance is printed beside it."""
+    import torch
+
+    errs = {}
+    for name, fn in (("kernel", lm.logmatmulexp), ("plain", lm.logmatmulexp_plain)):
+        leaf = logits.detach().clone().requires_grad_()
+        n = dict(lm.copies)
+        out = fn(*_halves(leaf))
+        (out * g).sum().backward()
+        torch.cuda.synchronize()
+        if name == "kernel":
+            check(lm.copies == n, f"{label}: the wrapper copied an operand: {lm.copies} after {n}")
+            check(bool((out < -80).any()), f"{label}: no entry was clipped")
+            with torch.no_grad():
+                x, y = (t.double() for t in _halves(logits.detach()))
+                xs, ys = (torch.nan_to_num(m, neginf=0.0) for m in (x.amax(-1, keepdim=True), y.amax(-2, keepdim=True)))
+                P, Q = torch.exp(x - xs), torch.exp(y - ys)
+                W = g.double() * torch.exp(-(out.detach().double() - xs - ys))
+                dx, dy = P * (W @ Q.transpose(-1, -2)), Q * (P.transpose(-1, -2) @ W)
+                ref = torch.stack([dx, dy], dim=2).reshape(logits.shape)
+                del x, y, P, Q, W, dx, dy
+        check(bool(torch.isfinite(leaf.grad).all()), f"{label}: non-finite {name} gradient")
+        errs[name] = float((leaf.grad.double() - ref).abs().max() / ref.abs().max())
+    print(f"  {label}: gradients to float64 over max|grad|: kernel {errs['kernel']:.3g}, plain {errs['plain']:.3g}")
+    check(errs["kernel"] <= 1e-3, f"{label}: kernel gradient {errs['kernel']:.3g} * max|grad| from float64")
+
+
 def phase_k1(torch, lm):
     print("phase 2: K1 log-matmul-exp against its plain version")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -161,12 +204,25 @@ def phase_k1(torch, lm):
     # the main path's first round: time-paired strided halves of (B, T, S, S)
     logits = randn(B, T, S, S, scale=2.0)
     x, y = _halves(logits)
+    check(not x.is_contiguous(), "the halves must be strided views")
     g = randn(B, T // 2, S, S)
+    copies_before = dict(lm.copies)
     fwd_err, bwd_err = compare_k1(lm, [logits], _halves, g, f"({B * T // 2}, {S}, {S}) strided halves")
+    check(lm.copies == copies_before, f"the strided halves were copied: {lm.copies} after {copies_before}")
+    # half the rows of x have their support in the first quarter of k, from
+    # which y reaches no column of the last quarter: z is 0 there
+    clipped = logits.clone()
+    pairs = clipped.view(B, T // 2, 2, S, S)
+    pairs[:, :, 0, : S // 2, S // 4:] = -float("inf")
+    pairs[:, :, 1, : S // 4, 3 * S // 4:] = -float("inf")
+    check_k1_clipped(lm, clipped, g, f"({B * T // 2}, {S}, {S}) strided halves, a quarter of the columns clipped")
+    del clipped, pairs
     big = [randn(16, 512, 512, scale=3.0), randn(16, 512, 512, scale=3.0)]
     compare_k1(lm, big, _pair, randn(16, 512, 512), "(16, 512, 512)")
     ragged = [randn(3, 37, 129, scale=3.0), randn(1, 129, 61, scale=3.0)]
     compare_k1(lm, ragged, _pair, randn(3, 37, 61), "(3, 37, 129) @ (1, 129, 61)")
+    ragged16 = [randn(5, 100, 68, scale=3.0), randn(5, 68, 132, scale=3.0)]
+    compare_k1(lm, ragged16, _pair, randn(5, 100, 132), "(5, 100, 68) @ (5, 68, 132), 16-byte copies")
     ux = torch.full((4, 8), -300.0, device="cuda")
     ux[:, 0] = 0.0
     uy = torch.full((8, 8), -200.0, device="cuda")
@@ -183,35 +239,43 @@ def phase_k1(torch, lm):
     n = x.shape[0] * x.shape[1]
     M = K = N = S
     with torch.no_grad():
-        out = lm._forward_cuda(x, y)
+        out, xs, ys = lm._forward_cuda(x, y)
         fwd = alternate({
             "kernel": lambda: lm._forward_cuda(x, y),
             "plain": lambda: lm._logmatmulexp_raw(x, y),
         })
         matmul_ms = cuda_ms(lambda: torch.matmul(x, y), 10)
         bwd = alternate({
-            "kernel": lambda: lm._backward_cuda(x, y, out, g),
+            "kernel": lambda: lm._backward_cuda(x, y, out, xs, ys, g),
             "plain": lambda: lm._logmatmulexp_bwd(x, y, out, g),
         })
+    # products plus an exp per input and a log per output; x, y in and out
+    # (with the maxima) out.  Backward: two products and the elementwise
+    # terms; x, y, out, g in, dx, dy out.
     fwd_flops = 2 * n * M * N * K + n * (M * K + K * N + M * N)
-    fwd_bytes = 4 * n * (M * K + K * N + M * N)
+    fwd_bytes = 4 * n * (M * K + K * N + M * N + M + N)
     bwd_flops = 4 * n * M * N * K + n * (2 * M * K + 2 * K * N + 2 * M * N)
     bwd_bytes = 4 * n * (2 * M * K + 2 * K * N + 2 * M * N)
     fb, bb = bound(fwd_flops, fwd_bytes), bound(bwd_flops, bwd_bytes)
+    fb_tc, bb_tc = bound(fwd_flops, fwd_bytes, tf32=True), bound(bwd_flops, bwd_bytes, tf32=True)
     print(f"  timing at ({n}, {M}, {K}) @ ({n}, {K}, {N}) f32, strided halves:")
-    print(f"    forward  kernel {fwd['kernel']:.4f} ms  plain {fwd['plain']:.4f} ms  bound {fb[0]:.4f} ms ({fb[1]})")
+    for name, t, b_f32, b_tc in (("forward ", fwd, fb, fb_tc), ("backward", bwd, bb, bb_tc)):
+        print(f"    {name} kernel {t['kernel']:.4f} ms  plain {t['plain']:.4f} ms  bound on the tensor cores "
+              f"{b_tc[0]:.4f} ms ({b_tc[1]}), on the f32 CUDA cores {b_f32[0]:.4f} ms ({b_f32[1]})")
     print(f"    torch.matmul of the same operands (the product alone, no exp/log): {matmul_ms:.4f} ms")
-    print(f"    backward kernel {bwd['kernel']:.4f} ms  plain {bwd['plain']:.4f} ms  bound {bb[0]:.4f} ms ({bb[1]})")
     return {
-        "forward": {"max_abs_err": fwd_err, "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound": fb},
-        "backward": {"max_abs_err": bwd_err, "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound": bb},
+        "forward": {"max_abs_err": fwd_err, "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound": fb_tc},
+        "backward": {"max_abs_err": bwd_err, "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound": bb_tc},
         "matmul_ms": matmul_ms,
     }
 
 
-def bound(flops, nbytes):
-    """The card's least time in ms for the work, and what bounds it."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, tf32=False):
+    """The card's least time in ms for the work, and what bounds it: on the
+    f32 CUDA cores, or (``tf32``) on the tensor cores with the three TF32
+    products of the 3xTF32 split."""
+    t_ops = (3 * flops / PEAK_TF32_FLOPS if tf32 else flops / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -248,19 +312,28 @@ def phase_slice(torch, lm):
     print(f"  DiscreteHMM.log_prob at step-0 params: max rel diff to plain {rel:.3g}")
 
     lm.launches.update(forward=0, backward=0)
+    lm.copies.update(forward=0, backward=0)
     losses, step_ms = [], []
     for _ in range(STEPS):
         t0 = time.perf_counter()
         losses.append(svi.step(sequences, lengths))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(lm.launches)
+    launches, copies = dict(lm.launches), dict(lm.copies)
     print(f"  losses {losses}")
     print(f"  ms per step {[round(t, 3) for t in step_ms]} (first step includes guide set-up)")
-    print(f"  launches over {STEPS} steps: {launches}")
+    print(f"  launches over {STEPS} steps: {launches}; operands copied by the wrapper: {copies}")
     check(all(map(lambda l: l == l and abs(l) != float("inf"), losses)), "non-finite loss")
     check(launches == {"forward": 7 * STEPS, "backward": 7 * STEPS}, f"expected 7 launches per step each, got {launches}")
-    profile_step(torch, svi, sequences, lengths)
+    check(copies == {"forward": 0, "backward": 0}, f"expected no operand copies, got {copies}")
+    k1_ms = profile_step(torch, svi, sequences, lengths)
+    # K3, the pairwise reduction: log2 T rounds of K1 over B * T / 2^r items
+    items = sum(B * (T >> r) for r in range(1, T.bit_length()))
+    k3_flops = items * (6 * S**3 + 9 * S * S)
+    k3_bytes = 4 * items * 9 * S * S
+    k3 = bound(k3_flops, k3_bytes, tf32=True)
+    print(f"  K3 ({T.bit_length() - 1} rounds, {items} items, forward and backward): K1 device time per step "
+          f"{k1_ms:.3f} ms, bound on the tensor cores {k3[0]:.4f} ms ({k3[1]})")
     return launches, step_ms
 
 
@@ -409,7 +482,7 @@ def phase_k2(torch, lm, ms):
         def k1_loop():
             a = alpha0
             for t in range(steps):
-                a = lm._forward_cuda(a, A) + R[t]
+                a = lm._forward_cuda(a, A)[0] + R[t]
             return a
 
         k1_loop_ms = cuda_ms(k1_loop, 10)
@@ -504,12 +577,13 @@ def profile_step(torch, svi, sequences, lengths):
         key=lambda e: -e.self_device_time_total,
     )
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith("lme_")) / 1e3
+    k1_ms = sum(e.self_device_time_total for e in kernels if "lme_" in e.key) / 1e3
     k2_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith("ms_")) / 1e3
     print(f"  profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), K1 kernels {k1_ms:.3f} ms, K2 kernels {k2_ms:.3f} ms")
     for e in kernels[:8]:
         print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
+    return k1_ms
 
 
 def main():

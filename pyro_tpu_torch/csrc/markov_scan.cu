@@ -38,9 +38,12 @@
 // = log z + m + c is bit-identical to the forward's; saving z, 4 MB at the
 // main path's shape, spares the backward one of its two products per step),
 // then follows the bounded backward of logmatmulexp:
-//   E  = -(out - m - c)        cr = max_r E (columns of A not all -inf)
+//   E  = -(out - m - c)        cr = max_r E
 //   rx = (g * exp(E - cr)) @ Q^T
 //   dh = sign(rx) * exp(h - m + cr + log(|rx| + FLT_MIN)),
+// with the clipped entries (below) a class of their own: each class has its
+// own cr and rx, and dh sums the classes' terms; the second product runs
+// only at a step whose row holds a clipped entry.
 // dL_t = dh, and g becomes dh; the last dh is dalpha_0.  The block writes
 // exp(h_t - m) and E (-inf on a row whose h is all -inf) per step.  dA is
 // then one fold over all T*B rows with one shift per column (split over
@@ -237,27 +240,41 @@ __global__ void __launch_bounds__(NTS) ms_backward_kernel(
     }
     __syncthreads();
     // E = -log Z from the forward's z, with out rebuilt as the forward built
-    // it; cr skips the columns of A that are all -inf
-    float cr = -INFINITY;
+    // it; e keeps E of the unclipped entries (-inf for the clipped), z the
+    // clipped ones', and each class gets its own shift (see the fold)
+    float cr = -INFINITY, crc = -INFINITY;
     for (int r = tid; r < S; r += NTS) {
       const float c = finite_or_zero(ca[r]);
       const float zr = zs[row + r];
       const float o = logf(fmaxf(zr, FLT_MIN)) + xs + c;
       const float E = -(o - xs - c);
-      e[r] = E;
       const bool live = xs_raw > -INFINITY, clipped = zr <= FLT_MIN;
+      e[r] = clipped ? -INFINITY : E;
+      z[r] = clipped ? E : -INFINITY;
       W[row + r] = live && !clipped ? E : -INFINITY;
       Wc[row + r] = live && clipped ? E : -INFINITY;
-      if (ca[r] > -INFINITY) cr = fmaxf(cr, E);
+      if (clipped) crc = fmaxf(crc, E); else cr = fmaxf(cr, E);
     }
     cr = finite_or_zero(block_max(cr, red));
+    crc = block_max(crc, red);
+    const bool two = crc > -INFINITY;  // block-uniform: a clipped entry exists
     for (int r = tid; r < S; r += NTS) u[r] = g[r] * expf(e[r] - cr);
     __syncthreads();
-    block_col_dot(u, QTa, S, z, part_sums);  // z now holds rx
+    block_col_dot(u, QTa, S, e, part_sums);  // e now holds rx of class 0
+    if (two) {
+      for (int r = tid; r < S; r += NTS) u[r] = g[r] * expf(z[r] - crc);
+      __syncthreads();
+      block_col_dot(u, QTa, S, z, part_sums);  // z now holds rx of class 1
+    }
     for (int l = tid; l < S; l += NTS) {
-      const float rx = z[l];
+      const float rx = e[l];
       const float sg = (float)(rx > 0.f) - (float)(rx < 0.f);
-      const float dh = sg * expf((h[l] - xs + cr) + logf(fabsf(rx) + FLT_MIN));
+      float dh = sg * expf((h[l] - xs + cr) + logf(fabsf(rx) + FLT_MIN));
+      if (two) {
+        const float rc = z[l];
+        const float sc = (float)(rc > 0.f) - (float)(rc < 0.f);
+        dh += sc * expf((h[l] - xs + crc) + logf(fabsf(rc) + FLT_MIN));
+      }
       if (dL) dL[row + l] = dh;
       g[l] = dh;
     }

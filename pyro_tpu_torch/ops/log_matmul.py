@@ -5,10 +5,10 @@ Counterpart of ``pyro_tpu/ops/log_matmul.py``.  On CUDA tensors the
 forward and the analytic backward are the hand-written kernels of
 ``csrc/log_matmul.cu`` behind a ``torch.autograd.Function``; on CPU tensors
 the plain version below runs instead, which mirrors the JAX package's
-``_logmatmulexp_raw`` and ``_bwd`` line by line, except that the backward's
-shifts skip all -inf rows of x and columns of y (see ``_logmatmulexp_bwd``).
-A CUDA tensor never falls back to the plain version: the kernel launches or
-the call raises.
+``_logmatmulexp_raw`` and ``_bwd`` line by line, except that the backward
+keeps the entries whose Z was clipped as a class with shifts of their own
+(see ``_logmatmulexp_bwd``).  A CUDA tensor never falls back to the plain
+version: the kernel launches or the call raises.
 """
 
 from __future__ import annotations
@@ -21,19 +21,24 @@ import torch
 
 from . import cuda_build
 
-# Launches of the CUDA kernels, counted by the wrapper; a backward launch runs
-# two kernels (per-item maxima, then both gradient products).
+# Launches of the CUDA kernels, counted by the wrapper: a forward launch runs
+# two kernels (the maxima, then the product), a backward launch three (the
+# per-class shifts, then the dx and the dy products).
 launches = {"forward": 0, "backward": 0}
+# Operands the wrapper made contiguous because their column stride was not 1.
+copies = {"forward": 0, "backward": 0}
 
 
 # -- plain version ----------------------------------------------------------------
 
 
+def _finite(v):
+    return torch.where(torch.isfinite(v), v, 0.0)
+
+
 def _logmatmulexp_raw(x, y):
-    xs = x.detach().amax(-1, keepdim=True)
-    ys = y.detach().amax(-2, keepdim=True)
-    xs = torch.where(torch.isfinite(xs), xs, 0.0)
-    ys = torch.where(torch.isfinite(ys), ys, 0.0)
+    xs = _finite(x.detach().amax(-1, keepdim=True))
+    ys = _finite(y.detach().amax(-2, keepdim=True))
     z = torch.matmul(torch.exp(x - xs), torch.exp(y - ys))
     return torch.log(z.clamp(min=torch.finfo(z.dtype).tiny)) + xs + ys
 
@@ -47,52 +52,61 @@ def _unbroadcast(d, shape):
     return d.sum(dim=axes, keepdim=True) if axes else d
 
 
+def _clip_threshold(dtype):
+    """E = -log Z at or above which an entry counts as clipped: Z was at most
+    about e times the type's smallest normal (the forward clips Z there)."""
+    return -math.log(torch.finfo(dtype).tiny) - 1.0
+
+
 def _logmatmulexp_bwd(x, y, out, g):
     # dx[i,k] = sum_j g[i,j] exp(x[i,k] + y[k,j] - out[i,j]), dy likewise
     # summed over i, with g/Z re-shifted by its row (dx) or column (dy) max
     # so the products stay bounded when Z underflows.
-    xs_raw = x.amax(-1, keepdim=True)
-    xs = torch.where(torch.isfinite(xs_raw), xs_raw, 0.0)
-    ys_raw = y.amax(-2, keepdim=True)
-    ys = torch.where(torch.isfinite(ys_raw), ys_raw, 0.0)
+    #
+    # An entry whose Z was clipped (a state unreachable from the row's
+    # support, or an all -inf row of x or column of y) has the largest E
+    # there is, -log(tiny).  In a shift shared with the other entries it
+    # would push their terms below the float32 range, and log(|r| + tiny)
+    # would then add about exp(x - xs) to dx (the JAX package's _bwd does
+    # so).  So the clipped entries are a class of their own, with their own
+    # shift and product; dx and dy sum the classes' terms.
+    xs = _finite(x.amax(-1, keepdim=True))
+    ys = _finite(y.amax(-2, keepdim=True))
     P = torch.exp(x - xs)
     Q = torch.exp(y - ys)
     E = -(out - xs - ys)  # -log Z
     tiny = torch.finfo(out.dtype).tiny
-    # An all -inf row of x (column of y) carries no weight, but its clipped
-    # out makes its E the largest; left in a shift's max, it would push every
-    # other term below the float32 range.  The JAX package's _bwd keeps it
-    # in; here the shifts skip it.
-    E_live_rows = torch.where(xs_raw > -torch.inf, E, -torch.inf)
-    E_live_cols = torch.where(ys_raw > -torch.inf, E, -torch.inf)
+    clipped = E >= _clip_threshold(out.dtype)
+    classes = [torch.where(clipped, -torch.inf, E)]
+    if bool(clipped.any()):
+        classes.append(torch.where(clipped, E, -torch.inf))
 
-    cr = E_live_cols.amax(-1, keepdim=True)  # per-row shift for dx
-    cr = torch.where(torch.isfinite(cr), cr, 0.0)
-    rx = torch.matmul(g * torch.exp(E - cr), Q.transpose(-1, -2))
-    dx = torch.sign(rx) * torch.exp((x - xs + cr) + torch.log(rx.abs() + tiny))
+    def term(shifted, shift, r):
+        return torch.sign(r) * torch.exp((shifted + shift) + torch.log(r.abs() + tiny))
+
+    dx = 0.0
+    for Ec in classes:
+        cr = _finite(Ec.amax(-1, keepdim=True))  # per-row shift
+        rx = torch.matmul(g * torch.exp(Ec - cr), Q.transpose(-1, -2))
+        dx = dx + term(x - xs, cr, rx)
 
     y_lead = y.shape[:-2]
     x_lead_n = math.prod(x.shape[:-2])
     if all(d == 1 for d in y_lead) and x_lead_n * x.shape[-2] > 1:
         # y shared across x's batch: fold batch and rows into one product
-        # with a single per-column shift
-        cc = E_live_rows.amax(dim=tuple(range(E.ndim - 1)), keepdim=True)
-        cc = torch.where(torch.isfinite(cc), cc, 0.0)
-        Gf = (g * torch.exp(E - cc)).reshape(-1, g.shape[-1])
+        # per class with a single per-column shift
         Pf = P.broadcast_to(g.shape[:-1] + P.shape[-1:]).reshape(-1, P.shape[-1])
-        ry = Pf.T @ Gf
-        dy = (
-            torch.sign(ry)
-            * torch.exp(
-                (y.reshape(y.shape[-2:]) - ys.reshape(ys.shape[-2:]) + cc.reshape(1, -1))
-                + torch.log(ry.abs() + tiny)
-            )
-        ).reshape(y.shape)
-        return _unbroadcast(dx, x.shape), dy
-    cc = E_live_rows.amax(-2, keepdim=True)  # per-column shift for dy
-    cc = torch.where(torch.isfinite(cc), cc, 0.0)
-    ry = torch.matmul(P.transpose(-1, -2), g * torch.exp(E - cc))
-    dy = torch.sign(ry) * torch.exp((y - ys + cc) + torch.log(ry.abs() + tiny))
+        dy = 0.0
+        for Ec in classes:
+            cc = _finite(Ec.amax(dim=tuple(range(E.ndim - 1)), keepdim=True))
+            ry = Pf.T @ (g * torch.exp(Ec - cc)).reshape(-1, g.shape[-1])
+            dy = dy + term(y.reshape(y.shape[-2:]) - ys.reshape(ys.shape[-2:]), cc.reshape(1, -1), ry)
+        return _unbroadcast(dx, x.shape), dy.reshape(y.shape)
+    dy = 0.0
+    for Ec in classes:
+        cc = _finite(Ec.amax(-2, keepdim=True))  # per-column shift
+        ry = torch.matmul(P.transpose(-1, -2), g * torch.exp(Ec - cc))
+        dy = dy + term(y - ys, cc, ry)
     return _unbroadcast(dx, x.shape), _unbroadcast(dy, y.shape)
 
 
@@ -124,9 +138,9 @@ _c = ctypes.c_int
 @functools.cache
 def _lib():
     lib = cuda_build.load("log_matmul")
-    lib.lme_forward.argtypes = [_P, _LL, _P, _LL, _P, _I, _c, _c, _c, _P]
+    lib.lme_forward.argtypes = [_P, _LL, _P, _LL, _P, _P, _P, _I, _c, _c, _c, _c, _P]
     lib.lme_forward.restype = ctypes.c_int
-    lib.lme_backward.argtypes = [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _I, _c, _c, _c, _P]
+    lib.lme_backward.argtypes = [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _P, _P, _P, _P, _P, _I, _c, _c, _c, _c, _P]
     lib.lme_backward.restype = ctypes.c_int
     return lib
 
@@ -185,7 +199,33 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _unit_columns(tensors, direction):
+    """The kernels read rows with a column stride of 1: an operand with
+    another is made contiguous, and the copy counted in ``copies``."""
+    out = []
+    for t in tensors:
+        if t.stride(-1) != 1 and t.shape[-1] > 1:
+            t = t.contiguous()
+            copies[direction] += 1
+        out.append(t)
+    return out
+
+
+def _vectorizable(tensors, strides, K, N):
+    """Whether every operand row can be copied 16 bytes at a time: 16-byte
+    aligned data, batch and row strides multiples of 4 floats, and K and N
+    multiples of 4 (the contiguous extents of x, and of y, out and g)."""
+    return (
+        K % 4 == 0
+        and N % 4 == 0
+        and all(t.data_ptr() % 16 == 0 for t in tensors)
+        and all(s % 4 == 0 for st in strides for s in st[:4])
+    )
+
+
 def _forward_cuda(x, y):
+    """out, and the finite row maxima of x (batch + (M,)) and column maxima
+    of y (batch + (N,)) that the backward takes."""
     _check_cuda(x, y)
     M, K = x.shape[-2:]
     if y.shape[-2] != K:
@@ -195,17 +235,23 @@ def _forward_cuda(x, y):
     out = torch.empty(batch + (M, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0 or K == 0:
         raise ValueError(f"logmatmulexp: empty operands {tuple(x.shape)} @ {tuple(y.shape)}")
+    x, y = _unit_columns([x, y], "forward")
+    xs = torch.empty(batch + (M,), dtype=x.dtype, device=x.device)
+    ys = torch.empty(batch + (N,), dtype=x.dtype, device=x.device)
     sizes, (xst, yst) = _batch_layout(batch, [x, y])
     err = _lib().lme_forward(
-        x.data_ptr(), _ll(xst), y.data_ptr(), _ll(yst), out.data_ptr(), _ints(sizes), M, K, N, _stream(x)
+        x.data_ptr(), _ll(xst), y.data_ptr(), _ll(yst), out.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+        _ints(sizes), M, K, N, int(_vectorizable([x, y], [xst, yst], K, N)), _stream(x),
     )
     if err:
-        raise RuntimeError(f"logmatmulexp forward kernel failed to launch: CUDA error {err}")
+        raise RuntimeError(f"logmatmulexp forward kernels failed to launch: CUDA error {err}")
     launches["forward"] += 1
-    return out
+    return out, xs, ys
 
 
-def _backward_cuda(x, y, out, g):
+def _backward_cuda(x, y, out, xs, ys, g):
+    """dx and dy (summed over broadcast dims) from the forward's out and
+    maxima."""
     _check_cuda(x, y, out, g)
     if g.shape != out.shape:
         raise ValueError(f"logmatmulexp: gradient shape {tuple(g.shape)} != output {tuple(out.shape)}")
@@ -213,14 +259,17 @@ def _backward_cuda(x, y, out, g):
     N = y.shape[-1]
     batch = out.shape[:-2]
     nb = math.prod(batch)
+    xu, yu, g = _unit_columns([x, y, g], "backward")
     dx = torch.empty(batch + (M, K), dtype=x.dtype, device=x.device)
     dy = torch.empty(batch + (K, N), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(nb * (2 * M + 2 * N), dtype=x.dtype, device=x.device)
-    sizes, (xst, yst, ost, gst) = _batch_layout(batch, [x, y, out, g])
+    # per-row shifts of both classes, then per 32-row strip the column shifts
+    scratch = torch.empty(nb * 2 * (M + -(-M // 32) * N), dtype=x.dtype, device=x.device)
+    sizes, strides = _batch_layout(batch, [xu, yu, out, g])
+    xst, yst, ost, gst = strides
     err = _lib().lme_backward(
-        x.data_ptr(), _ll(xst), y.data_ptr(), _ll(yst), out.data_ptr(), _ll(ost),
-        g.data_ptr(), _ll(gst), scratch.data_ptr(), dx.data_ptr(), dy.data_ptr(),
-        _ints(sizes), M, K, N, _stream(x),
+        xu.data_ptr(), _ll(xst), yu.data_ptr(), _ll(yst), out.data_ptr(), _ll(ost),
+        g.data_ptr(), _ll(gst), xs.data_ptr(), ys.data_ptr(), scratch.data_ptr(), dx.data_ptr(), dy.data_ptr(),
+        _ints(sizes), M, K, N, int(_vectorizable([xu, yu, out, g], strides, K, N)), _stream(x),
     )
     if err:
         raise RuntimeError(f"logmatmulexp backward kernels failed to launch: CUDA error {err}")
@@ -231,8 +280,8 @@ def _backward_cuda(x, y, out, g):
 class _LogMatMulExpCUDA(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, y):
-        out = _forward_cuda(x, y)
-        ctx.save_for_backward(x, y, out)
+        out, xs, ys = _forward_cuda(x, y)
+        ctx.save_for_backward(x, y, out, xs, ys)
         return out
 
     @staticmethod

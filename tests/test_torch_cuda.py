@@ -6,7 +6,9 @@ the JAX package, so on a machine without JAX run them as
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
-atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS).  K2,
+atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS, and its
+3xTF32 products round like float32); with entries clipped at FLT_MIN, the
+gradients within 1e-3 * max|grad| of the float64 direct form.  K2,
 the Markov-chain scan: forward atol 1e-4 plus rtol 1e-6 (the carry grows
 like T times the emission scale, and float32 rounds it at that size);
 gradients as K1's over a few steps, and rtol 1e-3 with atol 1e-4 times the
@@ -58,6 +60,8 @@ def _compare(x, y, g):
         ((37, 129), (5, 129, 61)),
         ((2, 3, 70, 65), (3, 65, 66)),
         ((16, 128, 128), (16, 128, 128)),
+        ((5, 100, 68), (5, 68, 132)),  # 16-byte copies, partial slabs and tiles
+        ((2, 7, 12), (2, 12, 9)),  # K a multiple of 4 but not of 8, N not of 4
     ],
 )
 def test_kernel_matches_plain(cuda, xshape, yshape):
@@ -81,7 +85,47 @@ def test_kernel_on_strided_halves(cuda, time):
     x, y = x_y[..., 0, :, :], x_y[..., 1, :, :]
     assert not x.is_contiguous()
     g = torch.tensor(rng.normal(size=(3, even // 2, 24, 24)), dtype=torch.float32, device=cuda)
+    before = dict(lm.copies)
     _compare(x, y, g)
+    assert lm.copies == before
+
+
+def test_kernel_copies_an_operand_with_strided_columns(cuda):
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.normal(size=(40, 33)), dtype=torch.float32, device=cuda).T  # (33, 40), column stride 33
+    y = torch.tensor(rng.normal(size=(40, 17)), dtype=torch.float32, device=cuda)
+    g = torch.tensor(rng.normal(size=(33, 17)), dtype=torch.float32, device=cuda)
+    before = lm.copies["forward"]
+    _compare(x, y, g)
+    assert lm.copies["forward"] == before + 1
+
+
+def test_kernel_clipped_entries_match_float64(cuda):
+    """Half the rows of x have their support in the first quarter of k, from
+    which y reaches no column of the last quarter, so their z is 0 there
+    (clipped at FLT_MIN): the gradients within 1e-3 * max|grad| of the
+    direct form dx[i,k] = sum_j g exp(x[i,k] + y[k,j] - out[i,j]) in float64
+    with the kernel's own out (and dy likewise)."""
+    n, S = 64, 256
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n, S, S)) * 2
+    y = rng.normal(size=(n, S, S)) * 2
+    x[:, : S // 2, S // 4:] = -np.inf
+    y[:, : S // 4, 3 * S // 4:] = -np.inf
+    g = torch.tensor(rng.normal(size=(n, S, S)), dtype=torch.float32, device=cuda)
+    xk = torch.tensor(x, dtype=torch.float32, device=cuda, requires_grad=True)
+    yk = torch.tensor(y, dtype=torch.float32, device=cuda, requires_grad=True)
+    out = lm.logmatmulexp(xk, yk)
+    (out * g).sum().backward()
+    assert (out < -80).any()
+    x64, y64, out64 = xk.detach().double(), yk.detach().double(), out.detach().double()
+    xs = torch.nan_to_num(x64.amax(-1, keepdim=True), neginf=0.0)
+    ys = torch.nan_to_num(y64.amax(-2, keepdim=True), neginf=0.0)
+    P, Q = torch.exp(x64 - xs), torch.exp(y64 - ys)
+    W = g.double() * torch.exp(-(out64 - xs - ys))
+    for got, want in ((xk.grad, P * (W @ Q.transpose(-1, -2))), (yk.grad, Q * (P.transpose(-1, -2) @ W))):
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-3 * want.abs().max().item())
 
 
 def test_kernel_neg_inf_and_underflow(cuda):
@@ -190,6 +234,24 @@ def test_scan_kernel_unreachable_states(cuda, B, T, S, tol):
     for k, p in zip(leaves, leaves64):
         assert torch.isfinite(k.grad).all()
         torch.testing.assert_close(k.grad.double(), p.grad, rtol=0, atol=tol * p.grad.abs().max().item())
+    # dalpha0 against autograd of the float64 direct form, which shares no
+    # code with the plain version's analytic backward
+    alpha0_64 = inputs[0].double().requires_grad_()
+    (_direct_scan64(alpha0_64, inputs[1].double(), inputs[2].double()) * g.double()).sum().backward()
+    want = alpha0_64.grad
+    torch.testing.assert_close(leaves[0].grad.double(), want, rtol=0, atol=tol * want.abs().max().item())
+
+
+def _direct_scan64(alpha0, A, R):
+    """alpha_T by the definition, with detached shifts and the clip at FLT_MIN."""
+    tiny = torch.finfo(torch.float32).tiny
+    c = torch.nan_to_num(A.amax(0), neginf=0.0)
+    alpha = alpha0
+    for t in range(R.shape[0]):
+        m = torch.nan_to_num(alpha.detach().amax(-1, keepdim=True), neginf=0.0)
+        z = torch.exp(alpha - m) @ torch.exp(A - c)
+        alpha = torch.log(z.clamp(min=tiny)) + m + c + R[t]
+    return alpha
 
 
 def test_scan_kernel_rejects_bad_operands(cuda):

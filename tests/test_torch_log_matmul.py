@@ -107,6 +107,57 @@ def test_matches_jax(case):
     np.testing.assert_allclose(yt.grad.numpy(), np.asarray(dy_j), rtol=1e-4, atol=atol)
 
 
+def _clipped(batch=()):
+    """Half the rows of x have their support in the first quarter of k, from
+    which y reaches no column of the last quarter: those rows' z is 0 there,
+    clipped at FLT_MIN, while every other entry of those columns is not."""
+    M = K = N = 32
+    x = _normal(20, batch + (M, K), 3)
+    y = _normal(21, batch + (K, N), 3)
+    x[..., : M // 2, K // 4:] = -np.inf
+    y[..., : K // 4, 3 * N // 4:] = -np.inf
+    return x, y, _normal(22, batch + (M, N))
+
+
+CLIPPED = {"2d": lambda: _clipped(), "batched": lambda: _clipped((3,))}
+
+
+def _direct_vjp_batched(x, y, out, g):
+    if x.ndim == 2:
+        return _direct_vjp(x, y, out, g)
+    pairs = [_direct_vjp(*a) for a in zip(x, y, out, g)]
+    return np.stack([p[0] for p in pairs]), np.stack([p[1] for p in pairs])
+
+
+@pytest.mark.parametrize("case", sorted(CLIPPED))
+def test_clipped_entries_gradient_matches_float64(case):
+    """Each class (clipped entries, the rest) has its own shift, so the
+    clipped entries take nothing from the others' terms: dx and dy within
+    1e-4 * max|grad| of the direct form in float64."""
+    x, y, g = CLIPPED[case]()
+    xt = torch.tensor(x, requires_grad=True)
+    yt = torch.tensor(y, requires_grad=True)
+    out = lm.logmatmulexp(xt, yt)
+    out.backward(torch.tensor(g))
+    assert (out.detach().numpy() < -80).any()
+    for got, want in zip((xt.grad, yt.grad), _direct_vjp_batched(x, y, out.detach().numpy(), g)):
+        assert np.isfinite(got.numpy()).all()
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+
+
+@pytest.mark.xfail(strict=True, reason="pyro_tpu/ops/log_matmul.py::_bwd shift fault, ROADMAP.md Queue 3")
+@pytest.mark.parametrize("case", sorted(CLIPPED))
+def test_clipped_entries_gradient_matches_jax(case):
+    """The JAX package's _bwd shares one shift between the classes."""
+    x, y, g = CLIPPED[case]()
+    _, dx_j, dy_j = _jax_value_and_vjp(jnp.asarray(x), jnp.asarray(y), jnp.asarray(g))
+    xt = torch.tensor(x, requires_grad=True)
+    yt = torch.tensor(y, requires_grad=True)
+    lm.logmatmulexp(xt, yt).backward(torch.tensor(g))
+    for got, want in zip((xt.grad, yt.grad), (dx_j, dy_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5 * np.abs(g).max())
+
+
 def test_neg_inf_rows_clip_to_log_tiny():
     x, y, _ = _neg_inf_rows()
     out = lm.logmatmulexp(torch.tensor(x), torch.tensor(y))
@@ -160,6 +211,36 @@ def test_layout_of_time_paired_halves(time, ndims):
     sizes, (st, _) = lm._batch_layout(half.shape[:-2], [half, half])
     assert sum(n != 1 for n in sizes) == ndims
     assert st[-2:] == (4, 1)
+
+
+def test_unit_columns_copy_only_strided_columns():
+    halves = torch.zeros(3, 12, 8, 8).reshape(3, 6, 2, 8, 8)[..., 0, :, :]
+    column = torch.zeros(1, 5).T  # one column: its stride is never used
+    transposed = torch.zeros(8, 5).T
+    before = dict(lm.copies)
+    kept = lm._unit_columns([halves, column, transposed], "forward")
+    assert kept[0] is halves and kept[1] is column
+    assert kept[2].is_contiguous() and torch.equal(kept[2], transposed)
+    assert lm.copies == {**before, "forward": before["forward"] + 1}
+
+
+@pytest.mark.parametrize(
+    "shape,cut,vec",
+    [
+        ((3, 12, 24, 24), None, True),  # the time-paired halves of the main path
+        ((3, 12, 24, 24), (slice(None), slice(None), slice(0, 21), slice(0, 21)), False),  # K, N not multiples of 4
+        ((3, 12, 24, 26), (slice(None), slice(None), slice(None), slice(0, 24)), False),  # row stride 26
+    ],
+)
+def test_vectorizable(shape, cut, vec):
+    logits = torch.zeros(shape)
+    logits = logits if cut is None else logits[cut]
+    pairs = logits.reshape(3, 6, 2, *logits.shape[2:])
+    x, y = pairs[..., 0, :, :], pairs[..., 1, :, :]
+    if x.shape[-1] != y.shape[-2]:
+        y = y[..., : x.shape[-1], :]
+    sizes, strides = lm._batch_layout(x.shape[:-2], [x, y])
+    assert lm._vectorizable([x, y], strides, x.shape[-1], y.shape[-1]) == vec
 
 
 def test_layout_rejects_more_than_three_strided_dims():

@@ -236,6 +236,45 @@ def test_time_varying_transition_matches_jax():
     np.testing.assert_allclose(out, _direct64(c["a_dims"], *leaves64).detach().numpy(), rtol=1e-5, atol=1e-5)
 
 
+def _unreachable():
+    """Structural zeros of A leave a quarter of the states unreachable from
+    alpha0's support: their z is 0, clipped at FLT_MIN, at the first step."""
+    B, T, S = 4, 20, 16
+    rng = np.random.default_rng(11)
+    A = np.log(rng.dirichlet(np.ones(S), size=S))
+    A[: S // 4, 3 * S // 4:] = -np.inf
+    alpha0 = rng.normal(size=(B, S))
+    alpha0[:, S // 4:] = -np.inf
+    out = {"alpha0": alpha0, "A": A, "R": rng.normal(size=(T, B, S)) * 3 - 35.0, "L": None,
+           "g": rng.normal(size=(B, S))}
+    out = {k: None if v is None else v.astype(np.float32) for k, v in out.items()}
+    out["a_dims"] = "lr"
+    return out
+
+
+def test_plain_scan_unreachable_states_match_float64():
+    """Each gradient, dalpha0 among them, within 1e-4 * max|grad| of the
+    float64 direct form."""
+    c = _unreachable()
+    leaves = _torch_leaves(c)
+    (ms.markov_scan_plain(*leaves) * torch.tensor(c["g"])).sum().backward()
+    leaves64 = _torch_leaves(c, torch.float64)
+    (_direct64(c["a_dims"], *leaves64) * torch.tensor(c["g"], dtype=torch.float64)).sum().backward()
+    for a, e in zip(_grads(leaves), _grads(leaves64)):
+        if e is not None:
+            assert np.isfinite(a).all()
+            np.testing.assert_allclose(a, e, rtol=0, atol=1e-4 * np.abs(e).max())
+
+
+@_JAX_BWD_FAULT
+def test_elimination_unreachable_states_match_jax():
+    c = _unreachable()
+    _, grads = _port_elimination(c)
+    args = [None if c[k] is None else jnp.asarray(c[k]) for k in ("alpha0", "A", "R", "L", "g")]
+    _, jgrads = _jax_value_and_grads(c["a_dims"], *args)
+    _close(grads, [None if x is None else np.asarray(x) for x in jgrads])
+
+
 def test_scan_rejects_bad_shapes():
     alpha0 = torch.zeros(4, 8)
     with pytest.raises(ValueError):
