@@ -22,23 +22,29 @@ Phases (any failure exits non-zero):
      beside K3's bound;
   4. K2, the Markov-chain scan, forward and the gradients of all its
      inputs, against its plain PyTorch version (a loop of plain
-     log-matmul-exp steps) at the main path's shape (B=32, T=127, S=256,
+     log-matmul-exp steps), on the cluster route (the wrapper's choice at
+     every case here) at the main path's shape (B=32, T=127, S=256,
      emissions about -35 per step), a ragged small shape with L, one A
      per row, A with -inf entries and a -inf column, and a row of alpha0
-     all -inf; at the main path's shape with a quarter of the states
-     unreachable at the first step (z clipped at FLT_MIN), each gradient
-     against the float64 plain version; the first sequence's forward
-     against a float64 filter; timed forward and backward in turns with
-     the plain version, beside the bound and a loop of 127 K1 forward
-     launches (the route without K2);
+     all -inf; the streaming route, forced, at the main path's shape and
+     the two ragged ones, and chosen at B=2, T'=4, S=1024; at the main
+     path's shape with a quarter of the states unreachable at the first
+     step (z clipped at FLT_MIN), each gradient of either route against
+     the float64 plain version; the first sequence's forward against a
+     float64 filter; both routes timed forward and backward in turns with
+     the plain version at S=256 and S=512 (B=32, T'=127), beside the
+     bound, the cluster route at each cluster size and rows per cluster
+     that fit, beside the clusters the card runs at once, and a loop of
+     127 K1 forward launches (the route without K2);
   5. slice 2 at full width: model_1v of ``examples/hmm.py`` (the same
      shape, ``vectorized_markov``) trained for 5 SVI steps with AutoDelta,
      ``TraceEnum_ELBO(max_plate_nesting=3)`` and Adam: the step-0 ELBO
      through K2 against the same ELBO through the plain scan, finite
-     losses, exactly 5 K2 forward and 5 K2 backward launches and no K1
-     launch, and one profiled step;
+     losses, exactly 5 K2 forward and 5 K2 backward launches, all on the
+     cluster route, and no K1 launch, and one profiled step;
   6. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
-     backward), the card's name and power limit, then the result line.
+     backward on each route), the card's name and power limit, then the
+     result line.
 
 Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
 atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS, and its
@@ -355,25 +361,38 @@ def filter64(alpha0, A, R, L=None):
     return alpha
 
 
-def compare_k2(ms, inputs, g, label, grad_rtol, grad_atol):
+def k2_plan(ms, inputs):
+    """The route the wrapper chooses for these inputs."""
+    alpha0, A = inputs[0], inputs[1]
+    B, S = alpha0.shape
+    return ms._device_plan(B, S, 1 if A.ndim == 2 else B, alpha0.device)
+
+
+def compare_k2(ms, inputs, g, label, grad_rtol, grad_atol, route="cluster"):
     """K2 forward and the gradients of all its inputs against the plain
     version, and the first row's forward against ``filter64``; prints each
     gradient's distance to the float64 plain version, for kernel and plain,
     over that gradient's largest entry.  A gradient passes within
-    ``grad_atol * max|grad| + grad_rtol * |grad|`` of the plain one.
-    Returns the largest forward and gradient errors."""
+    ``grad_atol * max|grad| + grad_rtol * |grad|`` of the plain one.  The
+    kernel runs on ``route``: the wrapper's choice if it chooses that route,
+    else forced.  Returns the largest forward and gradient errors."""
     import torch
 
+    plan = None if k2_plan(ms, inputs).route == route else ms.ScanPlan(route)
+    label = f"{label} [{route}{'' if plan else ', chosen'}]"
     outs, grads = [], []
     for fn in (ms.markov_scan, ms.markov_scan_plain):
         leaves = [None if t is None else t.detach().clone().requires_grad_() for t in inputs]
-        n = dict(ms.launches)
-        out = fn(*leaves)
+        n, on_route = dict(ms.launches), dict(ms.route_launches[route])
+        out = fn(*leaves, plan=plan) if fn is ms.markov_scan else fn(*leaves)
         (out * g).sum().backward()
         torch.cuda.synchronize()
         if fn is ms.markov_scan:
             check(ms.launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1},
                   f"{label}: expected one K2 launch each way, got {ms.launches} after {n}")
+            check(ms.route_launches[route] == {"forward": on_route["forward"] + 1,
+                                               "backward": on_route["backward"] + 1},
+                  f"{label}: expected one launch each way on the {route} route, got {ms.route_launches}")
         outs.append(out.detach())
         grads.append([None if t is None else t.grad for t in leaves])
     out_k, out_p = outs
@@ -408,35 +427,105 @@ def compare_k2(ms, inputs, g, label, grad_rtol, grad_atol):
     return fwd_err, bwd_err
 
 
-def check_k2_f64(ms, inputs, g, label, tol):
+def check_k2_f64(ms, inputs, g, label, tol, route="cluster"):
     """K2's forward against the plain version, and each gradient within
-    ``tol * max|grad|`` of the plain version's in float64."""
+    ``tol * max|grad|`` of the plain version's in float64, on ``route``."""
     import torch
 
+    plan = None if k2_plan(ms, inputs).route == route else ms.ScanPlan(route)
+    label = f"{label} [{route}{'' if plan else ', chosen'}]"
     leaves = [None if t is None else t.detach().clone().requires_grad_() for t in inputs]
-    out = ms.markov_scan(*leaves)
+    out = ms.markov_scan(*leaves, plan=plan)
     (out * g).sum().backward()
     out = out.detach()
     with torch.no_grad():
         out_p = ms.markov_scan_plain(*inputs)
+    leaves_p = [None if t is None else t.detach().clone().requires_grad_() for t in inputs]
+    (ms.markov_scan_plain(*leaves_p) * g).sum().backward()
     leaves64 = [None if t is None else t.detach().double().requires_grad_() for t in inputs]
     (ms.markov_scan_plain(*leaves64) * g.double()).sum().backward()
     torch.cuda.synchronize()
     fwd_excess = float(((out - out_p).abs() - (1e-4 + 1e-6 * out_p.abs())).max())
     check(fwd_excess <= 0, f"{label}: forward outside atol 1e-4 + rtol 1e-6 of plain by {fwd_excess:.3g}")
-    errs = []
-    for name, a, c in zip(("alpha0", "A", "R", "L"), leaves, leaves64):
+    errs, failures = [], []
+    for name, a, p, c in zip(("alpha0", "A", "R", "L"), leaves, leaves_p, leaves64):
         if a is None:
             continue
         check(bool(torch.isfinite(a.grad).all()), f"{label}: non-finite d{name}")
-        err = float((a.grad.double() - c.grad).abs().max()) / (float(c.grad.abs().max()) + 1e-30)
-        errs.append(f"d{name} {err:.3g}")
-        check(err <= tol, f"{label}: d{name} is {err:.3g} * max|grad| from float64, over {tol}")
+        scale = float(c.grad.abs().max()) + 1e-30
+        err = float((a.grad.double() - c.grad).abs().max()) / scale
+        p_err = float((p.grad.double() - c.grad).abs().max()) / scale
+        errs.append(f"d{name} {err:.3g} (plain {p_err:.3g})")
+        if err > tol:
+            failures.append(f"d{name} is {err:.3g} * max|grad| from float64, over {tol}")
     print(f"  {label}: forward max abs err {max_err(out, out_p):.3g}; to float64 over max|grad|: {', '.join(errs)}")
+    check(not failures, f"{label}: " + "; ".join(failures))
+
+
+def k2_bounds(steps, B, S):
+    """K2's least times on the card, forward and backward.  Forward: T'
+    products of (B, S) @ (S, S) plus an exp per h and a log per output;
+    bytes: alpha0, A, R in, alpha_T' out.  Backward: each step's out is
+    known (alpha_{t+1} - R_t), so the gradient needs two products of that
+    size per step, rx = u @ Q^T and the dA fold, plus the elementwise terms;
+    bytes: A, the carry stack and g in, dalpha0, dA and dR out."""
+    prod = 2 * steps * B * S * S
+    return (bound(prod + 3 * steps * B * S, 4 * (2 * B * S + S * S + steps * B * S)),
+            bound(2 * prod + 6 * steps * B * S, 4 * (2 * B * S + 2 * S * S + 2 * steps * B * S)))
+
+
+def time_k2(torch, ms, inputs, g, with_plain):
+    """Forward and backward ms of both routes (and the plain version) in
+    turns at ``inputs``."""
+    alpha0, A, R, _ = inputs
+    stream = ms.ScanPlan("stream")
+    with torch.no_grad():
+        saved = {}
+        for route, plan in (("cluster", None), ("stream", stream)):
+            saved[route] = ms._forward_cuda(alpha0, A, R, plan=plan)[1]
+        fwd_fns = {
+            "cluster": lambda: ms._forward_cuda(alpha0, A, R),
+            "stream": lambda: ms._forward_cuda(alpha0, A, R, plan=stream),
+        }
+        if with_plain:
+            fwd_fns["plain"] = lambda: ms.markov_scan_plain(alpha0, A, R)
+        fwd = alternate(fwd_fns)
+    bwd_fns = {route: (lambda s=s: ms._backward_cuda(A, None, s, g)) for route, s in saved.items()}
+    if with_plain:
+        leaves = [t.detach().clone().requires_grad_() for t in (alpha0, A, R)]
+        out_p = ms.markov_scan_plain(*leaves)
+        bwd_fns["plain"] = lambda: torch.autograd.grad(out_p, leaves, g, retain_graph=True)
+    bwd = alternate(bwd_fns)
+    return fwd, bwd
+
+
+def sweep_clusters(torch, ms, inputs, g):
+    """The cluster route's forward and backward ms at each cluster size C
+    and rows per cluster that fit, beside how many such clusters the card
+    runs at once; returns {(C, rows): (forward ms, backward ms)}."""
+    alpha0, A, R, _ = inputs
+    B, S = alpha0.shape
+    limit = ms._query(ms._lib().msc_smem_limit, device=alpha0.device)
+    out = {}
+    for C in (4, 8, 16):
+        for rows in (1, 2, 3, 4, 8):
+            smem = max(ms.cluster_smem_bytes(S, C, rows), ms.cluster_smem_bytes(S, C, rows, True))
+            if not ms.cluster_takes(S, C, rows) or smem > limit:
+                continue
+            plan = ms.ScanPlan("cluster", C, rows)
+            with torch.no_grad():
+                saved = ms._forward_cuda(alpha0, A, R, plan=plan)[1]
+                f = cuda_ms(lambda: ms._forward_cuda(alpha0, A, R, plan=plan), 10)
+            b = cuda_ms(lambda: ms._backward_cuda(A, None, saved, g), 10)
+            active = ms.active_clusters(S, C, rows, alpha0.device)
+            out[(C, rows)] = (f, b)
+            print(f"    C={C:2d} rows={rows}: {-(-B // rows):2d} clusters ({active} run at once), "
+                  f"forward {f:.4f} ms, backward {b:.4f} ms")
+    return out
 
 
 def phase_k2(torch, lm, ms):
-    print("phase 4: K2 Markov-chain scan against its plain version")
+    print("phase 4: K2 Markov-chain scan against its plain version, both routes")
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def randn(*shape, scale=1.0):
@@ -448,11 +537,22 @@ def phase_k2(torch, lm, ms):
     steps = T - 1
     main = [randn(B, S), log_transition(S, S), randn(steps, B, S, scale=3.0) + EMISSION, None]
     g = randn(B, S)
-    fwd_err, bwd_err = compare_k2(ms, main, g, f"B={B}, T'={steps}, S={S}", grad_rtol=1e-3, grad_atol=1e-4)
-    compare_k2(ms, [randn(3, 37), log_transition(37, 37), randn(6, 3, 37), randn(6, 3, 37)], randn(3, 37),
-               "ragged B=3, T'=6, S=37, with L", grad_rtol=1e-4, grad_atol=1e-5)
-    compare_k2(ms, [randn(3, 37), log_transition(3, 37, 37), randn(6, 3, 37), None], randn(3, 37),
-               "one A per row, B=3, T'=6, S=37", grad_rtol=1e-4, grad_atol=1e-5)
+    plan = k2_plan(ms, main)
+    check(plan.route == "cluster", f"the main path's shape must take the cluster route, got {plan}")
+    print(f"  the wrapper's plan at B={B}, S={S}: {plan}")
+    errs = {}
+    for route in ("cluster", "stream"):
+        errs[route] = compare_k2(ms, main, g, f"B={B}, T'={steps}, S={S}", grad_rtol=1e-3, grad_atol=1e-4,
+                                 route=route)
+    ragged = [randn(3, 37), log_transition(37, 37), randn(6, 3, 37), randn(6, 3, 37)]
+    g_ragged = randn(3, 37)
+    per_row = [randn(3, 37), log_transition(3, 37, 37), randn(6, 3, 37), None]
+    g_per_row = randn(3, 37)
+    for route in ("cluster", "stream"):
+        compare_k2(ms, ragged, g_ragged, "ragged B=3, T'=6, S=37, with L", grad_rtol=1e-4, grad_atol=1e-5,
+                   route=route)
+        compare_k2(ms, per_row, g_per_row, "one A per row, B=3, T'=6, S=37", grad_rtol=1e-4, grad_atol=1e-5,
+                   route=route)
     A = log_transition(33, 33)
     A[A < -5.0] = -float("inf")
     A[:, 5] = -float("inf")
@@ -468,50 +568,47 @@ def phase_k2(torch, lm, ms):
     A[: S // 4, 3 * S // 4:] = -float("inf")
     alpha0 = randn(B, S)
     alpha0[:, S // 4:] = -float("inf")
-    check_k2_f64(ms, [alpha0, A, main[2], None], g, f"B={B}, T'={steps}, S={S}, states unreachable at step 0", 1e-3)
+    for route in ("cluster", "stream"):
+        check_k2_f64(ms, [alpha0, A, main[2], None], g, f"B={B}, T'={steps}, S={S}, states unreachable at step 0",
+                     1e-3, route=route)
+    large = [randn(2, 1024), log_transition(1024, 1024), randn(4, 2, 1024), randn(4, 2, 1024)]
+    check(k2_plan(ms, large).route == "stream", "S=1024 must take the streaming route")
+    compare_k2(ms, large, randn(2, 1024), "B=2, T'=4, S=1024, with L", grad_rtol=1e-4, grad_atol=1e-5,
+               route="stream")
 
-    # timing at the main path's shape
+    # timing: both routes in turns at the main path's shape and at S=512,
+    # beside the plain version and the bound; the cluster sizes tried
+    result = {}
+    for s in (S, 2 * S):
+        inputs = main if s == S else [randn(B, s), log_transition(s, s), randn(steps, B, s, scale=3.0) + EMISSION,
+                                      None]
+        gs = g if s == S else randn(B, s)
+        fwd, bwd = time_k2(torch, ms, inputs, gs, with_plain=True)
+        fb, bb = k2_bounds(steps, B, s)
+        print(f"  timing at B={B}, T'={steps}, S={s} f32 (A shared), plan {k2_plan(ms, inputs)}:")
+        for name, t, b in (("forward ", fwd, fb), ("backward", bwd, bb)):
+            print(f"    {name} cluster {t['cluster']:.4f} ms ({1e3 * t['cluster'] / steps:.2f} us/step)  "
+                  f"stream {t['stream']:.4f} ms ({1e3 * t['stream'] / steps:.2f} us/step)  "
+                  f"plain {t['plain']:.4f} ms  bound {b[0]:.4f} ms ({b[1]})")
+        print(f"  cluster sizes at S={s}:")
+        sweep_clusters(torch, ms, inputs, gs)
+        if s == S:
+            result = {
+                f"{route}_{d}": {"max_abs_err": errs[route][i], "ms": t[route], "plain_ms": t["plain"], "bound": b}
+                for route in ("cluster", "stream")
+                for i, (d, t, b) in enumerate((("forward", fwd, fb), ("backward", bwd, bb)))
+            }
     alpha0, A, R, _ = main
     with torch.no_grad():
-        out, saved = ms._forward_cuda(alpha0, A, R)
-        fwd = alternate({
-            "kernel": lambda: ms._forward_cuda(alpha0, A, R),
-            "plain": lambda: ms.markov_scan_plain(alpha0, A, R),
-        })
-
         def k1_loop():
             a = alpha0
             for t in range(steps):
                 a = lm._forward_cuda(a, A)[0] + R[t]
             return a
 
-        k1_loop_ms = cuda_ms(k1_loop, 10)
-    leaves = [t.detach().clone().requires_grad_() for t in (alpha0, A, R)]
-    out_p = ms.markov_scan_plain(*leaves)
-    bwd = alternate({
-        "kernel": lambda: ms._backward_cuda(A, None, saved, g),
-        "plain": lambda: torch.autograd.grad(out_p, leaves, g, retain_graph=True),
-    })
-    # forward: T' products of (B, S) @ (S, S) plus an exp per h and a log
-    # per output; bytes: alpha0, A, R in, alpha_T' out.  Backward: each
-    # step's out is known (alpha_{t+1} - R_t), so the gradient needs two
-    # products of that size per step, rx = u @ Q^T and the dA fold, plus the
-    # elementwise terms; bytes: A, the carry stack and g in, dalpha0, dA and
-    # dR out.
-    prod = 2 * steps * B * S * S
-    fwd_bound = bound(prod + 3 * steps * B * S, 4 * (2 * B * S + S * S + steps * B * S))
-    bwd_bound = bound(2 * prod + 6 * steps * B * S, 4 * (2 * B * S + 2 * S * S + 2 * steps * B * S))
-    print(f"  timing at B={B}, T'={steps}, S={S} f32 (A shared):")
-    print(f"    forward  kernel {fwd['kernel']:.4f} ms ({1e3 * fwd['kernel'] / steps:.2f} us/step)  "
-          f"plain {fwd['plain']:.4f} ms  bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
-    print(f"    backward kernel {bwd['kernel']:.4f} ms ({1e3 * bwd['kernel'] / steps:.2f} us/step)  "
-          f"plain {bwd['plain']:.4f} ms  bound {bwd_bound[0]:.4f} ms ({bwd_bound[1]})")
-    print(f"    the route without K2, {steps} K1 forward launches: {k1_loop_ms:.4f} ms")
-    return {
-        "forward": {"max_abs_err": fwd_err, "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound": fwd_bound},
-        "backward": {"max_abs_err": bwd_err, "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound": bwd_bound},
-        "k1_loop_ms": k1_loop_ms,
-    }
+        result["k1_loop_ms"] = cuda_ms(k1_loop, 10)
+    print(f"  the route without K2, {steps} K1 forward launches: {result['k1_loop_ms']:.4f} ms")
+    return result
 
 
 def phase_enum_slice(torch, lm, ms):
@@ -542,7 +639,7 @@ def phase_enum_slice(torch, lm, ms):
     check(rel <= 1e-5, f"model_1v loss through K2 differs from the plain scan by rtol {rel}")
 
     lm.launches.update(forward=0, backward=0)
-    ms.launches.update(forward=0, backward=0)
+    ms.reset_counts()
     losses, step_ms = [], []
     for _ in range(STEPS):
         t0 = time.perf_counter()
@@ -550,14 +647,17 @@ def phase_enum_slice(torch, lm, ms):
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
     k1, k2 = dict(lm.launches), dict(ms.launches)
+    routes = {route: dict(counts) for route, counts in ms.route_launches.items()}
     print(f"  losses {losses}")
     print(f"  ms per step {[round(t, 3) for t in step_ms]}")
-    print(f"  launches over {STEPS} steps: K2 {k2}, K1 {k1}")
+    print(f"  launches over {STEPS} steps: K2 {k2} (by route {routes}), K1 {k1}")
     check(all(map(lambda l: l == l and abs(l) != float("inf"), losses)), "non-finite loss")
     check(k2 == {"forward": STEPS, "backward": STEPS}, f"expected one K2 launch each way per step, got {k2}")
+    check(routes == {"cluster": k2, "stream": {"forward": 0, "backward": 0}},
+          f"expected every K2 launch on the cluster route, got {routes}")
     check(k1 == {"forward": 0, "backward": 0}, f"expected no K1 launch, got {k1}")
     profile_step(torch, svi, sequences, lengths)
-    return k2, step_ms
+    return routes, step_ms
 
 
 def profile_step(torch, svi, sequences, lengths):
@@ -578,7 +678,7 @@ def profile_step(torch, svi, sequences, lengths):
     )
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     k1_ms = sum(e.self_device_time_total for e in kernels if "lme_" in e.key) / 1e3
-    k2_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith("ms_")) / 1e3
+    k2_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith(("ms_", "msc_"))) / 1e3
     print(f"  profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
           f"({100 * busy_ms / wall_ms:.1f}%), K1 kernels {k1_ms:.3f} ms, K2 kernels {k2_ms:.3f} ms")
     for e in kernels[:8]:
@@ -625,19 +725,24 @@ def main():
     k2_launches, _ = phase_enum_slice(torch, lm, ms)
 
     kernels = []
-    for name, source, replaces, direction, result, launches in (
-        ("logmatmulexp_fwd", "log_matmul.cu", "pyro_tpu/ops/log_matmul.py:36", "forward", k1, k1_launches),
-        ("logmatmulexp_bwd", "log_matmul.cu", "pyro_tpu/ops/log_matmul.py:59", "backward", k1, k1_launches),
-        ("markov_scan_fwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:469", "forward", k2, k2_launches),
-        ("markov_scan_bwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:469", "backward", k2, k2_launches),
+    scan = "pyro_tpu/ops/markov_product.py:469"
+    for name, source, replaces, r, launches in (
+        ("logmatmulexp_fwd", "log_matmul.cu", "pyro_tpu/ops/log_matmul.py:36", k1["forward"],
+         k1_launches["forward"]),
+        ("logmatmulexp_bwd", "log_matmul.cu", "pyro_tpu/ops/log_matmul.py:59", k1["backward"],
+         k1_launches["backward"]),
+        ("markov_scan_fwd", "markov_scan.cu", scan, k2["cluster_forward"], k2_launches["cluster"]["forward"]),
+        ("markov_scan_bwd", "markov_scan.cu", scan, k2["cluster_backward"], k2_launches["cluster"]["backward"]),
+        ("markov_scan_stream_fwd", "markov_scan.cu", scan, k2["stream_forward"], k2_launches["stream"]["forward"]),
+        ("markov_scan_stream_bwd", "markov_scan.cu", scan, k2["stream_backward"],
+         k2_launches["stream"]["backward"]),
     ):
-        r = result[direction]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": f"pyro_tpu_torch/csrc/{source}",
             "replaces": replaces,
-            "launches": launches[direction],
+            "launches": launches,
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],

@@ -18,33 +18,64 @@
 // rate outside the tensor cores; the inputs and outputs are 4.4 MB, 1.3 us
 // at 3.35 TB/s.  But the T steps depend on each other, and each is a tiny
 // (B, S) @ (S, S) product, so latency sets the time, not either bound.
-// This design: one launch for all T steps; one block owns one sequence
-// (row b) and loops over t, since rows never interact, so no grid-wide
-// sync is needed.  A (256 KB at S=256) does not fit in one block's 227 KB
-// of shared memory, so a prologue kernel writes Q = exp(A - c) once, and
-// every step re-reads Q from L2 (256 KB per step per block; 50 MB of L2
-// holds it); the carry, the shifted exponentials and the reductions stay
-// in shared memory.  The step time is then the time one SM takes to stream
-// Q from L2, so the block has 1024 threads: each column's dot product is
-// split in four quarters of l, which keeps four times as many L2 loads in
-// flight as one thread per column would.  Splitting Q's columns over a
-// thread-block cluster, each slice resident in one SM's shared memory and
-// the carry exchanged through distributed shared memory, is the known next
-// step.
 //
-// Backward (the reverse scan of the VJP): for t = T-1 .. 0, with g =
-// dloss/dalpha_t+1, dR_t = g; the block recomputes h_t and exp(h_t - m)
-// from the saved carry alpha_t and takes the forward's saved z_t (so out_t
-// = log z + m + c is bit-identical to the forward's; saving z, 4 MB at the
-// main path's shape, spares the backward one of its two products per step),
-// then follows the bounded backward of logmatmulexp:
+// Two routes, chosen by shape in the wrapper before the launch
+// (ops/markov_scan.py::plan_scan):
+//
+// The cluster route (msc_*), for every S whose Q = exp(A - c) fits in the
+// shared memory of a thread-block cluster.  A cluster of C CTAs takes a
+// group of rows (all of them share A, or one row with its own A); CTA k
+// owns the columns r in [k W, (k+1) W), W = ceil(S / C), and keeps its
+// slice Q[:, slice] in shared memory for all T steps (read from A once, in
+// the prologue; its column maxima are local to the slice).  A step is
+// latency, not arithmetic, so the design removes waits from the step:
+// - Forward step: every CTA holds the full carry rows, takes their max
+//   itself (each row cut into segments over the warps), computes its slice
+//   of z = exp(h - m) @ Q on the f32 CUDA cores (register-blocked, p read
+//   as 16-byte vectors), and stores its slice of alpha_t+1 into every
+//   peer's copy of the rows with st.async, each store counted on the
+//   receiver's mbarrier (transaction bytes).  The carry rows are
+//   double-buffered, so the one wait a step is the receiver's wait on that
+//   mbarrier: no cluster barrier.  A peer can write a buffer again only
+//   after it has this CTA's next carry, which this CTA sends after reading
+//   the buffer, so the data dependencies order every reuse.
+// - Backward: the per-step statistics (the maxima xs, cr, crc and the clip
+//   classes) come from the saved stacks, not from the gradient, so one
+//   parallel kernel (msc_stats_kernel) computes them for all T*B rows
+//   first, a warp per row with the streaming kernel's float expressions
+//   (one decision per row, so the clip classes agree across the cluster),
+//   together with the fold's inputs.  The reverse scan then reads only its
+//   own columns' factors, a step ahead.  rx[l] = sum_r u[r] Q[l, r] is a
+//   sum over every CTA's own columns r, so each CTA pushes its partial sums
+//   to the CTA that owns l (a reduce-scatter through distributed shared
+//   memory with st.async, double-buffered, one mbarrier wait a step; the
+//   second clip class rides on the same phase) and adds the C partials in
+//   rank order, which makes the result the same run to run.  Every CTA
+//   must own a column: one without would wait for nothing and run ahead of
+//   its peers' buffers.
+//
+// The streaming route (ms_forward_kernel, ms_backward_kernel), for larger S
+// up to the wrapper's MAX_STATES: one block owns one row b and loops over t.
+// Q does not fit in one block's 227 KB of shared memory at S=256 (256 KB),
+// so a prologue kernel writes Q once, and every step re-reads Q from L2
+// (S*S*4 bytes per step per block); the carry, the shifted exponentials
+// and the reductions stay in shared memory.  The block has 1024 threads:
+// each column's dot product is split in four quarters of l, which keeps
+// four times as many L2 loads in flight as one thread per column would.
+//
+// Backward (the reverse scan of the VJP), both routes: for t = T-1 .. 0,
+// with g = dloss/dalpha_t+1, dR_t = g; h_t and exp(h_t - m) are recomputed
+// from the saved carry alpha_t, and the forward's saved z_t is read (so
+// out_t = log z + m + c is bit-identical to the forward's; saving z spares
+// the backward one of its two products per step); then the bounded
+// backward of logmatmulexp:
 //   E  = -(out - m - c)        cr = max_r E
 //   rx = (g * exp(E - cr)) @ Q^T
 //   dh = sign(rx) * exp(h - m + cr + log(|rx| + FLT_MIN)),
 // with the clipped entries (below) a class of their own: each class has its
 // own cr and rx, and dh sums the classes' terms; the second product runs
-// only at a step whose row holds a clipped entry.
-// dL_t = dh, and g becomes dh; the last dh is dalpha_0.  The block writes
+// only at a step whose rows hold a clipped entry.
+// dL_t = dh, and g becomes dh; the last dh is dalpha_0.  The scan writes
 // exp(h_t - m) and E (-inf on a row whose h is all -inf) per step.  dA is
 // then one fold over all T*B rows with one shift per column (split over
 // blocks, partial sums in scratch):
@@ -58,8 +89,10 @@
 // keeps two classes, each with its own shift and sum: the clipped entries
 // and the rest.
 // Plain C interface for ctypes; each entry point launches on the given
-// stream and returns cudaGetLastError().
+// stream and returns the launch's error code (a refused launch, for too
+// large a cluster or too much shared memory, among them).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
@@ -411,52 +444,711 @@ __global__ void __launch_bounds__(NT) ms_dA_kernel(const float* __restrict__ A, 
   }
 }
 
-// ------------------------------------------------------------ C interface --
+// ----------------------------------------------------------- cluster route --
 
-extern "C" {
+namespace cg = cooperative_groups;
 
-// alpha0 (B, S); A (nA, S, S), nA 1 or B; R and L (T, B, S), L may be null;
-// outputs: alphas and zs (T, B, S), out (B, S); scratch kept for the
-// backward: Q and QT (nA, S, S), craw (nA, S).
-int ms_forward(const float* alpha0, const float* A, const float* R, const float* L, int B, int T, int S, int nA,
-               float* alphas, float* zs, float* out, float* Q, float* QT, float* craw, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  dim3 prep_grid((S + NT - 1) / NT, nA);
-  ms_prep_kernel<<<prep_grid, NT, 0, st>>>(A, S, Q, QT, craw);
-  int err = (int)cudaGetLastError();
-  if (err) return err;
-  const size_t smem = (3 * (size_t)S + NTS + NTS / 32) * sizeof(float);
-  if (smem > 48 * 1024) {
-    err = (int)cudaFuncSetAttribute(ms_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-  }
-  ms_forward_kernel<<<B, NTS, smem, st>>>(alpha0, Q, craw, R, L, B, T, S, nA > 1, alphas, zs, out);
-  return (int)cudaGetLastError();
+#define NTC 256   // threads of a CTA of the cluster kernels
+#define MAXE 8    // elements of a CTA's rows that one thread takes in the row passes
+#define MAXO 4    // outputs of a CTA that one thread takes in the forward's epilogue
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+// Columns per CTA, W; rows of the Q slice and of the exchanged vectors are
+// padded to W4 = round4(W) columns (zeros), and Q's row stride is W4 + 1,
+// odd, so that lanes that walk down a column (the backward) and lanes that
+// walk along a row (the forward) both hit distinct banks.
+__host__ __device__ __forceinline__ int cl_width(int S, int C) { return (S + C - 1) / C; }
+
+// The row passes cut each of a CTA's nr rows into wpr segments, one warp
+// each (wpr a power of two, as large as the 8 warps allow); a lane takes
+// every 32nd element of its segment.  Elements per lane:
+__host__ __device__ __forceinline__ int cl_wpr(int nr) {
+  int w = 1;
+  while (2 * w * nr <= NTC / 32) w *= 2;
+  return w;
+}
+__host__ __device__ __forceinline__ int cl_slots(int S, int nr) {
+  const int wpr = cl_wpr(nr), groups = NTC / 32 / wpr, seglen = (S + wpr - 1) / wpr;
+  return (nr + groups - 1) / groups * ((seglen + 31) / 32);
+}
+// Whether the kernels take (S, C, rows): every CTA owns a column (a CTA
+// without one would wait for no partials in the backward and run ahead of
+// its peers, whose receive buffers are safe to reuse only because every
+// CTA waits for every step's partials), the row passes and the forward's
+// epilogue fit the threads' registers, and the forward's product has a
+// thread for each padded column.
+__host__ __device__ __forceinline__ bool cl_takes(int S, int C, int rows) {
+  return C >= 1 && rows >= 1 && (C - 1) * cl_width(S, C) < S && cl_slots(S, rows) <= MAXE &&
+         rows * cl_width(S, C) <= MAXO * NTC && round4(cl_width(S, C)) <= NTC;
 }
 
-// gout (B, S) is dloss/dalpha_T; alphas and zs are the forward's.
-// Outputs dalpha0 (B, S), dR (T, B, S), dL (T, B, S) or null, dA (nA, S, S).
-// Scratch: P, W and Wc (T, B, S), cc (2, nA, S), partial (2, splits, nA, S, S).
-int ms_backward(const float* A, const float* alphas, const float* zs, const float* L, const float* Q,
-                const float* QT,
-                const float* craw, const float* gout, int B, int T, int S, int nA, int splits,
-                float* dalpha0, float* dR, float* dL, float* dA, float* P, float* W, float* Wc, float* cc,
-                float* partial, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int per_row_A = nA > 1;
-  const size_t smem = (6 * (size_t)S + NTS + NTS / 32) * sizeof(float);
-  int err = 0;
-  if (smem > 48 * 1024) {
-    err = (int)cudaFuncSetAttribute(ms_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// Dynamic shared memory, in floats, of a CTA of each cluster kernel; the
+// kernels below cut it in this order, every part a multiple of 16 bytes.
+__host__ __device__ __forceinline__ long long cl_forward_floats(int S, int C, int rows) {
+  const long long W4 = round4(cl_width(S, C)), S4 = round4(S), R = rows;
+  return 4                          // the mbarriers of the two carry buffers
+         + round4(S4 * (W4 + 1))    // Q slice
+         + 3 * R * S4               // carry rows (two buffers), p
+         + R * NTC                  // the product's partial sums
+         + R * W4                   // the new carry's own columns
+         + 8 * R + round4(R) + W4;  // segment maxima, row maxima, column shifts
+}
+__host__ __device__ __forceinline__ long long cl_backward_floats(int S, int C, int rows) {
+  const long long W4 = round4(cl_width(S, C)), S4 = round4(S), R = rows;
+  return 4                          // the mbarriers of the two receive buffers
+         + round4(S4 * (W4 + 1))    // Q slice
+         + 4 * C * R * W4           // received partials: two buffers, two classes, C sources
+         + 2 * R * S4               // the product's partials of both classes, before they are sent
+         + 2 * R * W4;              // u of both classes
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) { return (unsigned)__cvta_generic_to_shared(p); }
+
+// The same shared-memory address in CTA `rank` of the cluster.
+__device__ __forceinline__ unsigned peer_addr(unsigned addr, int rank) {
+  unsigned out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+// The local arrival of a phase that completes when `bytes` more have come.
+__device__ __forceinline__ void mbar_expect(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// Store 4 or 16 bytes at cluster address `addr` and count them on the
+// mbarrier at cluster address `bar` (both in the same CTA).
+__device__ __forceinline__ void st_async(unsigned addr, float v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];\n" ::"r"(addr),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void st_async4(unsigned addr, float4 v, unsigned bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(
+                   addr),
+               "r"(__float_as_uint(v.x)), "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+               "r"(__float_as_uint(v.w)), "r"(bar)
+               : "memory");
+}
+
+// A thread's elements of the CTA's rows in the row passes: element i is
+// (row, l) = (rows_[i], ls[i]), l < 0 where the thread has none.
+template <int ME>
+struct RowSlots {
+  int wpr, seg, js, n;
+  unsigned starts, ends;  // bit i: slot i is the first, the last of its row in this thread
+  int rows_[ME], ls[ME];
+  __device__ __forceinline__ RowSlots(int S, int nr) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    wpr = cl_wpr(nr);
+    const int groups = NTC / 32 / wpr, seglen = (S + wpr - 1) / wpr;
+    seg = warp % wpr;
+    js = (seglen + 31) / 32;
+    n = cl_slots(S, nr);
+    const int end = min(S, (seg + 1) * seglen);
+    starts = ends = 0;
+#pragma unroll
+    for (int i = 0; i < ME; ++i) {
+      const int row = warp / wpr + (i / js) * groups, l = seg * seglen + lane + 32 * (i % js);
+      rows_[i] = row;
+      ls[i] = (i < n && row < nr && l < end) ? l : -1;
+      if (i < n && i % js == 0) starts |= 1u << i;
+      if (i < n && (i + 1) % js == 0) ends |= 1u << i;
+    }
+  }
+};
+
+// The maxima over each (row, segment) of the values v[i] of the row
+// passes' elements (-inf where a thread has none) into
+// seg_max[row * wpr + segment]; ends synchronised.
+template <int ME>
+__device__ __forceinline__ void segment_max(const RowSlots<ME>& e, const float (&v)[ME], int nr, float* seg_max) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < ME; ++i) {
+    if (i < e.n) {
+      mx = fmaxf(mx, v[i]);
+      if (e.ends >> i & 1) {
+        mx = warp_max(mx);
+        if ((threadIdx.x & 31) == 0 && e.rows_[i] < nr) seg_max[e.rows_[i] * e.wpr + e.seg] = mx;
+        mx = -INFINITY;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ float row_max(const float* seg_max, int row, int wpr) {
+  float m = -INFINITY;
+  for (int s = 0; s < wpr; ++s) m = fmaxf(m, seg_max[row * wpr + s]);
+  return m;
+}
+
+// A thread's outputs (row, w) of the CTA's own columns, o = tid + i NTC
+// over the nr x W outputs; w < 0 where it has none.
+struct OwnOutputs {
+  int row[MAXO], w[MAXO];
+  __device__ __forceinline__ OwnOutputs(int nr, int W, int wn) {
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) {
+      const int o = threadIdx.x + i * NTC;
+      row[i] = o / W;
+      w[i] = (o < nr * W && o % W < wn) ? o % W : -1;
+    }
+  }
+};
+
+#define MAXS 2  // send items of a thread with precomputed addresses; more go through a plain loop
+
+// Grid: clusters of C CTAs along x; cluster i takes rows [i rows, (i+1)
+// rows) of a shared A, or row i and its own A (per_row_A, rows == 1).
+// Writes alphas and zs (T, B, S) and out (B, S) for each CTA's own
+// columns, and craw (nA, S), the raw column maxima of A, for the backward.
+// out[r * ostride] = sum over l in [l_begin, l_end) of p[r * pstride + l] *
+// q[l * qstride] for NR rows r: the forward's product over one chunk of l,
+// p read as 16-byte vectors (l_begin and l_end multiples of 4).
+template <int NR>
+__device__ __forceinline__ void chunk_product(const float* q, int qstride, const float* p, int pstride, int l_begin,
+                                              int l_end, float* out, int ostride) {
+  float acc[NR];
+#pragma unroll
+  for (int r = 0; r < NR; ++r) acc[r] = 0.f;
+#pragma unroll 2
+  for (int l = l_begin; l < l_end; l += 4) {
+    const float q0 = q[l * qstride], q1 = q[(l + 1) * qstride], q2 = q[(l + 2) * qstride], q3 = q[(l + 3) * qstride];
+#pragma unroll
+    for (int r = 0; r < NR; ++r) {
+      const float4 pv = *reinterpret_cast<const float4*>(p + r * pstride + l);
+      acc[r] = fmaf(pv.x, q0, acc[r]);
+      acc[r] = fmaf(pv.y, q1, acc[r]);
+      acc[r] = fmaf(pv.z, q2, acc[r]);
+      acc[r] = fmaf(pv.w, q3, acc[r]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < NR; ++r) out[r * ostride] = acc[r];
+}
+
+template <int ME>
+__global__ void __launch_bounds__(NTC, 1) msc_forward_kernel(const float* __restrict__ alpha0,
+                                                          const float* __restrict__ A,
+                                                          const float* __restrict__ R,
+                                                          const float* __restrict__ L, int B, int T, int S,
+                                                          int per_row_A, int rows, float* __restrict__ alphas,
+                                                          float* __restrict__ zs, float* __restrict__ out,
+                                                          float* __restrict__ craw) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C;
+  const int W = cl_width(S, C), W4 = round4(W), QP = W4 + 1, S4 = round4(S);
+  const int r0 = k * W, wn = max(0, min(W, S - r0));
+  const int b0 = cid * rows, nr = min(rows, B - b0);
+  const long long a = per_row_A ? cid : 0;
+  const int tid = threadIdx.x;
+  // the carry goes to the peers as 16-byte vectors where the columns allow
+  const bool vec = W % 4 == 0 && S % 4 == 0;
+  extern __shared__ float smem[];
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);  // [2]
+  float* Qs = smem + 4;                            // [S4][QP]
+  float* hbuf = Qs + round4(S4 * QP);              // [2][rows][S4]
+  float* p = hbuf + 2 * rows * S4;                 // [rows][S4]
+  float* red = p + rows * S4;                      // [parts][rows][W4]
+  float* vbuf = red + rows * NTC;                  // [rows][W4]
+  float* seg_max = vbuf + rows * W4;               // [rows][8]
+  float* msh = seg_max + 8 * rows;                 // [rows]
+  float* cs = msh + round4(rows);                  // [W4]
+  const RowSlots<ME> e(S, nr);
+  const OwnOutputs own(nr, W, wn);
+  // the sends of a step: item x = (peer j, row, column or vector of 4
+  // columns q) into the peer's carry row at r0 + q (4 q), from vbuf
+  const int nq = vec ? (wn + 3) / 4 : wn, nsend = C * nr * nq;
+  int send_j[MAXS], send_dst[MAXS], send_src[MAXS];
+#pragma unroll
+  for (int i = 0; i < MAXS; ++i) {
+    const int x = tid + i * NTC, j = x % C, row = (x / C) / max(nq, 1), q = (x / C) % max(nq, 1);
+    send_j[i] = x < nsend ? j : -1;
+    send_dst[i] = row * S4 + r0 + (vec ? 4 * q : q);
+    send_src[i] = row * W4 + (vec ? 4 * q : q);
+  }
+
+  // prologue: A's slice, its column maxima, Q = exp(A - c) in place
+  const float* Aa = A + a * S * S;
+  for (int x = tid; x < S4 * W4; x += NTC) {
+    const int l = x / W4, w = x % W4;
+    Qs[l * QP + w] = (w < wn && l < S) ? Aa[(long long)l * S + r0 + w] : -INFINITY;
+  }
+  for (int x = tid; x < rows * S4; x += NTC) p[x] = 0.f;  // the padding columns stay 0
+  if (tid == 0) {
+    mbar_init(smem_addr(&bars[0]));
+    mbar_init(smem_addr(&bars[1]));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int np = NTC / W4;
+  for (int x = tid; x < np * W4; x += NTC) {
+    const int w = x % W4, part = x / W4;
+    float mx = -INFINITY;
+    for (int l = part; l < S; l += np) mx = fmaxf(mx, Qs[l * QP + w]);
+    red[part * W4 + w] = mx;
+  }
+  __syncthreads();
+  for (int w = tid; w < W4; w += NTC) {
+    float mx = -INFINITY;
+    for (int part = 0; part < np; ++part) mx = fmaxf(mx, red[part * W4 + w]);
+    if (w < wn && (per_row_A || cid == 0)) craw[a * S + r0 + w] = mx;
+    cs[w] = finite_or_zero(mx);
+  }
+  __syncthreads();
+  for (int x = tid; x < S4 * W4; x += NTC) {
+    const int l = x / W4, w = x % W4;
+    Qs[l * QP + w] = (w < wn && l < S) ? expf(Qs[l * QP + w] - cs[w]) : 0.f;
+  }
+  for (int x = tid; x < nr * S; x += NTC) hbuf[(x / S) * S4 + x % S] = alpha0[(long long)b0 * S + x];
+  // the first step's L, in the registers of the row passes
+  float lv[ME];
+#pragma unroll
+  for (int i = 0; i < ME; ++i)
+    lv[i] = (L && e.ls[i] >= 0) ? L[(long long)b0 * S + e.rows_[i] * S + e.ls[i]] : 0.f;
+  // each step's carry comes from the cluster's CTAs: nr rows of their
+  // columns (whole vectors of 4 where vec)
+  unsigned carry_bytes = 0;
+  for (int j = 0; j < C; ++j) {
+    const int wj = max(0, min(W, S - j * W));
+    carry_bytes += 4u * nr * (vec ? round4(wj) : wj);
+  }
+  if (tid == 0 && T > 1) mbar_expect(smem_addr(&bars[1]), carry_bytes);
+  cluster.sync();  // every peer runs, its mbarriers initialised, before the first remote store
+
+  // the product: thread (w, part) sums l over its part's chunk of S4
+  const int nparts = NTC / W4, chunk = round4((S4 + nparts - 1) / nparts);
+  const int pw = tid % W4, part = tid / W4;
+  const int l_begin = min(S4, part * chunk), l_end = min(S4, l_begin + chunk);
+  for (int t = 0; t < T; ++t) {
+    const float* cur = hbuf + (t & 1) * rows * S4;
+    const unsigned nxt = smem_addr(hbuf + ((t + 1) & 1) * rows * S4);
+    const unsigned nxt_bar = smem_addr(&bars[(t + 1) & 1]);
+    const long long step = ((long long)t * B + b0) * S;
+    float rv[MAXO];
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) rv[i] = own.w[i] >= 0 ? R[step + (long long)own.row[i] * S + r0 + own.w[i]] : 0.f;
+    if (t > 0) mbar_wait(smem_addr(&bars[t & 1]), ((t - 1) >> 1) & 1);
+    // the step after next comes into the buffer this step reads
+    if (tid == 0 && t + 2 < T) mbar_expect(smem_addr(&bars[t & 1]), carry_bytes);
+    // h = alpha + L, its row max m, p = exp(h - m); the carry stack for
+    // the own columns.  Loads first, then arithmetic, then stores.
+    float h[ME];
+#pragma unroll
+    for (int i = 0; i < ME; ++i) h[i] = e.ls[i] >= 0 ? cur[e.rows_[i] * S4 + e.ls[i]] : -INFINITY;
+#pragma unroll
+    for (int i = 0; i < ME; ++i) {
+      if (e.ls[i] >= 0) {
+        if ((unsigned)(e.ls[i] - r0) < (unsigned)wn) alphas[step + e.rows_[i] * S + e.ls[i]] = h[i];
+        if (L) h[i] += lv[i];
+      }
+    }
+    if (L && t + 1 < T) {
+#pragma unroll
+      for (int i = 0; i < ME; ++i)
+        if (e.ls[i] >= 0) lv[i] = L[step + (long long)B * S + e.rows_[i] * S + e.ls[i]];
+    }
+    segment_max(e, h, nr, seg_max);
+    float m[ME];
+#pragma unroll
+    for (int i = 0; i < ME; ++i) {
+      if (i < e.n) {
+        m[i] = (e.starts >> i & 1 && e.rows_[i] < nr) ? finite_or_zero(row_max(seg_max, e.rows_[i], e.wpr))
+                                                   : m[i > 0 ? i - 1 : 0];
+        h[i] = expf(h[i] - m[i]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ME; ++i) {
+      if (e.ls[i] >= 0) {
+        p[e.rows_[i] * S4 + e.ls[i]] = h[i];
+        if (e.ls[i] == 0) msh[e.rows_[i]] = m[i];
+      }
+    }
+    __syncthreads();
+    // z[row, w] over the thread's chunk of l, four rows at a time, p read
+    // as 16-byte vectors
+    if (part < nparts) {
+      for (int rc = 0; rc < nr; rc += 4) {
+        float* dst = red + (part * rows + rc) * W4 + pw;
+        const float* pr = p + rc * S4;
+        switch (min(4, nr - rc)) {
+          case 1: chunk_product<1>(Qs + pw, QP, pr, S4, l_begin, l_end, dst, W4); break;
+          case 2: chunk_product<2>(Qs + pw, QP, pr, S4, l_begin, l_end, dst, W4); break;
+          case 3: chunk_product<3>(Qs + pw, QP, pr, S4, l_begin, l_end, dst, W4); break;
+          default: chunk_product<4>(Qs + pw, QP, pr, S4, l_begin, l_end, dst, W4); break;
+        }
+      }
+    }
+    __syncthreads();
+    // the parts in a fixed order; alpha_t+1 of the own columns into vbuf
+    // (into out at the last step)
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) {
+      const int row = own.row[i], w = own.w[i];
+      if (w < 0) continue;
+      float z = red[row * W4 + w];
+      for (int q = 1; q < nparts; ++q) z += red[(q * rows + row) * W4 + w];
+      const int r = r0 + w;
+      zs[step + (long long)row * S + r] = z;
+      const float v = logf(fmaxf(z, FLT_MIN)) + msh[row] + cs[w] + rv[i];
+      if (t == T - 1) out[(long long)(b0 + row) * S + r] = v;
+      else vbuf[row * W4 + w] = v;
+    }
+    if (t + 1 < T) {
+      __syncthreads();
+      // vbuf into every peer's next carry buffer, counted on its mbarrier
+#pragma unroll
+      for (int i = 0; i < MAXS; ++i) {
+        const int j = send_j[i];
+        if (j < 0) continue;
+        if (vec)
+          st_async4(peer_addr(nxt + 4u * send_dst[i], j), *reinterpret_cast<const float4*>(vbuf + send_src[i]),
+                    peer_addr(nxt_bar, j));
+        else
+          st_async(peer_addr(nxt + 4u * send_dst[i], j), vbuf[send_src[i]], peer_addr(nxt_bar, j));
+      }
+      for (int x = tid + MAXS * NTC; x < nsend; x += NTC) {
+        const int j = x % C, row = (x / C) / nq, q = (x / C) % nq;
+        if (vec)
+          st_async4(peer_addr(nxt + 4u * (row * S4 + r0 + 4 * q), j),
+                    *reinterpret_cast<const float4*>(vbuf + row * W4 + 4 * q), peer_addr(nxt_bar, j));
+        else
+          st_async(peer_addr(nxt + 4u * (row * S4 + r0 + q), j), vbuf[row * W4 + q], peer_addr(nxt_bar, j));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// The statistics of the reverse scan's steps, which the saved stacks fix
+// before the scan starts: one warp per row (t, b) computes xs, cr and crc
+// over the full row with the streaming kernel's float expressions, and
+// writes per entry the fold's inputs P, W, Wc and the scan's factors
+//   G0 = h - xs + cr,  G1 = h - xs + crc,
+//   F0 = exp(E0 - cr), F1 = exp(E1 - crc) (0 without a clipped entry),
+// E0 and E1 the unclipped and clipped classes of E (-inf outside them),
+// crcs[t, b] = crc, and two[t, group] = 1 where a row of the cluster's
+// group of `rows` rows holds a clipped entry.
+__global__ void __launch_bounds__(NT) msc_stats_kernel(
+    const float* __restrict__ alphas, const float* __restrict__ zs, const float* __restrict__ L,
+    const float* __restrict__ craw, int B, int T, int S, int per_row_A, int rows, int* __restrict__ two,
+    float* __restrict__ G0, float* __restrict__ G1, float* __restrict__ F0, float* __restrict__ F1,
+    float* __restrict__ crcs, float* __restrict__ P, float* __restrict__ Wo, float* __restrict__ Wc) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * (NT / 32) + warp;
+  if (i >= (long long)T * B) return;
+  const int b = (int)(i % B);
+  const float* ca = craw + (per_row_A ? (long long)b * S : 0);
+  const long long base = i * S;
+  float xr = -INFINITY;
+  for (int l = lane; l < S; l += 32) xr = fmaxf(xr, L ? alphas[base + l] + L[base + l] : alphas[base + l]);
+  xr = warp_max(xr);
+  const float xs = finite_or_zero(xr);
+  const bool live = xr > -INFINITY;
+  float cr = -INFINITY, crc = -INFINITY;
+  for (int r = lane; r < S; r += 32) {
+    const float c = finite_or_zero(ca[r]);
+    const float zr = zs[base + r];
+    const float o = logf(fmaxf(zr, FLT_MIN)) + xs + c;
+    const float E = -(o - xs - c);
+    if (zr <= FLT_MIN) crc = fmaxf(crc, E); else cr = fmaxf(cr, E);
+  }
+  cr = finite_or_zero(warp_max(cr));
+  crc = warp_max(crc);
+  for (int l = lane; l < S; l += 32) {
+    const float h = L ? alphas[base + l] + L[base + l] : alphas[base + l];
+    const float c = finite_or_zero(ca[l]);
+    const float zr = zs[base + l];
+    const float o = logf(fmaxf(zr, FLT_MIN)) + xs + c;
+    const float E = -(o - xs - c);
+    const bool clipped = zr <= FLT_MIN;
+    P[base + l] = expf(h - xs);
+    Wo[base + l] = live && !clipped ? E : -INFINITY;
+    Wc[base + l] = live && clipped ? E : -INFINITY;
+    G0[base + l] = h - xs + cr;
+    G1[base + l] = h - xs + crc;
+    F0[base + l] = expf((clipped ? -INFINITY : E) - cr);
+    F1[base + l] = crc > -INFINITY ? expf((clipped ? E : -INFINITY) - crc) : 0.f;
+  }
+  if (lane == 0) {
+    crcs[i] = crc;
+    if (crc > -INFINITY) atomicOr(&two[(i / B) * ((B + rows - 1) / rows) + b / rows], 1);
+  }
+}
+
+// The reverse scan on the forward's cluster layout, after msc_stats_kernel.
+// Writes dR, dL (if L) and dalpha0 for each CTA's own columns.
+__global__ void __launch_bounds__(NTC, 1) msc_backward_kernel(
+    const float* __restrict__ G0, const float* __restrict__ G1, const float* __restrict__ F0,
+    const float* __restrict__ F1, const float* __restrict__ crcs, const int* __restrict__ two_of,
+    const float* __restrict__ A, const float* __restrict__ craw, const float* __restrict__ gout, int B, int T,
+    int S, int per_row_A, int rows, float* __restrict__ dR, float* __restrict__ dL,
+    float* __restrict__ dalpha0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C, groups = gridDim.x / C;
+  const int W = cl_width(S, C), W4 = round4(W), QP = W4 + 1, S4 = round4(S);
+  const int r0 = k * W, wn = max(0, min(W, S - r0));
+  const int b0 = cid * rows, nr = min(rows, B - b0);
+  const long long a = per_row_A ? cid : 0;
+  const int tid = threadIdx.x, RW = rows * W4;
+  // the partials go to their owners as 16-byte vectors where the columns allow
+  const bool vec = W % 4 == 0;
+  extern __shared__ float smem[];
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem);  // [2]
+  float* Qs = smem + 4;                  // [S4][QP]
+  float* recv = Qs + round4(S4 * QP);    // [2 buffers][2 classes][C sources][rows][W4]
+  float* stage = recv + 4 * C * RW;      // [2 classes][rows][S4]
+  float* u0 = stage + 2 * rows * S4;     // [rows][W4]
+  float* u1 = u0 + RW;
+  const OwnOutputs own(nr, W, wn);
+  // the sends of a step, per class: item x = (row, l or vector of 4 l) to
+  // the owner j of l, into the source's place of its receive buffer
+  const int nq = vec ? (S + 3) / 4 : S, nsend = nr * nq;
+  int send_j[MAXS], send_dst[MAXS], send_src[MAXS];
+#pragma unroll
+  for (int i = 0; i < MAXS; ++i) {
+    const int x = tid + i * NTC, row = x / nq, l = vec ? 4 * (x % nq) : x % nq, j = l / W;
+    send_j[i] = x < nsend ? j : -1;
+    send_dst[i] = row * W4 + l - j * W;
+    send_src[i] = row * S4 + l;
+  }
+  // the factors of the own outputs at step t, in registers
+  float g0[MAXO], g1[MAXO], cc[MAXO], f0[MAXO], f1[MAXO];
+  auto load_factors = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) {
+      if (own.w[i] >= 0) {
+        const long long row = (long long)t * B + b0 + own.row[i], x = row * S + r0 + own.w[i];
+        g0[i] = G0[x];
+        g1[i] = G1[x];
+        f0[i] = F0[x];
+        f1[i] = F1[x];
+        cc[i] = crcs[row];
+      }
+    }
+  };
+
+  // prologue: Q's slice from A and the forward's column maxima (the same
+  // float expression as the forward's), u of step T-1
+  if (tid == 0) {
+    mbar_init(smem_addr(&bars[0]));
+    mbar_init(smem_addr(&bars[1]));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const float* Aa = A + a * S * S;
+  for (int x = tid; x < S4 * W4; x += NTC) {
+    const int l = x / W4, w = x % W4;
+    Qs[l * QP + w] = (w < wn && l < S) ? expf(Aa[(long long)l * S + r0 + w] - finite_or_zero(craw[a * S + r0 + w]))
+                                        : 0.f;
+  }
+  for (int o = tid; o < RW; o += NTC) u0[o] = u1[o] = 0.f;
+  __syncthreads();
+  load_factors(T - 1);
+#pragma unroll
+  for (int i = 0; i < MAXO; ++i) {
+    const int row = own.row[i], w = own.w[i];
+    if (w < 0) continue;
+    const float g = gout[(long long)(b0 + row) * S + r0 + w];
+    dR[((long long)(T - 1) * B + b0 + row) * S + r0 + w] = g;
+    u0[row * W4 + w] = g * f0[i];
+    u1[row * W4 + w] = cc[i] > -INFINITY ? g * f1[i] : 0.f;
+  }
+  // what each step brings: the C sources' partials of this CTA's columns
+  const unsigned part_bytes = 4u * C * nr * (vec ? round4(wn) : wn);
+  // each step's phase is expected a step ahead, before any of its data can
+  // come: a peer sends step t's partials only after it has this CTA's of
+  // step t + 1
+  int two = two_of[(long long)(T - 1) * groups + cid];
+  int two_next = T > 1 ? two_of[(long long)(T - 2) * groups + cid] : 0;
+  if (tid == 0) mbar_expect(smem_addr(&bars[(T - 1) & 1]), part_bytes * (two ? 2 : 1));
+  cluster.sync();  // every peer runs, its mbarriers initialised, before the first remote store
+
+  for (int t = T - 1; t >= 0; --t) {
+    const int par = t & 1;
+    const unsigned bar = smem_addr(&bars[par]);
+    if (tid == 0 && t > 0) mbar_expect(smem_addr(&bars[par ^ 1]), part_bytes * (two_next ? 2 : 1));
+    const int two_after = t > 1 ? two_of[(long long)(t - 2) * groups + cid] : 0;
+    float dh_g0[MAXO], dh_g1[MAXO], dh_cc[MAXO];
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) {
+      dh_g0[i] = g0[i];
+      dh_g1[i] = g1[i];
+      dh_cc[i] = cc[i];
+    }
+    if (t > 0) load_factors(t - 1);  // in flight during the product
+    // partial rx[row, l] over the own columns, four rows at a time, u read
+    // as 16-byte vectors
+    for (int l = tid; l < S; l += NTC) {
+      const float* q = Qs + l * QP;
+      for (int rc = 0; rc < nr; rc += 4) {
+        float a0[4] = {0.f, 0.f, 0.f, 0.f}, a1[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int w = 0; w < W4; w += 4) {
+          const float q0 = q[w], q1 = q[w + 1], q2 = q[w + 2], q3 = q[w + 3];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (rc + r < nr) {
+              const float4 v = *reinterpret_cast<const float4*>(u0 + (rc + r) * W4 + w);
+              a0[r] = fmaf(v.x, q0, a0[r]);
+              a0[r] = fmaf(v.y, q1, a0[r]);
+              a0[r] = fmaf(v.z, q2, a0[r]);
+              a0[r] = fmaf(v.w, q3, a0[r]);
+              if (two) {
+                const float4 v1 = *reinterpret_cast<const float4*>(u1 + (rc + r) * W4 + w);
+                a1[r] = fmaf(v1.x, q0, a1[r]);
+                a1[r] = fmaf(v1.y, q1, a1[r]);
+                a1[r] = fmaf(v1.z, q2, a1[r]);
+                a1[r] = fmaf(v1.w, q3, a1[r]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          if (rc + r < nr) {
+            stage[(rc + r) * S4 + l] = a0[r];
+            if (two) stage[(rows + rc + r) * S4 + l] = a1[r];
+          }
+        }
+      }
+    }
+    __syncthreads();
+    // the partials to the owners of their l, into the source's place of
+    // their receive buffer, counted on their mbarrier
+    const unsigned rbase = smem_addr(recv + par * 2 * C * RW + k * RW);
+    for (int cls = 0; cls < (two ? 2 : 1); ++cls) {
+      const unsigned dst = rbase + 4u * cls * C * RW;
+      const float* src = stage + cls * rows * S4;
+#pragma unroll
+      for (int i = 0; i < MAXS; ++i) {
+        const int j = send_j[i];
+        if (j < 0) continue;
+        if (vec)
+          st_async4(peer_addr(dst + 4u * send_dst[i], j), *reinterpret_cast<const float4*>(src + send_src[i]),
+                    peer_addr(bar, j));
+        else
+          st_async(peer_addr(dst + 4u * send_dst[i], j), src[send_src[i]], peer_addr(bar, j));
+      }
+      for (int x = tid + MAXS * NTC; x < nsend; x += NTC) {
+        const int row = x / nq, l = vec ? 4 * (x % nq) : x % nq, j = l / W;
+        if (vec)
+          st_async4(peer_addr(dst + 4u * (row * W4 + l - j * W), j),
+                    *reinterpret_cast<const float4*>(src + row * S4 + l), peer_addr(bar, j));
+        else
+          st_async(peer_addr(dst + 4u * (row * W4 + l - j * W), j), src[row * S4 + l], peer_addr(bar, j));
+      }
+    }
+    mbar_wait(bar, ((T - 1 - t) >> 1) & 1);
+    // rx of the own rows l: the C sources in rank order; dh, then u of the
+    // step before
+    const float* rb = recv + par * 2 * C * RW;
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) {
+      const int row = own.row[i], w = own.w[i], x = row * W4 + w;
+      if (w < 0) continue;
+      float rx = 0.f;
+      for (int j = 0; j < C; ++j) rx += rb[j * RW + x];
+      const float sg = (float)(rx > 0.f) - (float)(rx < 0.f);
+      float dh = sg * expf(dh_g0[i] + logf(fabsf(rx) + FLT_MIN));
+      if (dh_cc[i] > -INFINITY) {
+        float rc = 0.f;
+        for (int j = 0; j < C; ++j) rc += rb[(C + j) * RW + x];
+        const float sc = (float)(rc > 0.f) - (float)(rc < 0.f);
+        dh += sc * expf(dh_g1[i] + logf(fabsf(rc) + FLT_MIN));
+      }
+      const int r = r0 + w;
+      if (dL) dL[((long long)t * B + b0 + row) * S + r] = dh;
+      if (t > 0) {
+        dR[((long long)(t - 1) * B + b0 + row) * S + r] = dh;
+        u0[x] = dh * f0[i];
+        u1[x] = cc[i] > -INFINITY ? dh * f1[i] : 0.f;
+      } else {
+        dalpha0[(long long)(b0 + row) * S + r] = dh;
+      }
+    }
+    two = two_next;
+    two_next = two_after;
+    __syncthreads();
+  }
+}
+
+// ------------------------------------------------------------ C interface --
+
+// Each kernel's attributes, set once per device and process: the largest
+// dynamic shared memory the device grants a block, and, for the cluster
+// kernels, clusters of more than 8 CTAs (the non-portable sizes).
+static int set_attributes(void) {
+  static bool done[64] = {};
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 64 && done[dev]) return 0;
+  int optin = 0;
+  err = (int)cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err) return err;
+  const void* dynamic[] = {(const void*)ms_forward_kernel, (const void*)ms_backward_kernel,
+                           (const void*)msc_forward_kernel<4>, (const void*)msc_forward_kernel<8>,
+                           (const void*)msc_backward_kernel};
+  for (const void* f : dynamic) {
+    err = (int)cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
     if (err) return err;
   }
-  ms_backward_kernel<<<B, NTS, smem, st>>>(alphas, zs, L, Q, QT, craw, gout, B, T, S, per_row_A, dR, dL, P, W,
-                                           Wc, dalpha0);
-  err = (int)cudaGetLastError();
-  if (err) return err;
+  const void* clustered[] = {(const void*)msc_forward_kernel<4>, (const void*)msc_forward_kernel<8>,
+                             (const void*)msc_backward_kernel};
+  for (const void* f : clustered) {
+    err = (int)cudaFuncSetAttribute(f, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+  }
+  if (dev < 64) done[dev] = true;
+  return 0;
+}
+
+// The launch configuration of a cluster kernel: `clusters` clusters of C
+// CTAs of NTC threads.
+struct ClusterLaunch {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  ClusterLaunch(int C, int clusters, size_t smem, cudaStream_t st) : cfg(), attr() {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = C;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(C * clusters);
+    cfg.blockDim = dim3(NTC);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// The dA fold after either route's reverse scan: column maxima of W and
+// Wc, the split products, the epilogue.
+static int fold_dA(const float* A, const float* craw, const float* dR, int B, int T, int S, int nA, int splits,
+                   float* dA, const float* P, const float* W, const float* Wc, float* cc, float* partial,
+                   cudaStream_t st) {
+  const int per_row_A = nA > 1;
   dim3 colmax_grid((S + CM_COLS - 1) / CM_COLS, nA);
   ms_colmax_kernel<<<colmax_grid, CM_THREADS, 0, st>>>(W, Wc, B, T, S, per_row_A, cc);
-  err = (int)cudaGetLastError();
+  int err = (int)cudaGetLastError();
   if (err) return err;
   const int tiles = ((S + TM - 1) / TM) * ((S + TN - 1) / TN);
   dim3 fold_grid(tiles, splits, nA);
@@ -467,6 +1159,120 @@ int ms_backward(const float* A, const float* alphas, const float* zs, const floa
   const int blocks = (int)((n + NT - 1) / NT < 1024 ? (n + NT - 1) / NT : 1024);
   ms_dA_kernel<<<blocks, NT, 0, st>>>(A, craw, cc, partial, nA, S, splits, dA);
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+// Dynamic shared memory in bytes of a CTA of the cluster route's forward
+// (backward = 0) or backward kernel.
+long long msc_smem_bytes(int S, int C, int rows, int backward) {
+  return 4 * (backward ? cl_backward_floats(S, C, rows) : cl_forward_floats(S, C, rows));
+}
+
+// The shared memory in bytes a block of the current device may opt in to.
+int msc_smem_limit(int* bytes) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  return (int)cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+// How many clusters of C CTAs the device runs at once, for both cluster
+// kernels at their shared memory for (S, rows): the smaller count.
+int msc_active_clusters(int S, int C, int rows, int* count) {
+  int err = set_attributes();
+  if (err) return err;
+  int n[2] = {0, 0};
+  const void* kernels[2] = {cl_slots(S, rows) <= 4 ? (const void*)msc_forward_kernel<4>
+                                                   : (const void*)msc_forward_kernel<8>,
+                            (const void*)msc_backward_kernel};
+  for (int i = 0; i < 2; ++i) {
+    ClusterLaunch launch(C, 1, (size_t)msc_smem_bytes(S, C, rows, i), 0);
+    err = (int)cudaOccupancyMaxActiveClusters(&n[i], kernels[i], &launch.cfg);
+    if (err) return err;
+  }
+  *count = n[0] < n[1] ? n[0] : n[1];
+  return 0;
+}
+
+// Streaming route.  alpha0 (B, S); A (nA, S, S), nA 1 or B; R and L
+// (T, B, S), L may be null; outputs: alphas and zs (T, B, S), out (B, S);
+// scratch kept for the backward: Q and QT (nA, S, S), craw (nA, S).
+int ms_forward(const float* alpha0, const float* A, const float* R, const float* L, int B, int T, int S, int nA,
+               float* alphas, float* zs, float* out, float* Q, float* QT, float* craw, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = set_attributes();
+  if (err) return err;
+  dim3 prep_grid((S + NT - 1) / NT, nA);
+  ms_prep_kernel<<<prep_grid, NT, 0, st>>>(A, S, Q, QT, craw);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  const size_t smem = (3 * (size_t)S + NTS + NTS / 32) * sizeof(float);
+  ms_forward_kernel<<<B, NTS, smem, st>>>(alpha0, Q, craw, R, L, B, T, S, nA > 1, alphas, zs, out);
+  return (int)cudaGetLastError();
+}
+
+// gout (B, S) is dloss/dalpha_T; alphas and zs are the forward's.
+// Outputs dalpha0 (B, S), dR (T, B, S), dL (T, B, S) or null, dA (nA, S, S).
+// Scratch: P, W and Wc (T, B, S), cc (2, nA, S), partial (2, splits, nA, S, S).
+int ms_backward(const float* A, const float* alphas, const float* zs, const float* L, const float* Q,
+                const float* QT, const float* craw, const float* gout, int B, int T, int S, int nA, int splits,
+                float* dalpha0, float* dR, float* dL, float* dA, float* P, float* W, float* Wc, float* cc,
+                float* partial, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = set_attributes();
+  if (err) return err;
+  const size_t smem = (6 * (size_t)S + NTS + NTS / 32) * sizeof(float);
+  ms_backward_kernel<<<B, NTS, smem, st>>>(alphas, zs, L, Q, QT, craw, gout, B, T, S, nA > 1, dR, dL, P, W,
+                                           Wc, dalpha0);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return fold_dA(A, craw, dR, B, T, S, nA, splits, dA, P, W, Wc, cc, partial, st);
+}
+
+// Cluster route, clusters of C CTAs, each taking `rows` rows (1 when
+// nA = B).  Arguments as ms_forward's, without Q and QT: craw (nA, S) is
+// an output, kept for the backward.
+int msc_forward(const float* alpha0, const float* A, const float* R, const float* L, int B, int T, int S, int nA,
+                int C, int rows, float* alphas, float* zs, float* out, float* craw, void* stream) {
+  if (!cl_takes(S, C, rows)) return (int)cudaErrorInvalidValue;
+  int err = set_attributes();
+  if (err) return err;
+  ClusterLaunch launch(C, (B + rows - 1) / rows, (size_t)msc_smem_bytes(S, C, rows, 0), (cudaStream_t)stream);
+  // the row passes' registers sized to the slots a thread needs
+  err = (int)cudaLaunchKernelEx(&launch.cfg, cl_slots(S, rows) <= 4 ? msc_forward_kernel<4> : msc_forward_kernel<8>,
+                                alpha0, A, R, L, B, T, S, (int)(nA > 1), rows, alphas, zs, out, craw);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// Arguments as ms_backward's, without Q and QT; C and rows as the forward's.
+// Scratch besides: G0, G1, F0, F1 (T, B, S), crcs (T, B) and two
+// (T, ceil(B / rows)) ints.
+int msc_backward(const float* A, const float* alphas, const float* zs, const float* L, const float* craw,
+                 const float* gout, int B, int T, int S, int nA, int C, int rows, int splits, float* dalpha0,
+                 float* dR, float* dL, float* dA, float* P, float* W, float* Wc, float* cc, float* partial,
+                 float* G0, float* G1, float* F0, float* F1, float* crcs, int* two, void* stream) {
+  if (!cl_takes(S, C, rows)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  int err = set_attributes();
+  if (err) return err;
+  const int groups = (B + rows - 1) / rows;
+  err = (int)cudaMemsetAsync(two, 0, sizeof(int) * (size_t)T * groups, st);
+  if (err) return err;
+  const long long nrows = (long long)T * B;
+  msc_stats_kernel<<<(unsigned)((nrows + NT / 32 - 1) / (NT / 32)), NT, 0, st>>>(
+      alphas, zs, L, craw, B, T, S, nA > 1, rows, two, G0, G1, F0, F1, crcs, P, W, Wc);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  ClusterLaunch launch(C, groups, (size_t)msc_smem_bytes(S, C, rows, 1), st);
+  err = (int)cudaLaunchKernelEx(&launch.cfg, msc_backward_kernel, (const float*)G0, (const float*)G1,
+                                (const float*)F0, (const float*)F1, (const float*)crcs, (const int*)two, A, craw,
+                                gout, B, T, S, (int)(nA > 1), rows, dR, dL, dalpha0);
+  if (err) return err;
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  return fold_dA(A, craw, dR, B, T, S, nA, splits, dA, P, W, Wc, cc, partial, st);
 }
 
 }  // extern "C"

@@ -8,31 +8,30 @@ over rows ``alpha_t`` (B, S), with ``A`` (S, S) shared by every row or
 
 Counterpart of the ``lax.scan(jax.checkpoint(step))`` of
 ``pyro_tpu/ops/markov_product.py::_try_scan_elimination``.  On CUDA tensors
-the whole scan is one launch of the hand-written kernel of
+the whole scan is one launch of the hand-written kernels of
 ``csrc/markov_scan.cu`` (its backward one more), behind a
 ``torch.autograd.Function``; on CPU tensors ``markov_scan_plain`` runs,
 which loops ``logmatmulexp_plain`` steps.  A CUDA tensor never falls back
 to the plain version: the kernel launches or the call raises.
+
+The kernels have two routes, which ``plan_scan`` chooses from the shape
+and the device's limits before the launch: the cluster route, which keeps
+``exp(A - c)`` in the shared memory of a thread-block cluster, wherever
+that fits, and the streaming route, which re-reads it from L2 every step,
+for larger S.  A refused launch raises; neither route stands in for the
+other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from . import cuda_build
 from .log_matmul import logmatmulexp_plain
-
-# Launches of the CUDA scan, counted by the wrapper; a forward launch runs
-# two kernels (the exp'd transition, then the scan), a backward launch four
-# (the reverse scan, the column maxima, the dA fold, its epilogue).
-launches = {"forward": 0, "backward": 0}
-
-# the backward kernel keeps 6 rows of S floats in a block's shared memory
-MAX_STATES = 2048
-
 
 def _check_shapes(alpha0, A, R, L):
     if alpha0.ndim != 2:
@@ -64,6 +63,110 @@ def markov_scan_plain(alpha0, A, R, L=None):
 
 # -- CUDA kernels -----------------------------------------------------------------
 
+# Launches of the CUDA scan, counted by the wrapper, on either route.  On
+# the cluster route a forward launch runs one kernel, on the streaming route
+# two (the exp'd transition, then the scan); a backward launch runs the
+# reverse scan (on the cluster route after its statistics kernel), then the
+# dA fold's three kernels (column maxima, fold, epilogue).
+launches = {"forward": 0, "backward": 0}
+# the same launches by route
+route_launches = {"cluster": {"forward": 0, "backward": 0}, "stream": {"forward": 0, "backward": 0}}
+
+# the streaming backward keeps 6 rows of S floats in a block's shared memory
+MAX_STATES = 2048
+# CTAs per cluster, in order of preference (timed in chip_smoke.py, PERF.md)
+CLUSTER_SIZES = (8, 16)
+CLUSTER_THREADS = 256  # NTC of csrc/markov_scan.cu
+
+
+def reset_counts():
+    """Set every launch count to 0."""
+    launches.update(forward=0, backward=0)
+    for counts in route_launches.values():
+        counts.update(forward=0, backward=0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """A route of the CUDA scan: ``"cluster"``, with ``cluster`` CTAs a
+    cluster each taking ``rows`` rows, or ``"stream"``."""
+
+    route: str
+    cluster: int = 0
+    rows: int = 0
+
+
+def _round4(n):
+    return -(-n // 4) * 4
+
+
+def cluster_smem_bytes(S, C, rows, backward=False):
+    """Dynamic shared memory of a CTA of the cluster route's forward or
+    backward kernel; the layout of ``cl_forward_floats`` and
+    ``cl_backward_floats`` in ``csrc/markov_scan.cu``."""
+    W4, S4, R = _round4(-(-S // C)), _round4(S), rows
+    q = 4 + _round4(S4 * (W4 + 1))
+    if backward:
+        floats = q + 4 * C * R * W4 + 2 * R * S4 + 2 * R * W4
+    else:
+        floats = q + 3 * R * S4 + R * CLUSTER_THREADS + R * W4 + 8 * R + _round4(R) + W4
+    return 4 * floats
+
+
+def cluster_takes(S, C, rows):
+    """Whether the cluster kernels take (S, C, rows): ``cl_takes`` of
+    ``csrc/markov_scan.cu``.  Every CTA owns a column of the S (the
+    backward's exchange is safe only if every CTA waits for every step's
+    partials), a thread holds at most 8 elements of its CTA's rows in the
+    row passes (each row cut into segments over the 8 warps) and at most 4
+    outputs in the forward's epilogue, and the forward's product has a
+    thread for each column of a CTA's slice."""
+    if C < 1 or rows < 1 or (C - 1) * -(-S // C) >= S:
+        return False
+    warps = CLUSTER_THREADS // 32
+    wpr = 1
+    while 2 * wpr * rows <= warps:
+        wpr *= 2
+    groups, seglen = warps // wpr, -(-S // wpr)
+    slots = -(-rows // groups) * -(-seglen // 32)
+    W = -(-S // C)
+    return slots <= 8 and rows * W <= 4 * CLUSTER_THREADS and _round4(W) <= CLUSTER_THREADS
+
+
+def plan_scan(B, S, nA, smem_limit, active_clusters):
+    """The route for B rows of S states with nA transition matrices (1 or
+    B), given a block's shared-memory limit in bytes and
+    ``active_clusters(C, rows)``, how many clusters of C CTAs taking
+    ``rows`` rows each the device runs at once.
+
+    The cluster route takes the first size C of ``CLUSTER_SIZES`` whose
+    kernels fit at one row
+    a cluster (C cut to ceil(S / W), W = ceil(S / C), where a small S
+    would leave CTAs without a column): one row a cluster when each row
+    has its own A, else the fewest rows a cluster that let all
+    ceil(B / rows) clusters run at once (the most that fit, if none do).
+    The streaming route takes what no cluster holds."""
+    def fits(C, rows):
+        smem = max(cluster_smem_bytes(S, C, rows), cluster_smem_bytes(S, C, rows, True))
+        return cluster_takes(S, C, rows) and smem <= smem_limit
+
+    for C in CLUSTER_SIZES:
+        C = -(-S // -(-S // C))  # as many CTAs as the column slices need
+        if not fits(C, 1):
+            continue
+        if nA > 1:
+            return ScanPlan("cluster", C, 1)
+        best = 1
+        for rows in range(1, B + 1):
+            if not fits(C, rows):
+                break
+            best = rows
+            if -(-B // rows) <= active_clusters(C, rows):
+                break
+        return ScanPlan("cluster", C, best)
+    return ScanPlan("stream")
+
+
 _P = ctypes.c_void_p
 _c = ctypes.c_int
 
@@ -75,7 +178,39 @@ def _lib():
     lib.ms_forward.restype = ctypes.c_int
     lib.ms_backward.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _c] + [_P] * 10
     lib.ms_backward.restype = ctypes.c_int
+    lib.msc_forward.argtypes = [_P, _P, _P, _P, _c, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P]
+    lib.msc_forward.restype = ctypes.c_int
+    lib.msc_backward.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _c, _c] + [_P] * 16
+    lib.msc_backward.restype = ctypes.c_int
+    lib.msc_smem_bytes.argtypes = [_c, _c, _c, _c]
+    lib.msc_smem_bytes.restype = ctypes.c_longlong
+    lib.msc_active_clusters.argtypes = [_c, _c, _c, ctypes.POINTER(ctypes.c_int)]
+    lib.msc_active_clusters.restype = ctypes.c_int
+    lib.msc_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.msc_smem_limit.restype = ctypes.c_int
     return lib
+
+
+def _query(fn, *args, device):
+    """The int that ``fn(*args, &out)`` of the library writes on ``device``."""
+    out = ctypes.c_int()
+    with torch.cuda.device(device):
+        err = fn(*args, ctypes.byref(out))
+    if err:
+        raise RuntimeError(f"markov_scan: device query {fn.__name__} failed: CUDA error {err}")
+    return out.value
+
+
+def active_clusters(S, C, rows, device):
+    """How many clusters of C CTAs, taking ``rows`` rows of S states each,
+    the card runs at once (``cudaOccupancyMaxActiveClusters``)."""
+    return _query(_lib().msc_active_clusters, S, C, rows, device=device)
+
+
+@functools.cache
+def _device_plan(B, S, nA, device):
+    smem_limit = _query(_lib().msc_smem_limit, device=device)
+    return plan_scan(B, S, nA, smem_limit, lambda C, rows: active_clusters(S, C, rows, device))
 
 
 def _ptr(t):
@@ -97,34 +232,45 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _forward_cuda(alpha0, A, R, L=None):
-    """alpha_T, and what the backward needs: the carry stack alpha_0 ..
-    alpha_{T-1} (T, B, S), each step's z = exp(h - m) @ Q (T, B, S),
-    Q = exp(A - c), its transpose, and the raw column maxima of A."""
+def _forward_cuda(alpha0, A, R, L=None, plan=None):
+    """alpha_T, and what the backward needs: the plan, the carry stack
+    alpha_0 .. alpha_{T-1} (T, B, S), each step's z = exp(h - m) @ Q
+    (T, B, S), the raw column maxima of A and, on the streaming route,
+    Q = exp(A - c) and its transpose.  ``plan`` forces a route; by default
+    ``plan_scan`` chooses by shape."""
     _check_shapes(alpha0, A, R, L)
     _check_cuda(alpha0, A, R, L)
     T = R.shape[0]
     B, S = alpha0.shape
-    if T == 0 or B == 0 or S == 0 or S > MAX_STATES:
-        raise ValueError(f"markov_scan: the kernel takes 1 <= T, 1 <= B and 1 <= S <= {MAX_STATES}, got {T, B, S}")
     nA = 1 if A.ndim == 2 else B
+    if plan is None:
+        plan = _device_plan(B, S, nA, alpha0.device)
+    if T == 0 or B == 0 or S == 0 or (plan.route == "stream" and S > MAX_STATES):
+        raise ValueError(f"markov_scan: the kernel takes 1 <= T, 1 <= B and 1 <= S <= {MAX_STATES}, got {T, B, S}")
+    if plan.route == "cluster" and (not cluster_takes(S, plan.cluster, plan.rows) or (nA > 1 and plan.rows != 1)):
+        raise ValueError(f"markov_scan: bad cluster plan {plan} for nA={nA}")
     alpha0, A, R = alpha0.contiguous(), A.contiguous(), R.contiguous()
     L = None if L is None else L.contiguous()
-    alphas = torch.empty((T, B, S), dtype=alpha0.dtype, device=alpha0.device)
-    zs = torch.empty_like(alphas)
-    out = torch.empty((B, S), dtype=alpha0.dtype, device=alpha0.device)
-    Q = torch.empty((nA, S, S), dtype=alpha0.dtype, device=alpha0.device)
-    QT = torch.empty_like(Q)
-    craw = torch.empty((nA, S), dtype=alpha0.dtype, device=alpha0.device)
-    err = _lib().ms_forward(
-        alpha0.data_ptr(), A.data_ptr(), R.data_ptr(), _ptr(L), B, T, S, nA,
-        alphas.data_ptr(), zs.data_ptr(), out.data_ptr(), Q.data_ptr(), QT.data_ptr(), craw.data_ptr(),
-        _stream(alpha0),
-    )
+    new = functools.partial(torch.empty, dtype=alpha0.dtype, device=alpha0.device)
+    alphas, zs, out, craw = new((T, B, S)), new((T, B, S)), new((B, S)), new((nA, S))
+    Q = QT = None
+    if plan.route == "cluster":
+        err = _lib().msc_forward(
+            alpha0.data_ptr(), A.data_ptr(), R.data_ptr(), _ptr(L), B, T, S, nA, plan.cluster, plan.rows,
+            alphas.data_ptr(), zs.data_ptr(), out.data_ptr(), craw.data_ptr(), _stream(alpha0),
+        )
+    else:
+        Q, QT = new((nA, S, S)), new((nA, S, S))
+        err = _lib().ms_forward(
+            alpha0.data_ptr(), A.data_ptr(), R.data_ptr(), _ptr(L), B, T, S, nA,
+            alphas.data_ptr(), zs.data_ptr(), out.data_ptr(), Q.data_ptr(), QT.data_ptr(), craw.data_ptr(),
+            _stream(alpha0),
+        )
     if err:
-        raise RuntimeError(f"markov_scan forward kernels failed to launch: CUDA error {err}")
+        raise RuntimeError(f"markov_scan forward ({plan}) failed to launch: CUDA error {err}")
     launches["forward"] += 1
-    return out, (alphas, zs, Q, QT, craw)
+    route_launches[plan.route]["forward"] += 1
+    return out, (plan, alphas, zs, craw, Q, QT)
 
 
 def _fold_splits(rows, tiles, nA, device):
@@ -135,13 +281,14 @@ def _fold_splits(rows, tiles, nA, device):
 
 
 def _backward_cuda(A, L, saved, g):
-    """dalpha0, dA, dR and dL (None without L) from dloss/dalpha_T."""
-    alphas, zs, Q, QT, craw = saved
+    """dalpha0, dA, dR and dL (None without L) from dloss/dalpha_T, on the
+    forward's route."""
+    plan, alphas, zs, craw, Q, QT = saved
     _check_cuda(g, A, L, alphas, zs)
     T, B, S = alphas.shape
     if g.shape != (B, S):
         raise ValueError(f"markov_scan: gradient shape {tuple(g.shape)} != ({B}, {S})")
-    nA = Q.shape[0]
+    nA = craw.shape[0]
     g = g.contiguous()
     A = A.contiguous()
     L = None if L is None else L.contiguous()
@@ -154,35 +301,49 @@ def _backward_cuda(A, L, saved, g):
     # the fold's two classes: entries whose z was clipped at FLT_MIN, and the rest
     P, W, Wc = new((T, B, S)), new((T, B, S)), new((T, B, S))
     cc, partial = new((2, nA, S)), new((2, splits, nA, S, S))
-    err = _lib().ms_backward(
-        A.data_ptr(), alphas.data_ptr(), zs.data_ptr(), _ptr(L), Q.data_ptr(), QT.data_ptr(), craw.data_ptr(),
-        g.data_ptr(),
-        B, T, S, nA, splits, dalpha0.data_ptr(), dR.data_ptr(), _ptr(dL), dA.data_ptr(),
-        P.data_ptr(), W.data_ptr(), Wc.data_ptr(), cc.data_ptr(), partial.data_ptr(), _stream(g),
-    )
+    outputs = (dalpha0.data_ptr(), dR.data_ptr(), _ptr(dL), dA.data_ptr(),
+               P.data_ptr(), W.data_ptr(), Wc.data_ptr(), cc.data_ptr(), partial.data_ptr())
+    if plan.route == "cluster":
+        # the scan's per-entry factors and per-step clip flags (msc_stats_kernel)
+        G0, G1, F0, F1 = new((T, B, S)), new((T, B, S)), new((T, B, S)), new((T, B, S))
+        crcs = new((T, B))
+        two = torch.empty((T, -(-B // plan.rows)), dtype=torch.int32, device=g.device)
+        err = _lib().msc_backward(
+            A.data_ptr(), alphas.data_ptr(), zs.data_ptr(), _ptr(L), craw.data_ptr(), g.data_ptr(),
+            B, T, S, nA, plan.cluster, plan.rows, splits, *outputs,
+            G0.data_ptr(), G1.data_ptr(), F0.data_ptr(), F1.data_ptr(), crcs.data_ptr(), two.data_ptr(), _stream(g),
+        )
+    else:
+        err = _lib().ms_backward(
+            A.data_ptr(), alphas.data_ptr(), zs.data_ptr(), _ptr(L), Q.data_ptr(), QT.data_ptr(), craw.data_ptr(),
+            g.data_ptr(), B, T, S, nA, splits, *outputs, _stream(g),
+        )
     if err:
-        raise RuntimeError(f"markov_scan backward kernels failed to launch: CUDA error {err}")
+        raise RuntimeError(f"markov_scan backward ({plan}) failed to launch: CUDA error {err}")
     launches["backward"] += 1
+    route_launches[plan.route]["backward"] += 1
     return dalpha0, dA.reshape(A.shape), dR, dL
 
 
 class _MarkovScanCUDA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, alpha0, A, R, L):
-        out, saved = _forward_cuda(alpha0, A, R, L)
+    def forward(ctx, alpha0, A, R, L, plan):
+        out, (plan, *saved) = _forward_cuda(alpha0, A, R, L, plan)
+        ctx.plan = plan
         ctx.save_for_backward(A, L, *saved)
         return out
 
     @staticmethod
     def backward(ctx, g):
         A, L, *saved = ctx.saved_tensors
-        return _backward_cuda(A, L, saved, g)
+        return (*_backward_cuda(A, L, (ctx.plan, *saved), g), None)
 
 
-def markov_scan(alpha0, A, R, L=None):
+def markov_scan(alpha0, A, R, L=None, plan=None):
     """``alpha_T`` of the scan above, with its analytic backward.  CUDA
-    tensors go through the hand-written kernels, CPU tensors through the
-    plain version."""
+    tensors go through the hand-written kernels, on the route ``plan_scan``
+    chooses by shape unless ``plan`` (a ``ScanPlan``) names one; CPU tensors
+    go through the plain version."""
     if any(t is not None and t.is_cuda for t in (alpha0, A, R, L)):
-        return _MarkovScanCUDA.apply(alpha0, A, R, L)
+        return _MarkovScanCUDA.apply(alpha0, A, R, L, plan)
     return markov_scan_plain(alpha0, A, R, L)

@@ -14,7 +14,9 @@ like T times the emission scale, and float32 rounds it at that size);
 gradients as K1's over a few steps, and rtol 1e-3 with atol 1e-4 times the
 gradient's largest entry over the main path's 127 dependent steps, where
 the plain version's own float32 gradient is about 7e-4 of that from
-float64's (``chip_smoke.py`` prints both distances).
+float64's (``chip_smoke.py`` prints both distances); the two routes of K2
+against each other as each against the plain version.  K2's cases run on
+the route the wrapper chooses, which they check, unless a test names one.
 """
 
 import numpy as np
@@ -159,16 +161,26 @@ def _scan_inputs(rng, B, T, S, cuda, per_row_A=False, with_L=False, r_scale=1.0)
     return [None if a is None else torch.tensor(a, dtype=torch.float32, device=cuda) for a in (alpha0, A, R, L)]
 
 
-def _compare_scan(inputs, g, grad_rtol=1e-4, grad_atol=None):
+def _scan_plan(inputs):
+    alpha0, A = inputs[0], inputs[1]
+    B, S = alpha0.shape
+    return ms._device_plan(B, S, 1 if A.ndim == 2 else B, alpha0.device)
+
+
+def _compare_scan(inputs, g, grad_rtol=1e-4, grad_atol=None, route="cluster", plan=None):
+    """The kernel on ``route`` (the wrapper's choice, or ``plan``) against
+    the plain version; returns the kernel's output and gradients."""
     leaves_k = [None if t is None else t.clone().requires_grad_() for t in inputs]
     leaves_p = [None if t is None else t.clone().requires_grad_() for t in inputs]
     n = dict(ms.launches)
-    out_k = ms.markov_scan(*leaves_k)
+    on_route = dict(ms.route_launches[route])
+    out_k = ms.markov_scan(*leaves_k, plan=plan)
     out_p = ms.markov_scan_plain(*leaves_p)
     (out_k * g).sum().backward()
     (out_p * g).sum().backward()
     torch.cuda.synchronize()
     assert ms.launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1}
+    assert ms.route_launches[route] == {"forward": on_route["forward"] + 1, "backward": on_route["backward"] + 1}
     assert torch.isfinite(out_k).all()
     torch.testing.assert_close(out_k, out_p, rtol=1e-6, atol=1e-4)
     for k, p in zip(leaves_k, leaves_p):
@@ -176,6 +188,7 @@ def _compare_scan(inputs, g, grad_rtol=1e-4, grad_atol=None):
             assert torch.isfinite(k.grad).all()
             atol = 1e-5 * g.abs().max().item() if grad_atol is None else grad_atol * p.grad.abs().max().item()
             torch.testing.assert_close(k.grad, p.grad, rtol=grad_rtol, atol=atol)
+    return out_k.detach(), [None if k is None else k.grad for k in leaves_k]
 
 
 @pytest.mark.parametrize(
@@ -191,6 +204,7 @@ def test_scan_kernel_matches_plain(cuda, B, T, S, per_row_A, with_L, r_scale):
     rng = np.random.default_rng(S)
     inputs = _scan_inputs(rng, B, T, S, cuda, per_row_A, with_L, r_scale)
     g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
+    assert _scan_plan(inputs).route == "cluster"
     if T > 100:
         _compare_scan(inputs, g, grad_rtol=1e-3, grad_atol=1e-4)
     else:
@@ -206,6 +220,7 @@ def test_scan_kernel_neg_inf(cuda):
     A[:, 5] = -float("inf")
     alpha0[2] = -float("inf")
     g = torch.tensor(rng.normal(size=(4, 33)), dtype=torch.float32, device=cuda)
+    assert _scan_plan([alpha0, A]).route == "cluster"
     _compare_scan([alpha0, A, R, None], g)
 
 
@@ -225,8 +240,11 @@ def test_scan_kernel_unreachable_states(cuda, B, T, S, tol):
     inputs = [torch.tensor(a, dtype=torch.float32, device=cuda) for a in (alpha0, A, R)]
     g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
     leaves = [t.clone().requires_grad_() for t in inputs]
+    assert _scan_plan(inputs).route == "cluster"
+    before = ms.route_launches["cluster"]["backward"]
     out = ms.markov_scan(*leaves)
     (out * g).sum().backward()
+    assert ms.route_launches["cluster"]["backward"] == before + 1
     leaves64 = [t.double().requires_grad_() for t in inputs]
     out64 = ms.markov_scan_plain(*leaves64)
     (out64 * g.double()).sum().backward()
@@ -252,6 +270,90 @@ def _direct_scan64(alpha0, A, R):
         z = torch.exp(alpha - m) @ torch.exp(A - c)
         alpha = torch.log(z.clamp(min=tiny)) + m + c + R[t]
     return alpha
+
+
+def _main_inputs(cuda, S=256):
+    rng = np.random.default_rng(21)
+    inputs = _scan_inputs(rng, 32, 127, S, cuda, r_scale=3.0)
+    g = torch.tensor(rng.normal(size=(32, S)), dtype=torch.float32, device=cuda)
+    return inputs, g
+
+
+@pytest.mark.parametrize("S", [256, 512])
+def test_scan_routes_at_main_shape(cuda, S):
+    """Both routes at B=32, T'=127 (the main path's shape at S=256), each
+    against the plain version and against the other."""
+    inputs, g = _main_inputs(cuda, S)
+    assert _scan_plan(inputs).route == "cluster"
+    out_c, grads_c = _compare_scan(inputs, g, grad_rtol=1e-3, grad_atol=1e-4, route="cluster")
+    out_s, grads_s = _compare_scan(inputs, g, grad_rtol=1e-3, grad_atol=1e-4, route="stream",
+                                   plan=ms.ScanPlan("stream"))
+    torch.testing.assert_close(out_c, out_s, rtol=1e-6, atol=1e-4)
+    for c, s in zip(grads_c, grads_s):
+        if c is not None:
+            torch.testing.assert_close(c, s, rtol=1e-3, atol=1e-4 * s.abs().max().item())
+
+
+@pytest.mark.parametrize(
+    "B,T,S,per_row_A,with_L",
+    [(3, 6, 37, False, True), (3, 6, 37, True, False), (2, 4, 1024, False, True)],
+)
+def test_scan_stream_route(cuda, B, T, S, per_row_A, with_L):
+    """The streaming route, forced at ragged shapes and chosen at S=1024,
+    where a cluster's shared memory cannot hold exp(A - c)."""
+    rng = np.random.default_rng(S + B)
+    inputs = _scan_inputs(rng, B, T, S, cuda, per_row_A, with_L)
+    g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
+    if S > 1000:
+        assert _scan_plan(inputs) == ms.ScanPlan("stream")
+        _compare_scan(inputs, g, route="stream")
+    else:
+        _compare_scan(inputs, g, route="stream", plan=ms.ScanPlan("stream"))
+
+
+@pytest.mark.parametrize("C,rows", [(4, 3), (8, 1), (8, 2), (16, 5)])
+def test_scan_cluster_shapes(cuda, C, rows):
+    """Other cluster sizes and rows per cluster than the wrapper's choice,
+    with L, a last CTA that owns fewer columns and a last cluster that
+    takes fewer rows."""
+    rng = np.random.default_rng(C * 10 + rows)
+    inputs = _scan_inputs(rng, 11, 9, 77, cuda, with_L=True)
+    g = torch.tensor(rng.normal(size=(11, 77)), dtype=torch.float32, device=cuda)
+    _compare_scan(inputs, g, plan=ms.ScanPlan("cluster", C, rows))
+
+
+def test_scan_cluster_is_deterministic(cuda):
+    """Two runs of the cluster route give bit-identical outputs and gradients."""
+    inputs, g = _main_inputs(cuda)
+    runs = []
+    for _ in range(2):
+        leaves = [None if t is None else t.clone().requires_grad_() for t in inputs]
+        out = ms.markov_scan(*leaves)
+        (out * g).sum().backward()
+        runs.append([out.detach()] + [t.grad for t in leaves if t is not None])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_scan_cluster_smem_layout(cuda):
+    """The wrapper's shared-memory sizes are the kernels' own."""
+    lib = ms._lib()
+    for S, C, rows in [(256, 8, 2), (512, 16, 3), (37, 8, 1), (900, 16, 1)]:
+        for backward in (False, True):
+            assert lib.msc_smem_bytes(S, C, rows, int(backward)) == ms.cluster_smem_bytes(S, C, rows, backward)
+
+
+def test_scan_refused_launch_raises(cuda):
+    """A cluster plan whose shared memory the card cannot give raises, and
+    so does one with a CTA that owns no column (S=33 over 8 CTAs of 5)."""
+    rng = np.random.default_rng(4)
+    inputs = _scan_inputs(rng, 2, 3, 1024, cuda)
+    with pytest.raises(RuntimeError):
+        ms.markov_scan(*inputs, plan=ms.ScanPlan("cluster", 8, 1))
+    inputs = _scan_inputs(rng, 2, 3, 33, cuda)
+    with pytest.raises(ValueError):
+        ms.markov_scan(*inputs, plan=ms.ScanPlan("cluster", 8, 1))
+    assert _scan_plan(inputs) == ms.ScanPlan("cluster", 7, 1)
 
 
 def test_scan_kernel_rejects_bad_operands(cuda):

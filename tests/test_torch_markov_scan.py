@@ -283,3 +283,38 @@ def test_scan_rejects_bad_shapes():
         ms.markov_scan(alpha0, torch.zeros(3, 8, 8), torch.zeros(3, 4, 8))
     with pytest.raises(ValueError):
         ms.markov_scan(alpha0, torch.zeros(8, 8), torch.zeros(3, 4, 8), torch.zeros(2, 4, 8))
+
+
+# H100 limits: 227 KB of shared memory a block may opt in to; one cluster
+# of C CTAs of these kernels per C SMs of the 132, as the card's occupancy
+# query reports them on an H100 80GB HBM3 (15 clusters of 8, 7 of 16)
+H100_SMEM = 232448
+
+
+def _h100_active_clusters(C, rows):
+    return {4: 30, 8: 15, 16: 7}.get(C, 132 // C)
+
+
+@pytest.mark.parametrize(
+    "B,S,nA,plan",
+    [
+        (32, 256, 1, ms.ScanPlan("cluster", 8, 3)),  # model_1v's shape: 11 clusters of 3 rows run at once
+        (32, 512, 1, ms.ScanPlan("cluster", 8, 3)),
+        (32, 256, 32, ms.ScanPlan("cluster", 8, 1)),  # one A per row: one row a cluster
+        (4, 33, 1, ms.ScanPlan("cluster", 7, 1)),  # 8 slices of 5 would leave the 8th CTA without a column
+        (2, 1024, 1, ms.ScanPlan("stream")),  # Q's slice over 16 CTAs (256 KB each) fits no CTA
+        (32, 2048, 1, ms.ScanPlan("stream")),
+    ],
+)
+def test_scan_route_selection(B, S, nA, plan):
+    """The route ``plan_scan`` chooses from the shape and the card's limits
+    (given here as arguments), and that every cluster plan it returns fits
+    the shared memory and the kernels' limits."""
+    got = ms.plan_scan(B, S, nA, H100_SMEM, _h100_active_clusters)
+    assert got == plan
+    if got.route == "cluster":
+        assert ms.cluster_takes(S, got.cluster, got.rows)
+        assert max(ms.cluster_smem_bytes(S, got.cluster, got.rows, backward) for backward in (False, True)) <= H100_SMEM
+    else:
+        assert all(ms.cluster_smem_bytes(S, C, 1) > H100_SMEM for C in ms.CLUSTER_SIZES)
+
