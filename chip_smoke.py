@@ -42,7 +42,23 @@ Phases (any failure exits non-zero):
      through K2 against the same ELBO through the plain scan, finite
      losses, exactly 5 K2 forward and 5 K2 backward launches, all on the
      cluster route, and no K1 launch, and one profiled step;
-  6. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+  6. slice 5, the VAE of ``examples/vae.py`` at full width (B=256,
+     X=784, H=400, Z=50) with Trace_ELBO and Adam: the first step's loss
+     and gradients on the card against the port's own CPU run at the same
+     weights, data and guide noise, then 200 SVI steps (finite losses, the
+     last 20 below the first 20 on average), the steady step time, and one
+     profiled step with its device operations and busy share;
+  7. slice 5, NUTS on eight schools through ``MCMC`` with 1024 chains: a
+     probe of the first warmup iterations sets the iteration counts (500
+     warmup and 500 samples, cut toward 90 s but never below 200 and 200,
+     and the cut printed); posterior means of mu and tau within 4 Monte
+     Carlo standard errors plus 0.01 of the quadrature values, split r_hat
+     under 1.05, the mean accept probability after warmup in [0.6, 0.95],
+     no NaN; the wall times, ESS per second, leapfrog passes per second,
+     host syncs per pass, one profiled iteration (device operations per
+     pass, busy share), and the synchronizing calls of one iteration under
+     torch's sync debug mode, at most one a pass;
+  8. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
      backward on each route), the card's name and power limit, then the
      result line.
 
@@ -62,15 +78,22 @@ version's own float32 gradient is about 7e-4 * max|grad| from float64's
 each gradient within 1e-3 * max|grad| of the float64 plain version (whose
 backward keeps the clipped entries as a class of their own); the model_1v
 ELBO rtol 1e-5 against the same
-ELBO through the plain scan.  Without a CUDA device, or without the
-package beside this script, it exits non-zero and prints no result.
+ELBO through the plain scan.  The VAE's first-step loss rtol 1e-4 and
+each gradient rtol 1e-4 with atol 1e-6 * max|grad| against the CPU run
+(float32 sums in another order; TF32 off).  Without a CUDA device, or
+without the package beside this script, it exits non-zero and prints no
+result.
 """
 
+import contextlib
 import json
+import linecache
+import math
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -81,6 +104,13 @@ PEAK_BYTES = 3.35e12  # HBM3
 
 B, T, D, S, NN_DIM, NN_CHANNELS, STEPS = 32, 128, 51, 256, 32, 2, 5
 EMISSION = -35.0  # a step's summed emission log-factor on the main path, about
+
+# slice 5: the VAE of examples/vae.py, and NUTS on eight schools as in bench.py
+VAE_B, VAE_X, VAE_H, VAE_Z, VAE_BATCHES, VAE_STEPS = 256, 784, 400, 50, 10, 200
+NUTS_CHAINS, NUTS_ITERS, NUTS_MIN, NUTS_PROBE, NUTS_BUDGET_S = 1024, 500, 200, 20, 90.0
+# posterior mean and sd of mu and tau by 2-D quadrature (eta integrated out;
+# mu in [-40, 50], tau in (0, 300])
+QUADRATURE = {"mu": (4.398, 3.317), "tau": (3.580, 3.222)}
 
 
 class SmokeFailure(Exception):
@@ -660,16 +690,260 @@ def phase_enum_slice(torch, lm, ms):
     return routes, step_ms
 
 
+@contextlib.contextmanager
+def shared_noise(torch, eps):
+    """Within the block, ``torch.randn`` returns ``eps`` on the device asked
+    for: the guide's standard-normal draw, the same on the CPU and the card."""
+    randn = torch.randn
+
+    def draw(*shape, generator=None, dtype=None, device=None, **kwargs):
+        shape = tuple(shape[0]) if len(shape) == 1 and not isinstance(shape[0], int) else tuple(shape)
+        check(shape == tuple(eps.shape), f"unexpected standard-normal draw of shape {shape}")
+        return eps.to(device=device, dtype=dtype)
+
+    torch.randn = draw
+    try:
+        yield
+    finally:
+        torch.randn = randn
+
+
+def phase_vae(torch):
+    print(f"phase 6: VAE SVI (Trace_ELBO, Adam lr 1e-3) at B={VAE_B}, X={VAE_X}, H={VAE_H}, Z={VAE_Z}")
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import vae as example
+    from pyro_tpu_torch.infer import Trace_ELBO
+
+    torch.manual_seed(0)
+    weights = example.VAE(VAE_X, VAE_H, VAE_Z).state_dict()
+    pyro.set_default_device("cpu")
+    try:
+        batches_cpu = example.synthetic_batches(0, VAE_BATCHES, VAE_B, VAE_X)
+    finally:
+        pyro.set_default_device("cuda")
+    batches = batches_cpu.to("cuda")
+    eps = torch.randn((VAE_B, VAE_Z), generator=torch.Generator().manual_seed(1))
+
+    def first_step(device, x):
+        pyro.set_default_device(device)
+        try:
+            pyro.clear_param_store()
+            vae = example.VAE(VAE_X, VAE_H, VAE_Z).to(device)
+            vae.load_state_dict(weights)
+            with shared_noise(torch, eps):
+                loss = Trace_ELBO().differentiable_loss(vae.model, vae.guide, x)
+            loss.backward()
+            return float(loss.detach()), {name: p.grad.detach().cpu() for name, p in vae.named_parameters()}
+        finally:
+            pyro.set_default_device("cuda")
+
+    loss_cpu, grads_cpu = first_step("cpu", batches_cpu[0])
+    loss_gpu, grads_gpu = first_step("cuda", batches[0])
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    print(f"  first step's loss: card {loss_gpu!r}, CPU {loss_cpu!r}, rel diff {rel:.3g}")
+    check(rel <= 1e-4, f"the VAE loss on the card differs from the CPU run by rtol {rel}")
+    failures = []
+    for name, ref in grads_cpu.items():
+        g = grads_gpu[name]
+        excess = float(((g - ref).abs() - (1e-4 * ref.abs() + 1e-6 * ref.abs().max())).max())
+        print(f"    d{name}: max abs err {max_err(g, ref):.3g} (max|grad| {float(ref.abs().max()):.3g})")
+        if not bool(torch.isfinite(g).all()) or excess > 0:
+            failures.append(f"d{name} outside rtol 1e-4, atol 1e-6 * max|grad| of the CPU run by {excess:.3g}")
+    check(not failures, "; ".join(failures))
+
+    pyro.clear_param_store()
+    vae = example.VAE(VAE_X, VAE_H, VAE_Z).to("cuda")
+    vae.load_state_dict(weights)
+    svi = example.make_svi(vae, 1e-3)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    losses, step_ms = [], []
+    for i in range(VAE_STEPS):
+        t0 = time.perf_counter()
+        losses.append(svi.step(batches[i % VAE_BATCHES], generator=generator))  # reads the loss: synced
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    first, last = sum(losses[:20]) / 20, sum(losses[-20:]) / 20
+    check(all(math.isfinite(l) for l in losses), "non-finite VAE loss")
+    check(last < first, f"the mean loss of the last 20 steps {last} is not below the first 20's {first}")
+    steady = sorted(step_ms[20:])
+    mean_ms = sum(steady) / len(steady)
+    print(f"  {VAE_STEPS} steps: mean loss of the first 20 {first:.1f}, of the last 20 {last:.1f}")
+    print(f"  steady step (steps 20-{VAE_STEPS - 1}): mean {mean_ms:.3f} ms, median {steady[len(steady) // 2]:.3f} ms, "
+          f"min {steady[0]:.3f} ms, {1e3 / mean_ms:.1f} steps/s; first step {step_ms[0]:.3f} ms")
+    wall, busy, launches, _ = profile_run(torch, lambda: svi.step(batches[0], generator=generator))
+    print(f"  device operations per step {launches}")
+    return {"step_ms": mean_ms, "steps_per_s": 1e3 / mean_ms, "launches": launches, "busy_share": busy / wall}
+
+
+def phase_nuts(torch):
+    print(f"phase 7: NUTS on eight schools, {NUTS_CHAINS} chains")
+    from pyro_tpu_torch.examples import eight_schools as example
+    from pyro_tpu_torch.infer import MCMC, NUTS
+    from pyro_tpu_torch.ops.stats import effective_sample_size, split_gelman_rubin
+
+    class TimedNUTS(NUTS):
+        """NUTS that notes the wall time when warmup ends."""
+
+        def sample_step(self, state, generator):
+            if state.i == self._num_warmup:
+                torch.cuda.synchronize()
+                self.warmup_end = time.perf_counter()
+            return super().sample_step(state, generator)
+
+    y, sigma = example.data()
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    # a probe of the first warmup iterations, the dearest, sets the counts
+    probe = NUTS(example.model)
+    t0 = time.perf_counter()
+    MCMC(probe, num_samples=1, warmup_steps=NUTS_PROBE, num_chains=NUTS_CHAINS).run(y, sigma, generator=generator)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - t0) / (NUTS_PROBE + 1)
+    n = max(NUTS_MIN, min(NUTS_ITERS, int(NUTS_BUDGET_S / (2 * per_iter))))
+    print(f"  probe: {NUTS_PROBE + 1} iterations at {per_iter * 1e3:.1f} ms each, "
+          f"{probe.counts['leapfrogs'] / (NUTS_PROBE + 1):.1f} leapfrog passes each")
+    if n < NUTS_ITERS:
+        print(f"  CUT: {n} warmup iterations and {n} samples instead of {NUTS_ITERS} and {NUTS_ITERS}, "
+              f"to stay near {NUTS_BUDGET_S} s")
+
+    kernel = TimedNUTS(example.model)
+    mcmc = MCMC(kernel, num_samples=n, warmup_steps=n, num_chains=NUTS_CHAINS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcmc.run(y, sigma, generator=generator)
+    samples = mcmc.get_samples(group_by_chain=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    warmup_s, sample_s, run_s = kernel.warmup_end - t0, t1 - kernel.warmup_end, t1 - t0
+    extra = mcmc._diagnostics_extra
+    diag = mcmc.diagnostics()
+    for site, (mean, sd) in QUADRATURE.items():
+        draws = samples[site]
+        check(bool(torch.isfinite(draws).all()), f"non-finite draws of {site}")
+        ess = float(effective_sample_size(draws))
+        mcse = float(draws.std()) / math.sqrt(ess)
+        r_hat = float(split_gelman_rubin(draws))
+        got = float(draws.mean())
+        print(f"  {site}: mean {got:.4f} (quadrature {mean}, sd {float(draws.std()):.3f} against {sd}), "
+              f"ESS {ess:.0f}, MC standard error {mcse:.4f}, split r_hat {r_hat:.4f}")
+        check(abs(got - mean) <= 4 * mcse + 0.01, f"{site}: posterior mean {got} is over 4 MCSE + 0.01 from {mean}")
+        check(r_hat < 1.05, f"{site}: split r_hat {r_hat} >= 1.05")
+    check(all(bool(torch.isfinite(v).all()) for v in samples.values()), "non-finite draws")
+    accept = float(extra["accept_prob"].mean())
+    check(0.6 <= accept <= 0.95, f"mean accept probability after warmup {accept} outside [0.6, 0.95]")
+    total_ess = sum(float(diag[site]["n_eff"].sum()) for site in ("eta", "mu", "tau"))
+    passes, syncs = kernel.counts["leapfrogs"], kernel.counts["host_syncs"]
+    chain_leapfrogs = float(extra["num_steps"].sum())
+    print(f"  mean accept probability after warmup {accept:.4f}, divergences "
+          f"{float(extra['diverging'].float().mean()) * 100:.3f}% of transitions")
+    print(f"  wall: warmup {warmup_s:.2f} s, sampling {sample_s:.2f} s, run {run_s:.2f} s")
+    print(f"  ESS per second (eta, mu, tau summed over the run's wall time, as bench.py): {total_ess / run_s:.1f}")
+    print(f"  leapfrog passes over the batch: {passes} ({passes / run_s:.1f}/s); chain leapfrogs while sampling "
+          f"{chain_leapfrogs:.0f} ({chain_leapfrogs / sample_s:.0f}/s); host syncs {syncs} "
+          f"({syncs / passes:.4f} per pass)")
+    check(syncs <= passes, f"{syncs} host syncs over {passes} leapfrog passes")
+
+    # the subtree builder replays its leaf as a CUDA graph: against the same
+    # leaf run eagerly, from the run's last state at depth 6
+    from pyro_tpu_torch.infer.mcmc.nuts import _Leaves
+
+    class EagerNUTS(NUTS):
+        """NUTS whose leaf runs eagerly on the card, not from a graph."""
+
+        def _leaves(self, C, n_dim, like):
+            return self._leaf_buffers.setdefault((C, n_dim), _Leaves(C, n_dim, self.max_tree_depth, like))
+
+    eager = EagerNUTS(example.model)
+    eager.setup(0, y, sigma, generator=torch.Generator(device="cuda").manual_seed(0))
+    state = mcmc.last_state
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    r = torch.randn(state.z.shape, generator=gen, device="cuda")
+    inv, step = state.adapt.inverse_mass_diag, state.adapt.step_size
+    energy0 = state.potential_energy + 0.5 * (inv * r * r).sum(-1)
+    direction = torch.where(torch.rand(step.shape, generator=gen, device="cuda") < 0.5, 1.0, -1.0)
+    trees = []
+    for k in (kernel, eager):
+        trees.append(k._build_subtree(6, state.z, r, state.z_grad, energy0, direction, step, inv,
+                                      torch.Generator(device="cuda").manual_seed(6))[0])
+    worst = 0.0
+    for name, a, b in zip(trees[0]._fields, *trees):
+        a, b = a.double(), b.double()
+        finite = torch.isfinite(b)
+        check(bool((torch.isfinite(a) == finite).all()), f"graphed subtree: {name} finite where eager is not")
+        scale = float(b[finite].abs().max()) if bool(finite.any()) else 0.0
+        err = float((a - b)[finite].abs().max()) if bool(finite.any()) else 0.0
+        worst = max(worst, err / (scale + 1e-30))
+        check(err <= 1e-5 * scale, f"graphed subtree: {name} is {err} from the eager leaf's (max {scale})")
+    n_leaves = trees[1].num_proposals
+    print(f"  graphed leaf against the eager leaf, depth-6 subtree of {NUTS_CHAINS} chains: largest difference "
+          f"{worst:.3g} of a field's largest entry; leaves per chain {int(n_leaves.min())}-{int(n_leaves.max())}")
+    # both from the run's last state with the same draws: 5 iterations each,
+    # in turns graphed, eager, eager, graphed
+    per_pass = {"graphed": [], "eager": []}
+    for name in ("graphed", "eager", "eager", "graphed"):
+        k = kernel if name == "graphed" else eager
+        k.counts.update(leapfrogs=0, host_syncs=0)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        s_ = state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            s_ = k.sample_step(s_, gen)
+        torch.cuda.synchronize()
+        per_pass[name].append((time.perf_counter() - t0) * 1e3 / k.counts["leapfrogs"])
+    print(f"  5 iterations from the last state ({k.counts['leapfrogs']} leapfrog passes), ms a pass: graphed leaf "
+          f"{per_pass['graphed']}, eager leaf {per_pass['eager']}")
+
+    # one more iteration profiled, and one with every synchronizing call
+    # reported by torch's sync debug mode
+    state = mcmc.last_state
+    kernel.counts.update(leapfrogs=0, host_syncs=0)
+    wall, busy, launches, _ = profile_run(torch, lambda: kernel.sample_step(state, generator))
+    lf = kernel.counts["leapfrogs"]
+    check(all(b.graph is not None for b in kernel._leaf_buffers.values()), "the NUTS leaf was not captured")
+    print(f"  profiled iteration: {lf} leapfrog passes, each one launch of the leaf's CUDA graph and "
+          f"{launches / max(lf, 1):.1f} device operations")
+    kernel.counts.update(leapfrogs=0, host_syncs=0)
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            kernel.sample_step(state, generator)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync_warnings = [w for w in caught if "called a synchronizing CUDA operation" in str(w.message)]
+    synced = len(sync_warnings)
+    lf = kernel.counts["leapfrogs"]
+    print(f"  sync debug mode: {synced} synchronizing calls over {lf} leapfrog passes "
+          f"(the kernel counted {kernel.counts['host_syncs']})")
+    sources = {}
+    for w in sync_warnings:
+        where = f"{os.path.relpath(w.filename, HERE)}:{w.lineno} {linecache.getline(w.filename, w.lineno).strip()}"
+        sources[where] = sources.get(where, 0) + 1
+    print(f"    by source line: {sources}")
+    check(synced <= lf, f"{synced} synchronizing calls over {lf} leapfrog passes")
+    return {"iterations": n, "run_s": run_s, "ess_per_s": total_ess / run_s, "busy_share": busy / wall}
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
+    _, busy_ms, _, kernels = profile_run(torch, lambda: svi.step(sequences, lengths))
+    k1_ms = sum(e.self_device_time_total for e in kernels if "lme_" in e.key) / 1e3
+    k2_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith(("ms_", "msc_"))) / 1e3
+    print(f"    K1 kernels {k1_ms:.3f} ms, K2 kernels {k2_ms:.3f} ms")
+    return k1_ms
+
+
+def profile_run(torch, fn, top=8):
+    """``fn()`` under torch.profiler: its wall time, the device's busy time
+    (the sum of kernel and copy times on the card), the number of device
+    operations launched, and those operations by name, largest first."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        svi.step(sequences, lengths)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(
@@ -677,13 +951,12 @@ def profile_step(torch, svi, sequences, lengths):
         key=lambda e: -e.self_device_time_total,
     )
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    k1_ms = sum(e.self_device_time_total for e in kernels if "lme_" in e.key) / 1e3
-    k2_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith(("ms_", "msc_"))) / 1e3
-    print(f"  profiled step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), K1 kernels {k1_ms:.3f} ms, K2 kernels {k2_ms:.3f} ms")
-    for e in kernels[:8]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<4d} {e.key[:90]}")
-    return k1_ms
+    launches = sum(e.count for e in kernels)
+    print(f"  profiled: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{launches} device operations")
+    for e in kernels[:top]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return wall_ms, busy_ms, launches, kernels
 
 
 def main():
@@ -723,6 +996,8 @@ def main():
     k1_launches, _ = phase_slice(torch, lm)
     k2 = phase_k2(torch, lm, ms)
     k2_launches, _ = phase_enum_slice(torch, lm, ms)
+    phase_vae(torch)
+    phase_nuts(torch)
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"

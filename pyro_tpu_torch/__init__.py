@@ -8,13 +8,14 @@ discrete HMM runs as a hand-written CUDA kernel there.
 
 from . import distributions, infer, optim, poutine
 from .params.param_store import clear_param_store, get_param_store
-from .primitives import module, param, plate, sample, vectorized_markov
+from .primitives import deterministic, module, param, plate, sample, vectorized_markov
 from .settings import get_default_device, set_default_device
 
 __version__ = "0.1.0"
 
 __all__ = [
     "clear_param_store",
+    "deterministic",
     "distributions",
     "get_default_device",
     "get_param_store",

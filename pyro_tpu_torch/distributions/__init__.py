@@ -1,5 +1,5 @@
 from . import constraints
-from .continuous import Beta
+from .continuous import Beta, HalfCauchy, Normal
 from .delta import Delta
 from .discrete import Bernoulli, Categorical
 from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution
@@ -16,8 +16,10 @@ __all__ = [
     "DiscreteHMM",
     "Distribution",
     "ExpandedDistribution",
+    "HalfCauchy",
     "Independent",
     "MaskedDistribution",
+    "Normal",
     "StickBreakingTransform",
     "biject_to",
     "constraints",

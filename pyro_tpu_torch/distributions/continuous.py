@@ -1,14 +1,28 @@
-"""Beta (counterpart of the part of ``pyro_tpu/distributions/continuous.py``
-this package uses)."""
+"""Beta, Normal and HalfCauchy (counterpart of the part of
+``pyro_tpu/distributions/continuous.py`` this package uses)."""
 
 from __future__ import annotations
 
+import math
+
 import torch
 
+from ..settings import get_default_device
 from . import constraints
 from .distribution import Distribution
 from .multivariate import _standard_gamma
 from .util import broadcast_shape, clamp_probs
+
+
+def _param(value, like=None):
+    """A float tensor parameter.  A Python number becomes a fill on the
+    device of ``like`` (else the package's device): ``torch.full`` launches a
+    kernel, where ``torch.as_tensor`` of a number would copy it from the
+    host and wait for the device."""
+    if isinstance(value, torch.Tensor):
+        return value if value.is_floating_point() else value.to(torch.get_default_dtype())
+    device = like.device if isinstance(like, torch.Tensor) else get_default_device()
+    return torch.full((), float(value), dtype=torch.get_default_dtype(), device=device)
 
 
 class Beta(Distribution):
@@ -40,3 +54,51 @@ class Beta(Distribution):
     def expand(self, batch_shape, _instance=None):
         batch_shape = tuple(batch_shape)
         return Beta(self.concentration1.expand(batch_shape), self.concentration0.expand(batch_shape))
+
+
+class Normal(Distribution):
+    arg_constraints = {"loc": constraints.real, "scale": constraints.positive}
+    support = constraints.real
+    has_rsample = True
+
+    def __init__(self, loc=0.0, scale=1.0):
+        like = loc if isinstance(loc, torch.Tensor) else scale
+        loc, scale = _param(loc, like), _param(scale, like)
+        shape = broadcast_shape(loc.shape, scale.shape)
+        self.loc, self.scale = loc.expand(shape), scale.expand(shape)
+        super().__init__(shape)
+
+    def rsample(self, generator=None, sample_shape=()):
+        shape = self.shape(sample_shape)
+        eps = torch.randn(shape, generator=generator, dtype=self.loc.dtype, device=self.loc.device)
+        return self.loc + self.scale * eps
+
+    def log_prob(self, value):
+        var = self.scale**2
+        log_scale = torch.log(self.scale)
+        return -((value - self.loc) ** 2) / (2 * var) - log_scale - 0.5 * math.log(2 * math.pi)
+
+    def expand(self, batch_shape, _instance=None):
+        batch_shape = tuple(batch_shape)
+        return Normal(self.loc.expand(batch_shape), self.scale.expand(batch_shape))
+
+
+class HalfCauchy(Distribution):
+    arg_constraints = {"scale": constraints.positive}
+    support = constraints.positive
+    has_rsample = True
+
+    def __init__(self, scale=1.0):
+        self.scale = _param(scale)
+        super().__init__(self.scale.shape)
+
+    def rsample(self, generator=None, sample_shape=()):
+        shape = self.shape(sample_shape)
+        u = torch.rand(shape, generator=generator, dtype=self.scale.dtype, device=self.scale.device)
+        return self.scale * torch.tan(math.pi * u / 2)
+
+    def log_prob(self, value):
+        return math.log(2 / math.pi) - torch.log(self.scale) - torch.log1p((value / self.scale) ** 2)
+
+    def expand(self, batch_shape, _instance=None):
+        return HalfCauchy(self.scale.expand(tuple(batch_shape)))

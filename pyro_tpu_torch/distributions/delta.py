@@ -1,5 +1,5 @@
 """Delta: a point mass (counterpart of ``pyro_tpu/distributions/delta.py``);
-used by AutoDelta guides."""
+used by AutoDelta guides and ``deterministic`` sites."""
 
 from __future__ import annotations
 
@@ -24,7 +24,12 @@ class Delta(Distribution):
         batch_shape = v.shape[:batch_dim]
         self.v = v
         dtype = v.dtype if v.is_floating_point() else torch.get_default_dtype()
-        self.log_density = torch.as_tensor(log_density, dtype=dtype, device=v.device).expand(batch_shape)
+        if isinstance(log_density, torch.Tensor):
+            log_density = log_density.to(dtype)
+        else:
+            # a fill, not a copy from the host, which would wait for the device
+            log_density = torch.full((), float(log_density), dtype=dtype, device=v.device)
+        self.log_density = log_density.expand(batch_shape)
         self._event_dim_arg = event_dim
         super().__init__(batch_shape, v.shape[batch_dim:])
 

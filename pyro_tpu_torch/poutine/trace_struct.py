@@ -78,6 +78,18 @@ class Trace:
                 site["log_prob"] = lp
                 site["log_prob_sum"] = lp.sum()
 
+    def log_prob_sum(self, site_filter=lambda name, site: True):
+        """The trace's total log density over the sample sites
+        ``site_filter`` selects, scaled and masked."""
+        result = 0.0
+        for name, site in self.nodes.items():
+            if site["type"] == "sample" and site_filter(name, site):
+                if "log_prob_sum" not in site:
+                    lp = scale_and_mask(site["fn"].log_prob(site["value"]), site["scale"], site["mask"])
+                    site["log_prob_sum"] = lp.sum()
+                result = result + site["log_prob_sum"]
+        return result
+
     def compute_score_parts(self) -> None:
         """The surrogate-gradient decomposition at each sample site."""
         for name, site in self.nodes.items():

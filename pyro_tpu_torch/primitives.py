@@ -1,5 +1,5 @@
 """Modeling primitives (counterpart of ``pyro_tpu/primitives.py``):
-sample, param, plate, vectorized_markov and module."""
+sample, param, deterministic, plate, vectorized_markov and module."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import Optional
 import torch
 
 from .distributions import constraints as _constraints
+from .distributions.delta import Delta
 from .params.param_store import get_param_store, param_with_module_name
 from .poutine.plate_messenger import PlateMessenger
 from .poutine.runtime import am_i_wrapped, apply_stack, new_message
@@ -42,6 +43,14 @@ def param(name: str, init_value=None, constraint=_constraints.real, event_dim: O
 
 def _param_fn(name, init_value, constraint=_constraints.real, event_dim=None):
     return get_param_store().get_param(name, init_value, constraint, event_dim)
+
+
+def deterministic(name: str, value, event_dim: Optional[int] = None):
+    """Record a deterministic function of other sites: a ``Delta`` site
+    observed at ``value``, marked ``_deterministic`` so that inference
+    scores nothing there."""
+    event_dim = value.ndim if event_dim is None else event_dim
+    return sample(name, Delta(value, event_dim=event_dim), obs=value, infer={"_deterministic": True})
 
 
 def plate(name: str, size: int, dim: Optional[int] = None) -> PlateMessenger:

@@ -362,3 +362,62 @@ def test_scan_kernel_rejects_bad_operands(cuda):
         ms.markov_scan(alpha0, torch.zeros(8, 8, device=cuda), torch.zeros(3, 4, 9, device=cuda))
     with pytest.raises(TypeError):
         ms.markov_scan(alpha0.double(), torch.zeros(8, 8, device=cuda).double(), torch.zeros(3, 4, 8, device=cuda))
+
+
+def _eight_schools_nuts(cls):
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import eight_schools as es
+
+    pyro.set_default_device("cuda")
+    kernel = cls(es.model)
+    kernel.setup(0, *es.data(), generator=torch.Generator(device="cuda").manual_seed(0))
+    return kernel
+
+
+@pytest.mark.parametrize("depth", [0, 3, 6])
+def test_nuts_graphed_leaf_matches_eager(cuda, depth):
+    """NUTS replays its leaf as a CUDA graph on the card: the subtree must be
+    the one the same leaf builds when it runs eagerly."""
+    from pyro_tpu_torch.infer import NUTS
+    from pyro_tpu_torch.infer.mcmc.nuts import _Leaves
+
+    class EagerNUTS(NUTS):
+        def _leaves(self, C, n_dim, like):
+            return self._leaf_buffers.setdefault((C, n_dim), _Leaves(C, n_dim, self.max_tree_depth, like))
+
+    graphed, eager = _eight_schools_nuts(NUTS), _eight_schools_nuts(EagerNUTS)
+    gen = torch.Generator(device="cuda").manual_seed(depth)
+    C = 256
+    z = torch.rand(C, 10, generator=gen, device="cuda") * 4 - 2
+    r = torch.randn(C, 10, generator=gen, device="cuda")
+    inv = torch.rand(C, 10, generator=gen, device="cuda") + 0.5
+    step = torch.rand(C, generator=gen, device="cuda") * 0.5 + 0.01
+    direction = torch.where(torch.rand(C, generator=gen, device="cuda") < 0.5, 1.0, -1.0)
+    pe, grad = graphed._potential_and_grad(z)
+    energy0 = pe + 0.5 * (inv * r * r).sum(-1)
+    trees = [
+        k._build_subtree(depth, z, r, grad, energy0, direction, step, inv,
+                         torch.Generator(device="cuda").manual_seed(9))[0]
+        for k in (graphed, eager)
+    ]
+    assert graphed._leaf_buffers and next(iter(graphed._leaf_buffers.values())).graph is not None
+    for name, a, b in zip(trees[0]._fields, *trees):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6, equal_nan=True, msg=name)
+
+
+def test_nuts_runs_on_the_card(cuda):
+    """A short eight-schools run on the card: finite draws, and at most one
+    host sync a leapfrog pass."""
+    from pyro_tpu_torch.examples import eight_schools as es
+    from pyro_tpu_torch.infer import MCMC, NUTS
+
+    import pyro_tpu_torch as pyro
+
+    pyro.set_default_device("cuda")
+    kernel = NUTS(es.model)
+    mcmc = MCMC(kernel, num_samples=30, warmup_steps=30, num_chains=64)
+    mcmc.run(*es.data(), generator=torch.Generator(device="cuda").manual_seed(0))
+    samples = mcmc.get_samples(group_by_chain=True)
+    assert samples["mu"].shape == (64, 30) and samples["theta"].shape == (64, 30, 8)
+    assert all(bool(torch.isfinite(v).all()) for v in samples.values())
+    assert kernel.counts["host_syncs"] <= kernel.counts["leapfrogs"]

@@ -249,7 +249,8 @@ def test_run_steps_returns_losses():
 
 def test_import_leaves_out_jax():
     code = (
-        "import sys, pyro_tpu_torch, pyro_tpu_torch.examples.hmm\n"
+        "import sys, pyro_tpu_torch, pyro_tpu_torch.examples.hmm, pyro_tpu_torch.examples.vae\n"
+        "import pyro_tpu_torch.examples.eight_schools, pyro_tpu_torch.infer.mcmc\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')"
         " or m == 'pyro_tpu' or m.startswith('pyro_tpu.')]\n"
         "print(bad)\n"
