@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero):
   1. device and build: the card's name and power limit, and the CUDA
-     kernels (``log_matmul.cu``, ``markov_scan.cu``) built from
-     ``pyro_tpu_torch/csrc`` with one nvcc each, started together;
+     kernels (``log_matmul.cu``, ``markov_scan.cu``,
+     ``gaussian_levels.cu``) built from ``pyro_tpu_torch/csrc`` with one
+     nvcc each, started together;
   2. K1, log-matmul-exp forward and backward, against its plain PyTorch
      version on the card at the main path's shape (strided halves, never
      copied by the wrapper) and at ragged others; at the main path's shape
@@ -29,8 +30,8 @@ Phases (any failure exits non-zero):
      all -inf; the streaming route, forced, at the main path's shape and
      the two ragged ones, and chosen at B=2, T'=4, S=1024; at the main
      path's shape with a quarter of the states unreachable at the first
-     step (z clipped at FLT_MIN), each gradient of either route against
-     the float64 plain version; the first sequence's forward against a
+     step (z clipped at FLT_MIN), on five seeds of such data, each
+     gradient of either route against the float64 plain version; the first sequence's forward against a
      float64 filter; both routes timed forward and backward in turns with
      the plain version at S=256 and S=512 (B=32, T'=127), beside the
      bound, the cluster route at each cluster size and rows per cluster
@@ -58,9 +59,29 @@ Phases (any failure exits non-zero):
      host syncs per pass, one profiled iteration (device operations per
      pass, busy share), and the synchronizing calls of one iteration under
      torch's sync debug mode, at most one a pass;
-  8. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
-     backward on each route), the card's name and power limit, then the
-     result line.
+  8. K4, the Gaussian halving levels (``gaussian_levels.cu``: K4a
+     halving, K4b contract, K4c mids), against their plain versions at
+     every level of the slice's calls (the level inputs recorded from one
+     call through the kernels): the homogeneous ``log_prob`` at
+     ``8.10000.32.4`` for K4a, the heterogeneous ``rsample_posterior`` with
+     64 draws at ``64.4000.16.4`` for K4b (with its tape) and K4c; each
+     kernel's levels timed against the plain version's in turns, beside
+     the bound of the same levels;
+  9. slice 6 through ``examples/gaussian_hmm.py``'s models at full width
+     (numpy, seed 0): the homogeneous ``GaussianHMM.log_prob`` (B=8,
+     T=10,000, hidden 32, obs 4), 10 chained calls as ``bench.py`` chains
+     them, three reps, sequences/s; the heterogeneous ``log_prob`` (T=4000,
+     hidden 16, a transition per step) and ``rsample_posterior`` with 64
+     draws, three reps, draws/s; each log_prob against the port's plain
+     levels in float64 on the card; the posterior mean (the samplers at
+     zero noise, heterogeneous and homogeneous) against float64, and the
+     64 draws' mean against it in standard errors; a homogeneous
+     ``rsample_posterior`` of 4 draws; the K4 launches of every call
+     (each kernel above 0 over the phase) and one profiled call of each
+     entry point with its device busy share;
+  10. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+     backward on each route, K4a-c), the card's name and power limit, then
+     the result line.
 
 Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
 atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS, and its
@@ -73,12 +94,19 @@ that size), and the first row atol 1e-4 plus 1e-5 * max|alpha| against a
 float64 filter; each gradient within rtol 1e-4 plus atol 1e-5 * max|grad|
 of the plain version's at the small shapes, rtol 1e-3 plus atol
 1e-4 * max|grad| at the main path's 127 dependent steps, where the plain
-version's own float32 gradient is about 7e-4 * max|grad| from float64's
-(both distances are printed); with states unreachable at the first step,
+version's own float32 gradient was about 7e-4 * max|grad| from float64's
+before the carry was kept shifted, and is about 1e-5 since (both
+distances are printed); with states unreachable at the first step,
 each gradient within 1e-3 * max|grad| of the float64 plain version (whose
 backward keeps the clipped entries as a class of their own); the model_1v
 ELBO rtol 1e-5 against the same
-ELBO through the plain scan.  The VAE's first-step loss rtol 1e-4 and
+ELBO through the plain scan.  K4: each output of each level within 1e-4
+times its largest entry (plus 1e-5) of the plain version's at the same
+inputs (another factorisation order); log_prob rtol 1e-5 against float64
+(float32 sums over 12-13 levels of values of order 10^5); the posterior
+mean within 1e-3 times its largest entry of float64; the 64 draws' mean
+within 6.5 standard errors of it at every entry, the mean squared
+t-statistic in [0.8, 1.25].  The VAE's first-step loss rtol 1e-4 and
 each gradient rtol 1e-4 with atol 1e-6 * max|grad| against the CPU run
 (float32 sums in another order; TF32 off).  Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -104,6 +132,7 @@ PEAK_BYTES = 3.35e12  # HBM3
 
 B, T, D, S, NN_DIM, NN_CHANNELS, STEPS = 32, 128, 51, 256, 32, 2, 5
 EMISSION = -35.0  # a step's summed emission log-factor on the main path, about
+K2_F64_SEEDS = 5  # seeds of the unreachable-states data held against float64
 
 # slice 5: the VAE of examples/vae.py, and NUTS on eight schools as in bench.py
 VAE_B, VAE_X, VAE_H, VAE_Z, VAE_BATCHES, VAE_STEPS = 256, 784, 400, 50, 10, 200
@@ -111,6 +140,14 @@ NUTS_CHAINS, NUTS_ITERS, NUTS_MIN, NUTS_PROBE, NUTS_BUDGET_S = 1024, 500, 200, 2
 # posterior mean and sd of mu and tau by 2-D quadrature (eta integrated out;
 # mu in [-40, 50], tau in (0, 300])
 QUADRATURE = {"mu": (4.398, 3.317), "tau": (3.580, 3.222)}
+
+# slice 6: GaussianHMM at the bench's shapes (bench.py:55,63)
+GHMM_SIG, GFS_SIG = "8.10000.32.4", "64.4000.16.4"
+GHMM_CALLS = 10  # chained log_prob calls a rep, as bench.py:995-1010
+GFS_DRAWS = 64
+GHMM_RTOL = 1e-5  # log_prob against the float64 plain levels
+GFS_MEAN_TOL = 1e-3  # posterior mean against float64, times its largest entry
+GFS_T_MAX = 6.5  # the draws' mean, in standard errors of 64 draws, at most
 
 
 class SmokeFailure(Exception):
@@ -593,14 +630,20 @@ def phase_k2(torch, lm, ms):
     compare_k2(ms, [alpha0, log_transition(33, 33), randn(7, 4, 33), None], randn(4, 33),
                "an alpha0 row all -inf", grad_rtol=1e-4, grad_atol=1e-5)
     # a quarter of the states unreachable at the first step: their z is 0,
-    # clipped at FLT_MIN, while every later step's z of those columns is not
-    A = log_transition(S, S)
-    A[: S // 4, 3 * S // 4:] = -float("inf")
-    alpha0 = randn(B, S)
-    alpha0[:, S // 4:] = -float("inf")
-    for route in ("cluster", "stream"):
-        check_k2_f64(ms, [alpha0, A, main[2], None], g, f"B={B}, T'={steps}, S={S}, states unreachable at step 0",
-                     1e-3, route=route)
+    # clipped at FLT_MIN, while every later step's z of those columns is not;
+    # K2_F64_SEEDS draws of such data, each from its own seed
+    for seed in range(K2_F64_SEEDS):
+        gs = torch.Generator(device="cuda").manual_seed(100 + seed)
+        A = torch.log_softmax(torch.randn((S, S), generator=gs, device="cuda") * 2.0, dim=-1)
+        A[: S // 4, 3 * S // 4:] = -float("inf")
+        alpha0 = torch.randn((B, S), generator=gs, device="cuda")
+        alpha0[:, S // 4:] = -float("inf")
+        R = torch.randn((steps, B, S), generator=gs, device="cuda") * 3.0 + EMISSION
+        gu = torch.randn((B, S), generator=gs, device="cuda")
+        for route in ("cluster", "stream"):
+            check_k2_f64(ms, [alpha0, A, R, None], gu,
+                         f"seed {100 + seed}: B={B}, T'={steps}, S={S}, states unreachable at step 0", 1e-3,
+                         route=route)
     large = [randn(2, 1024), log_transition(1024, 1024), randn(4, 2, 1024), randn(4, 2, 1024)]
     check(k2_plan(ms, large).route == "stream", "S=1024 must take the streaming route")
     compare_k2(ms, large, randn(2, 1024), "B=2, T'=4, S=1024, with L", grad_rtol=1e-4, grad_atol=1e-5,
@@ -923,6 +966,281 @@ def phase_nuts(torch):
     return {"iterations": n, "run_s": run_s, "ess_per_s": total_ess / run_s, "busy_share": busy / wall}
 
 
+# -- slice 6: the Gaussian state-space HMM and the K4 kernels -----------------------
+
+
+def slice_models(torch, dtype=None):
+    """The two configurations of ``examples/gaussian_hmm.py`` at full width
+    (numpy, seed 0) on the card: {config: (hmm, data)}, in float32 unless
+    ``dtype`` is given."""
+    from pyro_tpu_torch.examples import gaussian_hmm as example
+
+    out = {}
+    for config in ("homogeneous", "heterogeneous"):
+        arrays = example.make_arrays(config, 0)
+        params = {k: torch.tensor(v, dtype=dtype or torch.float32, device="cuda") for k, v in arrays.items()}
+        data = params.pop("data")
+        out[config] = (example.make_hmm(params, example.CONFIGS[config]["T"]), data)
+    return out
+
+
+@contextlib.contextmanager
+def plain_levels(gl):
+    """Within the block the Gaussian algebra runs the K4 plain versions,
+    which take any device and type (the reference in float64 on the card)."""
+    saved = gl.halving_level, gl.contract_pairs, gl.level_mids
+    gl.halving_level, gl.contract_pairs, gl.level_mids = (
+        gl.halving_level_plain, gl.contract_pairs_plain, gl.level_mids_plain)
+    try:
+        yield
+    finally:
+        gl.halving_level, gl.contract_pairs, gl.level_mids = saved
+
+
+@contextlib.contextmanager
+def record_levels(gl, name):
+    """Within the block, the arguments of every call of ``gl.<name>``, all
+    positional, defaults included."""
+    import inspect
+
+    calls, fn = [], getattr(gl, name)
+    signature = inspect.signature(fn)
+
+    def recorder(*args, **kwargs):
+        bound_args = signature.bind(*args, **kwargs)
+        bound_args.apply_defaults()
+        calls.append(tuple(bound_args.arguments.values()))
+        return fn(*args, **kwargs)
+
+    setattr(gl, name, recorder)
+    try:
+        yield calls
+    finally:
+        setattr(gl, name, fn)
+
+
+def k4_bounds(name, args):
+    """(flops, bytes) of one K4 launch at ``args``: each input read once,
+    each output written once; the flops of the factorisations, the solves
+    and the products as the kernel does them."""
+    if name == "halving":
+        P, info, logZ, tape = args
+        R, two_m, n2 = info.shape
+        n, pairs = n2 // 2, R * (two_m // 2)
+        flops = (n**3 / 3 + 2 * n**3 + 8 * n**3) + pairs * (5 * n * n + 6 * n)
+        floats = 2 * n2 * n2 + n * n + R * two_m * (n2 + 1) + pairs * (n2 + 1 + (n if tape else 0))
+    elif name == "contract":
+        P, info, logZ, tape = args
+        R, t, n2, _ = P.shape
+        n, pairs, t_out = n2 // 2, R * (t // 2), R * (t - t // 2)
+        flops = pairs * (n * n + n**3 / 3 + n * n * (n2 + 1) + 4 * n * n2 * n + 4 * n * n + 2 * n)
+        floats = R * t * (n2 * n2 + n2 + 1) + t_out * (n2 * n2 + n2 + 1) + (pairs * 3 * n * n + pairs * n if tape else 0)
+    else:
+        cur, L, P_mk, i_m, eps = args
+        D, R, m, n = cur.shape
+        Np = i_m.shape[-2]
+        items = D * R * Np
+        flops = items * (6 * n * n + n)
+        floats = D * R * m * n + L.numel() + P_mk.numel() + i_m.numel() + eps.numel() + D * R * (m + Np) * n
+    return flops, 4 * floats
+
+
+def check_k4_level(label, outs_k, outs_p):
+    """Each output of a K4 launch within 1e-4 times its largest entry plus
+    1e-5 of the plain version's; returns the largest abs error."""
+    err = 0.0
+    for a, b in zip(outs_k, outs_p):
+        if b is None:
+            continue
+        check(a.shape == b.shape and bool(a.isfinite().all()), f"{label}: bad output {tuple(a.shape)}")
+        e = max_err(a, b)
+        check(e <= 1e-4 * float(b.abs().max()) + 1e-5, f"{label}: max abs err {e:.3g} over 1e-4 * {float(b.abs().max()):.3g}")
+        err = max(err, e)
+    return err
+
+
+def phase_k4(torch, gl):
+    """Phase 8: each K4 kernel against its plain version at every level of
+    the slice's calls (the level inputs recorded from one call through the
+    kernels), then the call's levels timed kernel against plain in turns,
+    beside their bound."""
+    print("phase 8: K4 kernels (halving, contract, mids) against their plain versions at the slice's levels")
+    models = slice_models(torch)
+    hom, hom_data = models["homogeneous"]
+    het, het_data = models["heterogeneous"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    with torch.no_grad():
+        with record_levels(gl, "halving_level") as halving:
+            hom.log_prob(hom_data)
+        with record_levels(gl, "contract_pairs") as contract, record_levels(gl, "level_mids") as mids:
+            het.rsample_posterior(het_data, gen, (GFS_DRAWS,))
+        torch.cuda.synchronize()
+        levels = {
+            "halving": (halving, gl._halving_cuda, gl.halving_level_plain,
+                        f"homogeneous log_prob at {GHMM_SIG}"),
+            "contract": (contract, gl._contract_cuda, gl.contract_pairs_plain,
+                         f"heterogeneous rsample_posterior's forward at {GFS_SIG}, with the tape"),
+            "mids": (mids, gl._mids_cuda, gl.level_mids_plain,
+                     f"heterogeneous rsample_posterior's descent at {GFS_SIG}"),
+        }
+        result = {}
+        for name, (calls, kernel, plain, where) in levels.items():
+            check(calls, f"no {name} level was recorded")
+            err = 0.0
+            for i, args in enumerate(calls):
+                outs_k, outs_p = kernel(*args), plain(*args)
+                if name == "contract":
+                    outs_k = outs_k[:3] + tuple(outs_k[3] or ())
+                    outs_p = outs_p[:3] + tuple(outs_p[3] or ())
+                elif name == "mids":
+                    outs_k, outs_p = (outs_k,), (outs_p,)
+                err = max(err, check_k4_level(f"{name} level {i}", outs_k, outs_p))
+            t = alternate({
+                "kernel": lambda: [kernel(*args) for args in calls],
+                "plain": lambda: [plain(*args) for args in calls],
+            }, iters=5)
+            flops = sum(k4_bounds(name, args)[0] for args in calls)
+            nbytes = sum(k4_bounds(name, args)[1] for args in calls)
+            b = bound(flops, nbytes)
+            first = calls[0][1 if name != "mids" else 0]
+            print(f"  {name} over the {len(calls)} levels of the {where} (first level's input "
+                  f"{tuple(first.shape)}): max abs err {err:.3g}; kernel {t['kernel']:.4f} ms, plain "
+                  f"{t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            result[name] = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"], "bound": b,
+                            "levels": len(calls)}
+    return result
+
+
+def phase_gaussian_slice(torch, gl):
+    """Phase 9: the slice through its entry points, each call's K4 launches
+    counted, each result against the port's plain levels in float64."""
+    print(f"phase 9: GaussianHMM log_prob at {GHMM_SIG} and {GFS_SIG}, rsample_posterior with {GFS_DRAWS} draws")
+    from pyro_tpu_torch.ops import gaussian as tg
+
+    models = slice_models(torch)
+    models64 = slice_models(torch, torch.float64)
+    hom, hom_data = models["homogeneous"]
+    het, het_data = models["heterogeneous"]
+    launches = {"halving": 0, "contract": 0, "mids": 0}
+    out = {}
+
+    def counted(label, fn):
+        gl.reset_counts()
+        value = fn()
+        torch.cuda.synchronize()
+        counts = dict(gl.launches)
+        for k, v in counts.items():
+            launches[k] += v
+        print(f"    {label}: K4 launches {counts}")
+        return value, counts
+
+    def rel_check(label, got, ref, rtol):
+        rel = float(((got.double() - ref).abs() / ref.abs()).max())
+        print(f"  {label}: {got.cpu().tolist()} against float64 {ref.cpu().tolist()}, max rel diff {rel:.3g}")
+        check(bool(torch.isfinite(got).all()) and rel <= rtol, f"{label}: rel diff {rel:.3g} over {rtol}")
+
+    with torch.no_grad():
+        # homogeneous log_prob: the bench's 10 chained calls
+        def chained():
+            acc = torch.zeros((), device="cuda")
+            for _ in range(GHMM_CALLS):
+                acc = acc + hom.log_prob(hom_data + 1e-6 * acc).sum()
+            return acc
+
+        chained()
+        torch.cuda.synchronize()
+        times = []
+        for rep in range(3):
+            t0 = time.perf_counter()
+            acc, counts = counted(f"homogeneous log_prob, {GHMM_CALLS} chained calls (rep {rep})", chained)
+            times.append(time.perf_counter() - t0)
+            check(counts["halving"] > 0 and math.isfinite(float(acc)), f"homogeneous log_prob: {counts}, acc {acc}")
+        seqs = GHMM_CALLS * hom_data.shape[0]
+        print(f"  homogeneous log_prob: {[round(1e3 * t / GHMM_CALLS, 3) for t in times]} ms a call, "
+              f"{seqs / min(times):.1f} sequences/s at best ({seqs} sequences a rep)")
+        out["ghmm_seq_per_s"] = seqs / min(times)
+        lp, _ = counted("homogeneous log_prob, checked", lambda: hom.log_prob(hom_data))
+        with plain_levels(gl):
+            lp64 = models64["homogeneous"][0].log_prob(models64["homogeneous"][1])
+        rel_check("homogeneous log_prob", lp, lp64, GHMM_RTOL)
+
+        # heterogeneous log_prob
+        lp, counts = counted("heterogeneous log_prob", lambda: het.log_prob(het_data))
+        check(counts["contract"] > 0, f"heterogeneous log_prob: {counts}")
+        with plain_levels(gl):
+            lp64 = models64["heterogeneous"][0].log_prob(models64["heterogeneous"][1])
+        rel_check("heterogeneous log_prob", lp.reshape(1), lp64.reshape(1), GHMM_RTOL)
+        t0 = time.perf_counter()
+        for _ in range(GHMM_CALLS):
+            het.log_prob(het_data)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / GHMM_CALLS
+        print(f"  heterogeneous log_prob: {1e3 * dt:.3f} ms a call, {1 / dt:.1f} sequences/s")
+
+        # heterogeneous rsample_posterior, 64 draws: the bench's 3 launches
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        het.rsample_posterior(het_data, gen, (GFS_DRAWS,))
+        torch.cuda.synchronize()
+        times = []
+        for rep in range(3):
+            t0 = time.perf_counter()
+            z, counts = counted(f"rsample_posterior, {GFS_DRAWS} draws (rep {rep})",
+                                lambda: het.rsample_posterior(het_data, gen, (GFS_DRAWS,)))
+            times.append(time.perf_counter() - t0)
+            check(counts["contract"] > 0 and counts["mids"] > 0, f"rsample_posterior: {counts}")
+        T, hidden = het_data.shape[0], het._init.dim
+        check(z.shape == (GFS_DRAWS, T, hidden) and bool(torch.isfinite(z).all()), f"draws {tuple(z.shape)}")
+        print(f"  rsample_posterior: {[round(1e3 * t, 3) for t in times]} ms a call, "
+              f"{GFS_DRAWS / min(times):.1f} draws/s at best")
+        out["gfs_draws_per_s"] = GFS_DRAWS / min(times)
+
+        # the posterior mean: the sampler at zero noise against float64, and
+        # the 64 draws' mean against it in standard errors
+        def posterior_mean(hmm, data, homogeneous):
+            trans = hmm._conditioned(data)
+            zeros = torch.zeros(trans.batch_shape[:-1] + (data.shape[-2] + 1, hmm._init.dim),
+                                dtype=data.dtype, device="cuda")
+            if homogeneous:
+                return tg.sequential_gaussian_filter_sample_homogeneous(hmm._init, trans, noise=zeros)[..., 1:, :]
+            return tg.sequential_gaussian_filter_sample(hmm._init, trans.expand(trans.batch_shape),
+                                                        noise=zeros)[..., 1:, :]
+
+        for config, homogeneous in (("heterogeneous", False), ("homogeneous", True)):
+            hmm, data = models[config]
+            mean, counts = counted(f"{config} posterior mean (zero noise)",
+                                   lambda: posterior_mean(hmm, data, homogeneous))
+            with plain_levels(gl):
+                mean64 = posterior_mean(*models64[config], homogeneous)
+            err = max_err(mean.double(), mean64)
+            scale = float(mean64.abs().max())
+            print(f"  {config} posterior mean: max abs err to float64 {err:.3g} (max|mean| {scale:.3g})")
+            check(err <= GFS_MEAN_TOL * scale, f"{config} posterior mean {err:.3g} from float64, over "
+                                               f"{GFS_MEAN_TOL} * {scale:.3g}")
+            if config == "heterogeneous":
+                tstat = (z.double().mean(0) - mean64) / (z.double().std(0) / GFS_DRAWS**0.5)
+                t_max, t_sq = float(tstat.abs().max()), float((tstat**2).mean())
+                print(f"  {GFS_DRAWS} draws' mean against it: max |t| {t_max:.3g} over {tstat.numel()} entries, "
+                      f"mean t^2 {t_sq:.4f}")
+                check(t_max < GFS_T_MAX and 0.8 < t_sq < 1.25,
+                      f"draws' mean: max |t| {t_max:.3g} (limit {GFS_T_MAX}), mean t^2 {t_sq:.4f} (limits 0.8, 1.25)")
+        zh, counts = counted("homogeneous rsample_posterior, 4 draws",
+                             lambda: hom.rsample_posterior(hom_data, gen, (4,)))
+        check(counts["halving"] > 0 and counts["mids"] > 0 and bool(torch.isfinite(zh).all()),
+              f"homogeneous rsample_posterior: {counts}")
+
+    for label, fn in (("homogeneous log_prob", lambda: hom.log_prob(hom_data)),
+                      ("heterogeneous log_prob", lambda: het.log_prob(het_data)),
+                      ("rsample_posterior", lambda: het.rsample_posterior(het_data, gen, (GFS_DRAWS,)))):
+        print(f"  {label}, one call:")
+        with torch.no_grad():
+            wall, busy, _, _ = profile_run(torch, fn, top=5)
+        out[f"busy_share {label}"] = busy / wall
+    print(f"  K4 launches over phase 9: {launches}")
+    check(all(v > 0 for v in launches.values()), f"a K4 kernel was never launched: {launches}")
+    out["launches"] = launches
+    return out
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -971,6 +1289,7 @@ def main():
     check(os.path.dirname(os.path.dirname(os.path.abspath(pyro_tpu_torch.__file__))) == HERE,
           "pyro_tpu_torch must come from this checkout")
     from pyro_tpu_torch.ops import cuda_build
+    from pyro_tpu_torch.ops import gaussian_levels as gl
     from pyro_tpu_torch.ops import log_matmul as lm
     from pyro_tpu_torch.ops import markov_scan as ms
 
@@ -985,9 +1304,9 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(f"  {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    cuda_build.build_all(["log_matmul", "markov_scan"])
-    print(f"  built log_matmul and markov_scan in {time.perf_counter() - t0:.2f} s")
-    for name in ("log_matmul", "markov_scan"):
+    cuda_build.build_all(["log_matmul", "markov_scan", "gaussian_levels"])
+    print(f"  built log_matmul, markov_scan and gaussian_levels in {time.perf_counter() - t0:.2f} s")
+    for name in ("log_matmul", "markov_scan", "gaussian_levels"):
         for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print("   ", name, line.strip())
@@ -998,6 +1317,8 @@ def main():
     k2_launches, _ = phase_enum_slice(torch, lm, ms)
     phase_vae(torch)
     phase_nuts(torch)
+    k4 = phase_k4(torch, gl)
+    k4_launches = phase_gaussian_slice(torch, gl)["launches"]
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"
@@ -1011,6 +1332,11 @@ def main():
         ("markov_scan_stream_fwd", "markov_scan.cu", scan, k2["stream_forward"], k2_launches["stream"]["forward"]),
         ("markov_scan_stream_bwd", "markov_scan.cu", scan, k2["stream_backward"],
          k2_launches["stream"]["backward"]),
+        ("gaussian_halving", "gaussian_levels.cu", "pyro_tpu/ops/gaussian.py:448", k4["halving"],
+         k4_launches["halving"]),
+        ("gaussian_contract", "gaussian_levels.cu", "pyro_tpu/ops/gaussian.py:726", k4["contract"],
+         k4_launches["contract"]),
+        ("gaussian_mids", "gaussian_levels.cu", "pyro_tpu/ops/gaussian.py:790", k4["mids"], k4_launches["mids"]),
     ):
         kernels.append({
             "name": name,

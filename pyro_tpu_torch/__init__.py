@@ -2,8 +2,9 @@
 
 Same primitives, handlers, distributions and inference as the JAX package,
 slice by slice.  Tensors live on the CUDA device unless the caller asks for
-the CPU with ``set_default_device("cpu")``; the log-matmul-exp of the
-discrete HMM runs as a hand-written CUDA kernel there.
+the CPU with ``set_default_device("cpu")``; the hot ops (the discrete
+HMM's log-matmul-exp, the Markov-chain scan, the Gaussian HMM's halving
+levels) run as hand-written CUDA kernels there.
 """
 
 from . import distributions, infer, optim, poutine

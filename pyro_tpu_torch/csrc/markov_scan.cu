@@ -13,6 +13,16 @@
 // c (non-finite maxima become 0), z = sum_l exp(h - m) exp(A - c) in f32,
 // and logmatmulexp = log(max(z, FLT_MIN)) + m + c.
 //
+// The carry is kept shifted: the kernels carry alpha_t+1 - (m_0 + .. + m_t),
+// that is log(max(z, FLT_MIN)) + c + R_t, and each row's shifts add up
+// beside it in double; alpha_T is the shifted carry plus that sum.  The
+// true carry drifts like T times the emission scale (about -4400 on the
+// main path), where float32 rounds h - m, and with it the backward's
+// softmax weights, to about 1e-3 of the gradient; the shifted carry stays
+// within one step's factors.  The backward reads the shifted carry stack
+// as it is: its weights exp(h - m) and E do not change when a row is
+// shifted, so neither do the statistics, the reverse scan or the dA fold.
+//
 // Bound on an H100 SXM at the main path's shape (B=32, T=127, S=256, f32):
 // 2*T*B*S*S = 0.53 GFLOP of FMAs, 8 us at the data-sheet 67 TFLOP/s f32
 // rate outside the tensor cores; the inputs and outputs are 4.4 MB, 1.3 us
@@ -205,6 +215,7 @@ __global__ void __launch_bounds__(NTS) ms_forward_kernel(const float* __restrict
   const float* ca = craw + a * S;
   for (int l = tid; l < S; l += NTS) alpha[l] = alpha0[(long long)b * S + l];
   __syncthreads();
+  double norm = 0.0;  // the row's shifts so far (the same in every thread)
   for (int t = 0; t < T; ++t) {
     const long long row = ((long long)t * B + b) * S;
     float m = -INFINITY;
@@ -215,16 +226,17 @@ __global__ void __launch_bounds__(NTS) ms_forward_kernel(const float* __restrict
       m = fmaxf(m, h);
     }
     m = finite_or_zero(block_max(m, red));
+    norm += (double)m;
     for (int l = tid; l < S; l += NTS) p[l] = expf(p[l] - m);
     __syncthreads();
     block_col_dot(p, Qa, S, z, part_sums);
     for (int r = tid; r < S; r += NTS) {
       zs[row + r] = z[r];
-      alpha[r] = logf(fmaxf(z[r], FLT_MIN)) + m + finite_or_zero(ca[r]) + R[row + r];
+      alpha[r] = logf(fmaxf(z[r], FLT_MIN)) + finite_or_zero(ca[r]) + R[row + r];
     }
     __syncthreads();
   }
-  for (int r = tid; r < S; r += NTS) out[(long long)b * S + r] = alpha[r];
+  for (int r = tid; r < S; r += NTS) out[(long long)b * S + r] = (float)((double)alpha[r] + norm);
 }
 
 // ---------------------------------------------------------------- backward --
@@ -491,7 +503,7 @@ __host__ __device__ __forceinline__ long long cl_forward_floats(int S, int C, in
          + 3 * R * S4               // carry rows (two buffers), p
          + R * NTC                  // the product's partial sums
          + R * W4                   // the new carry's own columns
-         + 8 * R + round4(R) + W4;  // segment maxima, row maxima, column shifts
+         + 8 * R + round4(2 * R) + W4;  // segment maxima, the rows' summed shifts (double), column shifts
 }
 __host__ __device__ __forceinline__ long long cl_backward_floats(int S, int C, int rows) {
   const long long W4 = round4(cl_width(S, C)), S4 = round4(S), R = rows;
@@ -669,8 +681,8 @@ __global__ void __launch_bounds__(NTC, 1) msc_forward_kernel(const float* __rest
   float* red = p + rows * S4;                      // [parts][rows][W4]
   float* vbuf = red + rows * NTC;                  // [rows][W4]
   float* seg_max = vbuf + rows * W4;               // [rows][8]
-  float* msh = seg_max + 8 * rows;                 // [rows]
-  float* cs = msh + round4(rows);                  // [W4]
+  double* nrm = reinterpret_cast<double*>(seg_max + 8 * rows);  // [rows], 16-byte aligned
+  float* cs = seg_max + 8 * rows + round4(2 * rows);  // [W4]
   const RowSlots<ME> e(S, nr);
   const OwnOutputs own(nr, W, wn);
   // the sends of a step: item x = (peer j, row, column or vector of 4
@@ -718,6 +730,7 @@ __global__ void __launch_bounds__(NTC, 1) msc_forward_kernel(const float* __rest
     Qs[l * QP + w] = (w < wn && l < S) ? expf(Qs[l * QP + w] - cs[w]) : 0.f;
   }
   for (int x = tid; x < nr * S; x += NTC) hbuf[(x / S) * S4 + x % S] = alpha0[(long long)b0 * S + x];
+  for (int x = tid; x < rows; x += NTC) nrm[x] = 0.0;
   // the first step's L, in the registers of the row passes
   float lv[ME];
 #pragma unroll
@@ -779,7 +792,7 @@ __global__ void __launch_bounds__(NTC, 1) msc_forward_kernel(const float* __rest
     for (int i = 0; i < ME; ++i) {
       if (e.ls[i] >= 0) {
         p[e.rows_[i] * S4 + e.ls[i]] = h[i];
-        if (e.ls[i] == 0) msh[e.rows_[i]] = m[i];
+        if (e.ls[i] == 0) nrm[e.rows_[i]] += (double)m[i];
       }
     }
     __syncthreads();
@@ -808,8 +821,8 @@ __global__ void __launch_bounds__(NTC, 1) msc_forward_kernel(const float* __rest
       for (int q = 1; q < nparts; ++q) z += red[(q * rows + row) * W4 + w];
       const int r = r0 + w;
       zs[step + (long long)row * S + r] = z;
-      const float v = logf(fmaxf(z, FLT_MIN)) + msh[row] + cs[w] + rv[i];
-      if (t == T - 1) out[(long long)(b0 + row) * S + r] = v;
+      const float v = logf(fmaxf(z, FLT_MIN)) + cs[w] + rv[i];
+      if (t == T - 1) out[(long long)(b0 + row) * S + r] = (float)((double)v + nrm[row]);
       else vbuf[row * W4 + w] = v;
     }
     if (t + 1 < T) {

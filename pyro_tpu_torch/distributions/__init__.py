@@ -3,8 +3,8 @@ from .continuous import Beta, HalfCauchy, Normal
 from .delta import Delta
 from .discrete import Bernoulli, Categorical
 from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution
-from .hmm import DiscreteHMM
-from .multivariate import Dirichlet
+from .hmm import DiscreteHMM, GaussianHMM
+from .multivariate import Dirichlet, MultivariateNormal
 from .transforms import StickBreakingTransform, biject_to, transform_to
 
 __all__ = [
@@ -14,11 +14,13 @@ __all__ = [
     "Delta",
     "Dirichlet",
     "DiscreteHMM",
+    "GaussianHMM",
     "Distribution",
     "ExpandedDistribution",
     "HalfCauchy",
     "Independent",
     "MaskedDistribution",
+    "MultivariateNormal",
     "Normal",
     "StickBreakingTransform",
     "biject_to",

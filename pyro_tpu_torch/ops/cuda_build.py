@@ -5,7 +5,8 @@ compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so``
 at the root of the checkout on first use (the hash is of the source, so an
 edited source is rebuilt) and loaded with ctypes.  ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them; the sources are
-``log_matmul.cu`` (K1) and ``markov_scan.cu`` (K2).
+``log_matmul.cu`` (K1), ``markov_scan.cu`` (K2) and ``gaussian_levels.cu``
+(K4a-c).
 """
 
 from __future__ import annotations

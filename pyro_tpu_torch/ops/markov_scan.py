@@ -48,17 +48,28 @@ def _check_shapes(alpha0, A, R, L):
 
 def markov_scan_plain(alpha0, A, R, L=None):
     """The plain PyTorch version, on any device: one ``logmatmulexp_plain``
-    per step, with its analytic VJP."""
+    per step, with its analytic VJP.
+
+    The carry is kept shifted: each step subtracts the row max m of h (a
+    constant to autograd) before the product, so the carry stays within the
+    size of one step's factors instead of drifting like T times the
+    emission scale, and the shifts add up beside it in float64.  The
+    softmax weights of the backward do not change when a row is shifted,
+    and at the carry's own size float32 rounds them finely."""
     _check_shapes(alpha0, A, R, L)
     alpha = alpha0
+    norm = torch.zeros(alpha0.shape[:-1] + (1,), dtype=torch.float64, device=alpha0.device)
     for t in range(R.shape[0]):
         h = alpha if L is None else alpha + L[t]
+        m = h.detach().amax(-1, keepdim=True)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
         if A.ndim == 2:
-            z = logmatmulexp_plain(h, A)
+            z = logmatmulexp_plain(h - m, A)
         else:
-            z = logmatmulexp_plain(h.unsqueeze(-2), A).squeeze(-2)
+            z = logmatmulexp_plain((h - m).unsqueeze(-2), A).squeeze(-2)
         alpha = z + R[t]
-    return alpha
+        norm = norm + m.double()
+    return (alpha.double() + norm).to(alpha.dtype)
 
 
 # -- CUDA kernels -----------------------------------------------------------------
@@ -109,7 +120,7 @@ def cluster_smem_bytes(S, C, rows, backward=False):
     if backward:
         floats = q + 4 * C * R * W4 + 2 * R * S4 + 2 * R * W4
     else:
-        floats = q + 3 * R * S4 + R * CLUSTER_THREADS + R * W4 + 8 * R + _round4(R) + W4
+        floats = q + 3 * R * S4 + R * CLUSTER_THREADS + R * W4 + 8 * R + _round4(2 * R) + W4
     return 4 * floats
 
 
@@ -233,8 +244,8 @@ def _stream(t):
 
 
 def _forward_cuda(alpha0, A, R, L=None, plan=None):
-    """alpha_T, and what the backward needs: the plan, the carry stack
-    alpha_0 .. alpha_{T-1} (T, B, S), each step's z = exp(h - m) @ Q
+    """alpha_T, and what the backward needs: the plan, the shifted carry
+    stack (T, B, S) (alpha_t less a constant per row and step), each step's z = exp(h - m) @ Q
     (T, B, S), the raw column maxima of A and, on the streaming route,
     Q = exp(A - c) and its transpose.  ``plan`` forces a route; by default
     ``plan_scan`` chooses by shape."""

@@ -13,10 +13,15 @@ the Markov-chain scan: forward atol 1e-4 plus rtol 1e-6 (the carry grows
 like T times the emission scale, and float32 rounds it at that size);
 gradients as K1's over a few steps, and rtol 1e-3 with atol 1e-4 times the
 gradient's largest entry over the main path's 127 dependent steps, where
-the plain version's own float32 gradient is about 7e-4 of that from
-float64's (``chip_smoke.py`` prints both distances); the two routes of K2
+the plain version's own float32 gradient was about 7e-4 of that from
+float64's before the carry was kept shifted, and is about 1e-5 since
+(``chip_smoke.py`` prints both distances); the two routes of K2
 against each other as each against the plain version.  K2's cases run on
 the route the wrapper chooses, which they check, unless a test names one.
+K4, the Gaussian halving levels: each kernel within rtol 1e-4 plus atol
+1e-4 times the largest entry of its plain version's output; GaussianHMM on
+the card against the port's float64 CPU run, log_prob rtol 1e-4 with atol
+1e-3, the filter's mean and the posterior mean rtol and atol 1e-3.
 """
 
 import numpy as np
@@ -421,3 +426,159 @@ def test_nuts_runs_on_the_card(cuda):
     assert samples["mu"].shape == (64, 30) and samples["theta"].shape == (64, 30, 8)
     assert all(bool(torch.isfinite(v).all()) for v in samples.values())
     assert kernel.counts["host_syncs"] <= kernel.counts["leapfrogs"]
+
+
+# -- K4: the Gaussian halving levels ----------------------------------------------------
+#
+# Tolerances: each kernel against its plain version at the same inputs,
+# float32 on the card, rtol 1e-4 with atol 1e-4 times the largest entry of
+# the plain output (the kernels factorise right-looking and sum in another
+# order than cuSOLVER and cuBLAS do).
+
+
+def _spd(gen, shape, n, device):
+    M = torch.randn(tuple(shape) + (n, n), generator=gen, device=device)
+    return M @ M.transpose(-1, -2) / n + torch.eye(n, device=device)
+
+
+def _assert_near(a, b):
+    assert a.shape == b.shape and bool(torch.isfinite(a).all())
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("R,m,n", [(8, 5000, 32), (3, 7, 16), (2, 1, 5)])
+def test_halving_kernel_matches_plain(cuda, R, m, n):
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    P = _spd(gen, (), 2 * n, cuda)
+    full = torch.randn(R, 2 * m + 3, 2 * n, generator=gen, device=cuda)
+    info = full[:, : 2 * m]  # a prefix of each row: strided rows, as the merged levels pass them
+    logZ = torch.randn(R, 2 * m + 3, generator=gen, device=cuda)[:, : 2 * m]
+    before = gl.launches["halving"]
+    out_k = gl.halving_level(P, info, logZ, tape=True)
+    out_p = gl.halving_level_plain(P, info, logZ, tape=True)
+    torch.cuda.synchronize()
+    assert gl.launches["halving"] == before + 1
+    for a, b in zip(out_k, out_p):
+        _assert_near(a, b)
+
+
+@pytest.mark.parametrize("R,t,n", [(1, 4000, 16), (2, 13, 32), (3, 2, 7)])
+def test_contract_kernel_matches_plain(cuda, R, t, n):
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    P = _spd(gen, (R, t), 2 * n, cuda)
+    info = torch.randn(R, t, 2 * n, generator=gen, device=cuda)
+    logZ = torch.randn(R, t, generator=gen, device=cuda)
+    before = gl.launches["contract"]
+    *out_k, tape_k = gl.contract_pairs(P, info, logZ, tape=True)
+    *out_p, tape_p = gl.contract_pairs_plain(P, info, logZ, tape=True)
+    torch.cuda.synchronize()
+    assert gl.launches["contract"] == before + 1
+    for a, b in zip(out_k + list(tape_k), out_p + list(tape_p)):
+        _assert_near(a, b)
+
+
+@pytest.mark.parametrize("D,R,m,Np,n,shared", [
+    (64, 1, 2001, 2000, 16, False),  # the heterogeneous sampler's first level at T=4000
+    (4, 8, 40, 39, 32, True),  # homogeneous: L and P_mk shared
+    (3, 2, 9, 7, 5, False),  # an odd level: two points carried
+])
+def test_mids_kernel_matches_plain(cuda, D, R, m, Np, n, shared):
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(Np)
+    per = () if shared else (R, Np)
+    L = torch.linalg.cholesky(_spd(gen, per, n, cuda))
+    P_mk = torch.randn(per + (n, 2 * n), generator=gen, device=cuda)
+    i_m = torch.randn(R, Np, n, generator=gen, device=cuda)
+    cur = torch.randn(D, R, m, n, generator=gen, device=cuda)
+    eps = torch.randn(D, R, Np, n, generator=gen, device=cuda)
+    before = gl.launches["mids"]
+    out_k = gl.level_mids(cur, L, P_mk, i_m, eps)
+    out_p = gl.level_mids_plain(cur, L, P_mk, i_m, eps)
+    torch.cuda.synchronize()
+    assert gl.launches["mids"] == before + 1
+    _assert_near(out_k, out_p)
+
+
+def test_k4_backward_raises(cuda):
+    """A backward through a K4 kernel on the card raises; it never falls
+    back to the plain version."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    P = _spd(gen, (), 8, cuda).requires_grad_()
+    info = torch.randn(2, 6, 8, generator=gen, device=cuda, requires_grad=True)
+    logZ = torch.randn(2, 6, generator=gen, device=cuda)
+    with pytest.raises(NotImplementedError):
+        gl.halving_level(P, info, logZ)[1].sum().backward()
+    Pt = _spd(gen, (2, 6), 8, cuda).requires_grad_()
+    with pytest.raises(NotImplementedError):
+        gl.contract_pairs(Pt, info, logZ)[2].sum().backward()
+    L = torch.linalg.cholesky(_spd(gen, (), 4, cuda)).requires_grad_()
+    cur = torch.randn(1, 2, 4, 4, generator=gen, device=cuda)
+    mids = gl.level_mids(cur, L, torch.randn(4, 8, device=cuda), torch.randn(2, 3, 4, device=cuda),
+                         torch.randn(1, 2, 3, 4, device=cuda))
+    with pytest.raises(NotImplementedError):
+        mids.sum().backward()
+
+
+@pytest.mark.parametrize("config,T,hidden", [("homogeneous", 37, 32), ("heterogeneous", 45, 16)])
+def test_gaussian_hmm_on_the_card(cuda, monkeypatch, config, T, hidden):
+    """GaussianHMM on the card goes through the K4 kernels and never reaches
+    their plain versions: log_prob and filter against the port's float64
+    CPU run, and the posterior draws at zero noise (the mean) likewise."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import gaussian_hmm as ex
+    from pyro_tpu_torch.ops import gaussian as tg
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    arrays = ex.make_arrays(config, 0, T=T, hidden=hidden, batch=3)
+    pyro.set_default_device("cpu")
+    p64 = {k: torch.tensor(v, dtype=torch.float64) for k, v in arrays.items()}
+    data64 = p64.pop("data")
+    hmm64 = ex.make_hmm(p64, T)
+    lp64 = hmm64.log_prob(data64)
+    pyro.set_default_device("cuda")
+    params = ex.params_from_jax(arrays)
+    data = params.pop("data")
+    hmm = ex.make_hmm(params, T)
+    def cpu_only(name):
+        plain = getattr(gl, name)
+
+        def guarded(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                pytest.fail(f"a CUDA tensor reached {name}")
+            return plain(*args, **kwargs)
+
+        return guarded
+
+    for name in ("halving_level_plain", "contract_pairs_plain", "level_mids_plain"):
+        monkeypatch.setattr(gl, name, cpu_only(name))
+    gl.reset_counts()
+    lp = hmm.log_prob(data)
+    loc = hmm.filter(data).loc
+    z = hmm.rsample_posterior(data, torch.Generator(device="cuda").manual_seed(0), (4,))
+    trans = hmm._conditioned(data)
+    zeros = torch.zeros(trans.batch_shape[:-1] + (T + 1, hidden), device=cuda)
+    if trans.precision.ndim == 2:
+        mean = tg.sequential_gaussian_filter_sample_homogeneous(hmm._init, trans, noise=zeros)
+    else:
+        mean = tg.sequential_gaussian_filter_sample(hmm._init, trans.expand(trans.batch_shape), noise=zeros)
+    torch.cuda.synchronize()
+    counts = dict(gl.launches)
+    assert counts["contract"] > 0 and counts["mids"] > 0
+    assert (counts["halving"] > 0) == (config == "homogeneous")
+    assert z.shape == (4,) + tuple(data.shape[:-1]) + (hidden,) and bool(torch.isfinite(z).all())
+    torch.testing.assert_close(lp.double().cpu(), lp64, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(loc.double().cpu(), hmm64.filter(data64).loc, rtol=1e-3, atol=1e-3)
+    trans64 = hmm64._conditioned(data64)
+    zeros64 = zeros.double().cpu()
+    if trans64.precision.ndim == 2:
+        mean64 = tg.sequential_gaussian_filter_sample_homogeneous(hmm64._init, trans64, noise=zeros64)
+    else:
+        mean64 = tg.sequential_gaussian_filter_sample(hmm64._init, trans64.expand(trans64.batch_shape), noise=zeros64)
+    torch.testing.assert_close(mean.double().cpu(), mean64, rtol=1e-3, atol=1e-3)
