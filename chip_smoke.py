@@ -79,9 +79,27 @@ Phases (any failure exits non-zero):
      ``rsample_posterior`` of 4 draws; the K4 launches of every call
      (each kernel above 0 over the phase) and one profiled call of each
      entry point with its device busy share;
-  10. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
-     backward on each route, K4a-c), the card's name and power limit, then
-     the result line.
+  10. the K4a and K4b backward kernels (``gaussian_levels.cu``: K4a's pairs
+     and shared passes, K4b's contract backward) against their plain
+     backward versions at every level of one training step's backward at
+     full width (the levels' tapes and upstream gradients recorded from a
+     step of each path of phase 11 through the kernels), P gradients
+     symmetrised; K4a's backward run twice on the same inputs, bitwise
+     equal; each kernel's levels timed against the plain version's in
+     turns, beside the bound of the same levels;
+  11. slice 7, SVI through K4 at full width, 5 steps each through the
+     entry points (``make_train_svi``: Trace_ELBO with the empty guide and
+     Adam, lr 0.01): ``lgssm`` (``examples/lgssm.py``: GenericLGSSM, obs 4,
+     state 16, on the T=4000 series; K4b) and the homogeneous ``--train``
+     model of ``examples/gaussian_hmm.py`` at ``8.10000.32.4`` (K4a): the
+     first step's loss and the gradient of every parameter against the
+     same step through the plain levels in float64 on the card; finite
+     losses; the K4 forward and backward kernels launched in every step;
+     the set-up (first step) and steady step times, and one profiled step
+     with its device busy share and top device operations;
+  12. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+     backward on each route, K4a-c, K4a and K4b backward), the card's name
+     and power limit, then the result line.
 
 Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
 atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS, and its
@@ -106,7 +124,10 @@ inputs (another factorisation order); log_prob rtol 1e-5 against float64
 (float32 sums over 12-13 levels of values of order 10^5); the posterior
 mean within 1e-3 times its largest entry of float64; the 64 draws' mean
 within 6.5 standard errors of it at every entry, the mean squared
-t-statistic in [0.8, 1.25].  The VAE's first-step loss rtol 1e-4 and
+t-statistic in [0.8, 1.25].  K4 backward: each output of each level within
+1e-4 times its largest entry (plus 1e-5) of the plain backward's, P
+gradients symmetrised; a training step's loss rtol 1e-5 and each
+parameter's gradient within 1e-3 times its largest entry of float64's.  The VAE's first-step loss rtol 1e-4 and
 each gradient rtol 1e-4 with atol 1e-6 * max|grad| against the CPU run
 (float32 sums in another order; TF32 off).  Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -148,6 +169,11 @@ GFS_DRAWS = 64
 GHMM_RTOL = 1e-5  # log_prob against the float64 plain levels
 GFS_MEAN_TOL = 1e-3  # posterior mean against float64, times its largest entry
 GFS_T_MAX = 6.5  # the draws' mean, in standard errors of 64 draws, at most
+
+# slice 7: SVI through K4 (examples/lgssm.py, examples/gaussian_hmm.py --train)
+TRAIN_STEPS = 5
+TRAIN_GRAD_TOL = 1e-3  # first-step gradients against float64, times each parameter's max|grad|
+TRAIN_LOSS_RTOL = 1e-5  # the first step's loss against float64
 
 
 class SmokeFailure(Exception):
@@ -1020,9 +1046,10 @@ def record_levels(gl, name):
 
 
 def k4_bounds(name, args):
-    """(flops, bytes) of one K4 launch at ``args``: each input read once,
-    each output written once; the flops of the factorisations, the solves
-    and the products as the kernel does them."""
+    """(flops, bytes) of one K4 launch at ``args`` (a backward: one level's
+    call of the wrapper): each input read once, each output written once;
+    the flops of the factorisations, the solves and the products as the
+    kernel does them."""
     if name == "halving":
         P, info, logZ, tape = args
         R, two_m, n2 = info.shape
@@ -1035,6 +1062,21 @@ def k4_bounds(name, args):
         n, pairs, t_out = n2 // 2, R * (t // 2), R * (t - t // 2)
         flops = pairs * (n * n + n**3 / 3 + n * n * (n2 + 1) + 4 * n * n2 * n + 4 * n * n + 2 * n)
         floats = R * t * (n2 * n2 + n2 + 1) + t_out * (n2 * n2 + n2 + 1) + (pairs * 3 * n * n + pairs * n if tape else 0)
+    elif name == "halving_bwd":
+        P, L, ib, g_P, g_info, g_logZ = args
+        R, m, n = ib.shape
+        pairs = R * m
+        # per pair: two substitutions, Kt gi', the rows of s gi'^T and g_ib s^T;
+        # once: Kt, Kt (gP' + gP'^T), L^-T gKt, gCt Kt^T and the Cholesky adjoint
+        flops = pairs * (12 * n * n + 4 * n) + 17 * n**3
+        floats = 3 * 4 * n * n + n * n + pairs * (n + 2 * n + 1) + pairs * 2 * (2 * n + 1)
+    elif name == "contract_bwd":
+        t, L, P_mk, i_m, g_P, g_info, g_logZ = args
+        R, np_, n, _ = L.shape
+        pairs, t_out = R * np_, R * (t - np_)
+        # per pair: X, [gX1 | gx2], L^-T of it, tril(gB X^T), the Cholesky adjoint
+        flops = pairs * (17 * n**3 + 12 * n * n)
+        floats = pairs * (n * n + 2 * n * n + n) + t_out * (4 * n * n + 2 * n + 1) + R * t * (4 * n * n + 2 * n + 1)
     else:
         cur, L, P_mk, i_m, eps = args
         D, R, m, n = cur.shape
@@ -1128,7 +1170,7 @@ def phase_gaussian_slice(torch, gl):
         gl.reset_counts()
         value = fn()
         torch.cuda.synchronize()
-        counts = dict(gl.launches)
+        counts = {k: gl.launches[k] for k in launches}
         for k, v in counts.items():
             launches[k] += v
         print(f"    {label}: K4 launches {counts}")
@@ -1241,6 +1283,162 @@ def phase_gaussian_slice(torch, gl):
     return out
 
 
+# -- slice 7: training through K4 ---------------------------------------------------
+
+
+def _no_guide(*args):
+    return None
+
+
+def train_paths(torch, dtype=None):
+    """The two training paths at full width, {path: (model, data)} on the
+    card, float32 unless ``dtype`` is given: ``lgssm`` (GenericLGSSM, obs 4,
+    state 16, on the T=4000 series of ``examples/lgssm.py``; K4b) and
+    ``homogeneous`` (the ``--train`` model of ``examples/gaussian_hmm.py``
+    at 8.10000.32.4; K4a).  Their params register at the first run."""
+    from pyro_tpu_torch.contrib.timeseries import GenericLGSSM
+    from pyro_tpu_torch.examples import gaussian_hmm as example
+    from pyro_tpu_torch.examples import lgssm
+
+    dtype = dtype or torch.float32
+    targets = lgssm.make_targets(0, dtype)
+    params = example.params_from_jax(example.make_arrays("homogeneous", 0), dtype)
+    data = params.pop("data")
+    model = GenericLGSSM(obs_dim=lgssm.OBS_DIM, state_dim=lgssm.STATE_DIM, name="GenericLGSSM")
+    return {"lgssm": (lgssm.make_model(model), targets), "homogeneous": (example.make_train_model(params), data)}
+
+
+def _sym_p(grads):
+    """A backward's (gP, ginfo, glogZ) with gP symmetrised."""
+    gP, *rest = grads
+    return (0.5 * (gP + gP.transpose(-1, -2)), *rest)
+
+
+TRAIN_KERNELS = {"lgssm": ("contract", "_contract_bwd_cuda", "contract_pairs_bwd_plain"),
+                 "homogeneous": ("halving", "_halving_bwd_cuda", "halving_level_bwd_plain")}
+
+
+def phase_k4_backward(torch, gl):
+    """Phase 10: the K4a and K4b backward kernels against their plain
+    versions at every level of one training step's backward (the levels'
+    tapes and upstream gradients recorded from a step through the kernels),
+    then the step's levels timed kernel against plain in turns, beside
+    their bound."""
+    print("phase 10: K4a and K4b backward kernels against their plain versions at a training step's levels")
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.infer import Trace_ELBO
+
+    result = {}
+    for path, (name, kernel_name, plain_name) in TRAIN_KERNELS.items():
+        pyro.clear_param_store()
+        model, data = train_paths(torch)[path]
+        with record_levels(gl, kernel_name) as calls:
+            Trace_ELBO().differentiable_loss(model, _no_guide, data).backward()
+        torch.cuda.synchronize()
+        check(calls, f"no {name} backward level was recorded")
+        kernel, plain = getattr(gl, kernel_name), getattr(gl, plain_name)
+        err = 0.0
+        with torch.no_grad():
+            for i, args in enumerate(calls):
+                err = max(err, check_k4_level(f"{name} backward level {i}", _sym_p(kernel(*args)), _sym_p(plain(*args))))
+            again = [kernel(*calls[0]), kernel(*calls[0])]
+            check(all(torch.equal(a, b) for a, b in zip(*again)), f"{name} backward: two runs differ")
+            t = alternate({
+                "kernel": lambda: [kernel(*args) for args in calls],
+                "plain": lambda: [plain(*args) for args in calls],
+            }, iters=5)
+        flops = sum(k4_bounds(f"{name}_bwd", args)[0] for args in calls)
+        nbytes = sum(k4_bounds(f"{name}_bwd", args)[1] for args in calls)
+        b = bound(flops, nbytes)
+        print(f"  {name} backward over the {len(calls)} levels of a {path} training step: max abs err {err:.3g} "
+              f"(P gradients symmetrised), two runs bitwise equal; kernel {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)")
+        result[f"{name}_bwd"] = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"], "bound": b,
+                                 "levels": len(calls)}
+    pyro.clear_param_store()
+    return result
+
+
+def _loss_and_grads(torch, model, data):
+    """-ELBO of ``model`` (empty guide) and the gradient of every
+    unconstrained parameter, as float64."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.infer import Trace_ELBO
+
+    with poutine.trace(param_only=True) as capture:
+        loss = Trace_ELBO().differentiable_loss(model, _no_guide, data)
+    loss.backward()
+    store = pyro.get_param_store()
+    return float(loss.detach()), {k: store.get_unconstrained(k).grad.double() for k in capture.trace.param_nodes()}
+
+
+def first_step(torch, gl, path):
+    """The first step's -ELBO and gradients through the kernels in float32,
+    then through the plain levels in float64 on the card at the same
+    parameters."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.params import param_store_from_jax
+
+    pyro.clear_param_store()
+    model, data = train_paths(torch)[path]
+    loss32, g32 = _loss_and_grads(torch, model, data)
+    store = pyro.get_param_store()
+    param_store_from_jax({k: store[k].detach().double().cpu().numpy() for k in g32})
+    model, data = train_paths(torch, torch.float64)[path]
+    with plain_levels(gl):
+        loss64, g64 = _loss_and_grads(torch, model, data)
+    pyro.clear_param_store()
+    return (loss32, g32), (loss64, g64)
+
+
+def phase_train(torch, gl):
+    """Phase 11: both training paths through their entry points, 5 SVI
+    steps each: finite losses, the first step's loss and gradients against
+    float64, the K4 forward and backward kernels launched in every step."""
+    print(f"phase 11: SVI through K4, {TRAIN_STEPS} steps each: lgssm (GenericLGSSM, T=4000, state 16, obs 4) "
+          f"and homogeneous --train at {GHMM_SIG}")
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import gaussian_hmm as example
+
+    launches, out = {}, {}
+    for path, (name, _, _) in TRAIN_KERNELS.items():
+        (loss32, g32), (loss64, g64) = first_step(torch, gl, path)
+        rel = abs(loss32 - loss64) / abs(loss64)
+        print(f"  {path} first step: loss {loss32!r} against float64 {loss64!r} (rel diff {rel:.3g})")
+        check(math.isfinite(loss32) and rel <= TRAIN_LOSS_RTOL, f"{path}: loss rel diff {rel:.3g} over {TRAIN_LOSS_RTOL}")
+        for k in sorted(g64):
+            err, scale = max_err(g32[k], g64[k]), float(g64[k].abs().max())
+            print(f"    grad {k} {tuple(g64[k].shape)}: max abs err to float64 {err:.3g} (max|grad| {scale:.3g})")
+            check(bool(g32[k].isfinite().all()) and err <= TRAIN_GRAD_TOL * scale,
+                  f"{path} grad {k}: {err:.3g} from float64, over {TRAIN_GRAD_TOL} * {scale:.3g}")
+
+        pyro.clear_param_store()
+        model, data = train_paths(torch)[path]
+        svi = example.make_train_svi(model)
+        losses, ms, counts = [], [], {name: 0, f"{name}_bwd": 0}
+        for step in range(TRAIN_STEPS):
+            gl.reset_counts()
+            t0 = time.perf_counter()
+            losses.append(svi.step(data))
+            ms.append(1e3 * (time.perf_counter() - t0))
+            step_counts = dict(gl.launches)
+            check(step_counts[name] > 0 and step_counts[f"{name}_bwd"] > 0 and math.isfinite(losses[-1]),
+                  f"{path} step {step}: loss {losses[-1]}, launches {step_counts}")
+            for k in counts:
+                counts[k] += step_counts[k]
+        steady = sum(ms[1:]) / (TRAIN_STEPS - 1)
+        print(f"  {path}: losses {losses}; set-up (first step) {ms[0]:.3f} ms, steady {steady:.3f} ms a step "
+              f"({[round(x, 3) for x in ms[1:]]}); launches over the {TRAIN_STEPS} steps {counts}")
+        launches.update(counts)
+        print(f"  {path}, one more step:")
+        wall, busy, _, _ = profile_run(torch, lambda: svi.step(data), top=6)
+        out[path] = {"setup_ms": ms[0], "step_ms": steady, "busy_share": busy / wall}
+    pyro.clear_param_store()
+    out["launches"] = launches
+    return out
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -1319,6 +1517,9 @@ def main():
     phase_nuts(torch)
     k4 = phase_k4(torch, gl)
     k4_launches = phase_gaussian_slice(torch, gl)["launches"]
+    k4.update(phase_k4_backward(torch, gl))
+    train_launches = phase_train(torch, gl)["launches"]  # the backward kernels' main path
+    k4_launches.update(halving_bwd=train_launches["halving_bwd"], contract_bwd=train_launches["contract_bwd"])
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"
@@ -1337,6 +1538,10 @@ def main():
         ("gaussian_contract", "gaussian_levels.cu", "pyro_tpu/ops/gaussian.py:726", k4["contract"],
          k4_launches["contract"]),
         ("gaussian_mids", "gaussian_levels.cu", "pyro_tpu/ops/gaussian.py:790", k4["mids"], k4_launches["mids"]),
+        ("gaussian_halving_bwd", "gaussian_levels.cu", "pyro_tpu/ops/gaussian.py:448", k4["halving_bwd"],
+         k4_launches["halving_bwd"]),
+        ("gaussian_contract_bwd", "gaussian_levels.cu", "pyro_tpu/ops/gaussian.py:501", k4["contract_bwd"],
+         k4_launches["contract_bwd"]),
     ):
         kernels.append({
             "name": name,

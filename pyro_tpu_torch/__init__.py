@@ -9,7 +9,7 @@ levels) run as hand-written CUDA kernels there.
 
 from . import distributions, infer, optim, poutine
 from .params.param_store import clear_param_store, get_param_store
-from .primitives import deterministic, module, param, plate, sample, vectorized_markov
+from .primitives import deterministic, factor, module, param, plate, sample, vectorized_markov
 from .settings import get_default_device, set_default_device
 
 __version__ = "0.1.0"
@@ -18,6 +18,7 @@ __all__ = [
     "clear_param_store",
     "deterministic",
     "distributions",
+    "factor",
     "get_default_device",
     "get_param_store",
     "infer",

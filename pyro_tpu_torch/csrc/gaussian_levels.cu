@@ -1,5 +1,5 @@
 // The halving levels of the information-form Gaussian algebra on Hopper
-// (sm_90a), forward only: K4a, K4b and K4c.  A Gaussian over x is
+// (sm_90a): K4a, K4b and K4c, and the backward of K4a and K4b.  A Gaussian over x is
 // exp(c + i.x - x'Px/2) with log normaliser c, info vector i and precision
 // P; a factor of a Markov chain is a Gaussian over (z_t, z_t+1), 2n dims.
 // Time is contracted by pairwise halving: each level joins adjacent
@@ -36,6 +36,28 @@
 //   written with the left points into their interleaved places of the next
 //   level's points; L and P_mk are read with stride 0 where they are shared
 //   (never broadcast into memory).  A warp per (draw, pair), lane i row i.
+//
+// The backward (training through log_prob) recomputes from the forward's
+// tape (K4a: L and ib; K4b: L, P_mk and i_m) and returns the gradient of
+// each precision symmetrised, (g + g^T) / 2 of the gradient of the blocks
+// the forward reads:
+// K4b, gl_contract_bwd_kernel: one CTA an item, as the forward.  Per pair,
+//   X = L^-1 [P_mk | i_m]; from the upstream gP', gi', gZ': gX1 = -X1 (gP' +
+//   gP'^T) - x2 gi'^T, gx2 = -X1 gi' + gZ' x2; gB = L^-T [gX1 | gx2] (the
+//   gradients of P_mk and i_m); gL = -tril(gB X^T) - gZ' / L_jj on the
+//   diagonal; the Cholesky adjoint gives gP_mm; all scattered into the
+//   pair's gP, ginfo and glogZ.  An odd level's last factor passes its
+//   gradient through.
+// K4a, gl_halving_bwd_pairs_kernel then gl_halving_bwd_shared_kernel: P is
+//   shared, so the work splits in two launches.  Per pair (a warp, lane i
+//   row i): s = L^-1 ib, gs = gZ' s - Kt gi', g_ib = L^-T gs, written into
+//   the pair's ginfo and glogZ; each lane sums its rows of s gi'^T and
+//   g_ib s^T (the adjoints of the shared Kt and L) over its warp's pairs in
+//   registers, the warps of a CTA add theirs in warp order and the CTA
+//   writes one partial.  Then one CTA sums the partials in block order (no
+//   float atomics: a rerun gives the same bits) and carries the adjoint of
+//   P' = diag(A, D) - Kt^T Kt, Kt = L^-1 [B^T | B], L = chol(D + A) back to
+//   gP.
 //
 // What bounds them on an H100 (700 W): K4a over a whole log_prob at B=8,
 // T=10,000, n=32 is about 0.4 GFLOP (6 us on the f32 CUDA cores) against
@@ -101,6 +123,59 @@ __device__ void block_solve_lower(const float* L, int ld, float* X, int ldx, int
     }
     __syncthreads();
   }
+}
+
+// X <- L^-T X for the n x nc matrix X (row stride ldx) with L lower (row
+// stride ld), by the whole block: back substitution, row j final once
+// divided by L[j][j], then every earlier row i subtracts L[j][i] times it.
+// Ends synchronised.
+__device__ void block_solve_lower_t(const float* L, int ld, float* X, int ldx, int n, int nc, int nt) {
+  const int tid = threadIdx.x;
+  for (int j = n - 1; j >= 0; --j) {
+    const float d = L[j * ld + j];
+    for (int c = tid; c < nc; c += nt) X[j * ldx + c] /= d;
+    __syncthreads();
+    for (int x = tid; x < j * nc; x += nt) {
+      const int i = x / nc, c = x % nc;
+      X[i * ldx + c] -= L[j * ld + i] * X[j * ldx + c];
+    }
+    __syncthreads();
+  }
+}
+
+// The Cholesky adjoint, by the whole block: with L (lower, row stride ld)
+// the factor of A and W (row stride ldw) holding the gradient of L in its
+// lower triangle, W becomes the symmetric gradient of A, L^-T S L^-1 with
+// S the symmetric matrix of the lower triangle of L^T gL, every entry
+// halved.  Y (row stride ldw) is scratch.  Starts and ends synchronised.
+__device__ void block_cholesky_adjoint(const float* L, int ld, float* W, float* Y, int ldw, int n, int nt) {
+  const int tid = threadIdx.x;
+  for (int x = tid; x < n * n; x += nt) {
+    const int i = x / n, j = x % n;
+    if (j <= i) {
+      float acc = 0.f;
+      for (int k = i; k < n; ++k) acc = fmaf(L[k * ld + i], W[k * ldw + j], acc);
+      Y[i * ldw + j] = 0.5f * acc;
+    }
+  }
+  __syncthreads();
+  for (int x = tid; x < n * n; x += nt) {
+    const int i = x / n, j = x % n;
+    W[i * ldw + j] = j <= i ? Y[i * ldw + j] : Y[j * ldw + i];
+  }
+  __syncthreads();
+  block_solve_lower_t(L, ld, W, ldw, n, n, nt);
+  for (int x = tid; x < n * n; x += nt) {
+    const int i = x / n, j = x % n;
+    Y[i * ldw + j] = W[j * ldw + i];
+  }
+  __syncthreads();
+  block_solve_lower_t(L, ld, Y, ldw, n, n, nt);
+  for (int x = tid; x < n * n; x += nt) {
+    const int i = x / n, j = x % n;
+    W[i * ldw + j] = 0.5f * (Y[i * ldw + j] + Y[j * ldw + i]);
+  }
+  __syncthreads();
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -308,6 +383,284 @@ __global__ void __launch_bounds__(NT_MIDS) gl_mids_kernel(
   }
 }
 
+
+// --------------------------------------------------------- K4a backward --
+
+// The floats of one CTA's partial: rows of s gi'^T (n x 2n), rows of
+// g_ib s^T (n x n), and the sum of gZ'.
+__host__ __device__ __forceinline__ int halving_partial_size(int n) { return 3 * n * n + 1; }
+
+// Pass 1, the pairs.  P (2n, 2n), L (n, n) and ib (R, m, n) from the
+// forward's tape; gi_out (R, m, 2n) and gZ_out (R, m) the upstream
+// gradients (null for zero); outputs ginfo (R, 2m, 2n), glogZ (R, 2m) and
+// this CTA's partial at partial + blockIdx.x * halving_partial_size(n).
+__global__ void __launch_bounds__(NT_HALVE) gl_halving_bwd_pairs_kernel(
+    const float* __restrict__ P, const float* __restrict__ Lg, const float* __restrict__ ib,
+    const float* __restrict__ gi_out, const float* __restrict__ gZ_out, int R, int m, int n,
+    float* __restrict__ ginfo, float* __restrict__ glogZ, float* __restrict__ partial) {
+  __shared__ float Ls[NMAX][NMAX + 1];
+  __shared__ float Kt[NMAX][2 * NMAX + 1];
+  __shared__ float red[NMAX][3 * NMAX + 1];
+  __shared__ float redZ[NT_HALVE / 32];
+  __shared__ float inv_diag[NMAX];
+  const int tid = threadIdx.x, n2 = 2 * n, lane = tid & 31, warp = tid >> 5;
+  for (int x = tid; x < n * n; x += NT_HALVE) Ls[x / n][x % n] = Lg[x];
+  for (int x = tid; x < n * n2; x += NT_HALVE) {
+    const int i = x / n2, j = x % n2;
+    Kt[i][j] = j < n ? P[j * n2 + n + i] : P[i * n2 + j];
+  }
+  __syncthreads();
+  block_solve_lower(&Ls[0][0], NMAX + 1, &Kt[0][0], 2 * NMAX + 1, n, n2, NT_HALVE);
+  if (tid < n) inv_diag[tid] = 1.f / Ls[tid][tid];
+  __syncthreads();
+  float a1[2 * NMAX], a2[NMAX], az = 0.f;
+#pragma unroll
+  for (int c = 0; c < 2 * NMAX; ++c) a1[c] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NMAX; ++j) a2[j] = 0.f;
+  const long long pairs = (long long)R * m;
+  for (long long q = (long long)blockIdx.x * (NT_HALVE / 32) + warp; q < pairs;
+       q += (long long)gridDim.x * (NT_HALVE / 32)) {
+    const float gz = gZ_out ? gZ_out[q] : 0.f;
+    const float* gi = gi_out ? gi_out + q * n2 : nullptr;
+    const float ga = gi && lane < n2 ? gi[lane] : 0.f;
+    const float gb = gi && lane + 32 < n2 ? gi[lane + 32] : 0.f;
+    // s = L^-1 ib, lane i holding row i
+    float res = lane < n ? ib[q * n + lane] : 0.f, s = 0.f;
+    for (int j = 0; j < n; ++j) {
+      const float sj = __shfl_sync(FULL, res, j) * inv_diag[j];
+      if (lane == j) s = sj;
+      if (lane > j && lane < n) res = fmaf(-Ls[lane][j], sj, res);
+    }
+    // gs = gZ' s - Kt gi'
+    float gs = gz * s;
+    for (int c = 0; c < n2; ++c) {
+      const float gc = __shfl_sync(FULL, c < 32 ? ga : gb, c & 31);
+      if (lane < n) gs = fmaf(-Kt[lane][c], gc, gs);
+    }
+    // g_ib = L^-T gs
+    float gib = 0.f;
+    for (int j = n - 1; j >= 0; --j) {
+      const float xj = __shfl_sync(FULL, gs, j) * inv_diag[j];
+      if (lane == j) gib = xj;
+      if (lane < j) gs = fmaf(-Ls[j][lane], xj, gs);
+    }
+    float* g1 = ginfo + 2 * q * n2;
+    if (lane < n) {
+      g1[lane] = gi ? gi[lane] : 0.f;
+      g1[n + lane] = gib;
+      g1[n2 + lane] = gib;
+      g1[n2 + n + lane] = gi ? gi[n + lane] : 0.f;
+    }
+    if (lane == 0) glogZ[2 * q] = glogZ[2 * q + 1] = gz;
+    // this lane's rows of s gi'^T and g_ib s^T
+#pragma unroll
+    for (int c = 0; c < 2 * NMAX; ++c) {
+      if (c < n2) a1[c] = fmaf(s, __shfl_sync(FULL, c < 32 ? ga : gb, c & 31), a1[c]);
+    }
+#pragma unroll
+    for (int j = 0; j < NMAX; ++j) {
+      if (j < n) a2[j] = fmaf(gib, __shfl_sync(FULL, s, j), a2[j]);
+    }
+    az += gz;
+  }
+  // the warps' sums added in warp order
+  for (int w = 0; w < NT_HALVE / 32; ++w) {
+    if (warp == w && lane < n) {
+#pragma unroll
+      for (int c = 0; c < 2 * NMAX; ++c)
+        if (c < n2) red[lane][c] = (w ? red[lane][c] : 0.f) + a1[c];
+#pragma unroll
+      for (int j = 0; j < NMAX; ++j)
+        if (j < n) red[lane][n2 + j] = (w ? red[lane][n2 + j] : 0.f) + a2[j];
+    }
+    if (warp == w && lane == 0) redZ[w] = az;
+    __syncthreads();
+  }
+  float* out = partial + (long long)blockIdx.x * halving_partial_size(n);
+  for (int x = tid; x < n * n2; x += NT_HALVE) out[x] = red[x / n2][x % n2];
+  for (int x = tid; x < n * n; x += NT_HALVE) out[n * n2 + x] = red[x / n][n2 + x % n];
+  if (tid == 0) {
+    float z = 0.f;
+    for (int w = 0; w < NT_HALVE / 32; ++w) z += redZ[w];
+    out[n * n2 + n * n] = z;
+  }
+}
+
+// Pass 2, one CTA: the nb partials summed in block order, then the adjoint
+// of the shared factorisation.  gP_out (2n, 2n) the upstream gradient of P'
+// (null for zero); output gP (2n, 2n).
+__global__ void __launch_bounds__(NT_HALVE) gl_halving_bwd_shared_kernel(
+    const float* __restrict__ P, const float* __restrict__ Lg, const float* __restrict__ gP_out,
+    const float* __restrict__ partial, int nb, int n, float* __restrict__ gP) {
+  __shared__ float Ls[NMAX][NMAX + 1];
+  __shared__ float Kt[NMAX][2 * NMAX + 1];
+  __shared__ float gK[NMAX][2 * NMAX + 1];  // gKt, then gCt = L^-T gKt
+  __shared__ float G[2 * NMAX][2 * NMAX + 1];  // gP' + gP'^T
+  __shared__ float W[NMAX][NMAX + 1];  // gL, then the gradient of D + A
+  __shared__ float Y[NMAX][NMAX + 1];
+  __shared__ float zsum;
+  const int tid = threadIdx.x, n2 = 2 * n, ps = halving_partial_size(n);
+  for (int x = tid; x < ps; x += NT_HALVE) {
+    float acc = 0.f;
+    for (int b = 0; b < nb; ++b) acc += partial[(long long)b * ps + x];
+    if (x < n * n2) gK[x / n2][x % n2] = -acc;
+    else if (x < n * n2 + n * n) W[(x - n * n2) / n][(x - n * n2) % n] = -acc;
+    else zsum = acc;
+  }
+  for (int x = tid; x < n * n; x += NT_HALVE) Ls[x / n][x % n] = Lg[x];
+  for (int x = tid; x < n * n2; x += NT_HALVE) {
+    const int i = x / n2, j = x % n2;
+    Kt[i][j] = j < n ? P[j * n2 + n + i] : P[i * n2 + j];
+  }
+  for (int x = tid; x < n2 * n2; x += NT_HALVE) {
+    const int i = x / n2, j = x % n2;
+    G[i][j] = gP_out ? gP_out[x] + gP_out[j * n2 + i] : 0.f;
+  }
+  __syncthreads();
+  block_solve_lower(&Ls[0][0], NMAX + 1, &Kt[0][0], 2 * NMAX + 1, n, n2, NT_HALVE);
+  // gKt = -sum s gi'^T - Kt (gP' + gP'^T)
+  for (int x = tid; x < n * n2; x += NT_HALVE) {
+    const int k = x / n2, c = x % n2;
+    float acc = gK[k][c];
+    for (int j = 0; j < n2; ++j) acc = fmaf(-Kt[k][j], G[j][c], acc);
+    gK[k][c] = acc;
+  }
+  __syncthreads();
+  block_solve_lower_t(&Ls[0][0], NMAX + 1, &gK[0][0], 2 * NMAX + 1, n, n2, NT_HALVE);
+  // gL = tril(-sum g_ib s^T - gCt Kt^T) - sum gZ' / L_jj on the diagonal
+  for (int x = tid; x < n * n; x += NT_HALVE) {
+    const int i = x / n, j = x % n;
+    float acc = 0.f;
+    if (j <= i) {
+      acc = W[i][j];
+      for (int c = 0; c < n2; ++c) acc = fmaf(-gK[i][c], Kt[j][c], acc);
+      if (i == j) acc -= zsum / Ls[i][i];
+    }
+    W[i][j] = acc;
+  }
+  __syncthreads();
+  block_cholesky_adjoint(&Ls[0][0], NMAX + 1, &W[0][0], &Y[0][0], NMAX + 1, n, NT_HALVE);
+  // gB = (gCt[:, :n]^T + gCt[:, n:]) / 2 into both off-diagonal blocks
+  for (int x = tid; x < n2 * n2; x += NT_HALVE) {
+    const int i = x / n2, j = x % n2;
+    float v;
+    if (i < n && j < n) v = 0.5f * G[i][j] + W[i][j];
+    else if (i >= n && j >= n) v = 0.5f * G[i][j] + W[i - n][j - n];
+    else if (i < n) v = 0.5f * (gK[j - n][i] + gK[i][j]);
+    else v = 0.5f * (gK[i - n][j] + gK[j][i]);
+    gP[x] = v;
+  }
+}
+
+// --------------------------------------------------------- K4b backward --
+
+// The tape of the forward: L (R, t / 2, n, n), Pmk (R, t / 2, n, 2n), im
+// (R, t / 2, n); the upstream gradients gP_out (R, t_out, 2n, 2n), gi_out
+// (R, t_out, 2n), gZ_out (R, t_out), each null for zero; outputs gP (R, t,
+// 2n, 2n), ginfo (R, t, 2n), glogZ (R, t).  Items are the R t_out outputs:
+// a pair, or the odd level's last factor.
+__global__ void __launch_bounds__(NT_PAIR) gl_contract_bwd_kernel(
+    const float* __restrict__ L_tape, const float* __restrict__ Pmk_tape, const float* __restrict__ im_tape,
+    const float* __restrict__ gP_out, const float* __restrict__ gi_out, const float* __restrict__ gZ_out, int R,
+    int t, int n, int t_out, float* __restrict__ gP, float* __restrict__ ginfo, float* __restrict__ glogZ) {
+  __shared__ float G[2 * NMAX][2 * NMAX + 1];  // gP' + gP'^T
+  __shared__ float X[NMAX][2 * NMAX + 2];      // L^-1 [P_mk | i_m]
+  __shared__ float GX[NMAX][2 * NMAX + 2];     // [gX1 | gx2], then gB = L^-T of it
+  __shared__ float Ls[NMAX][NMAX + 1];
+  __shared__ float W[NMAX][NMAX + 1];  // gL, then gP_mm
+  __shared__ float Y[NMAX][NMAX + 1];
+  __shared__ float gis[2 * NMAX];
+  const int tid = threadIdx.x, n2 = 2 * n, nc = n2 + 1;
+  const long long np = t / 2, items = (long long)R * t_out;
+  for (long long o = blockIdx.x; o < items; o += gridDim.x) {
+    const long long r = o / t_out, p = o % t_out;
+    const float gz = gZ_out ? gZ_out[o] : 0.f;
+    const float* gPo = gP_out ? gP_out + o * n2 * n2 : nullptr;
+    const float* gio = gi_out ? gi_out + o * n2 : nullptr;
+    if (p == np) {  // the odd level's last factor
+      const long long f = r * t + t - 1;
+      for (int x = tid; x < n2 * n2; x += NT_PAIR) {
+        const int i = x / n2, j = x % n2;
+        gP[f * n2 * n2 + x] = gPo ? 0.5f * (gPo[x] + gPo[j * n2 + i]) : 0.f;
+      }
+      for (int i = tid; i < n2; i += NT_PAIR) ginfo[f * n2 + i] = gio ? gio[i] : 0.f;
+      if (tid == 0) glogZ[f] = gz;
+      continue;
+    }
+    const long long pr = r * np + p;
+    for (int x = tid; x < n * n; x += NT_PAIR) Ls[x / n][x % n] = L_tape[pr * n * n + x];
+    for (int x = tid; x < n * nc; x += NT_PAIR) {
+      const int i = x / nc, c = x % nc;
+      X[i][c] = c < n2 ? Pmk_tape[(pr * n + i) * n2 + c] : im_tape[pr * n + i];
+    }
+    for (int x = tid; x < n2 * n2; x += NT_PAIR) {
+      const int i = x / n2, j = x % n2;
+      G[i][j] = gPo ? gPo[x] + gPo[j * n2 + i] : 0.f;
+    }
+    for (int i = tid; i < n2; i += NT_PAIR) gis[i] = gio ? gio[i] : 0.f;
+    __syncthreads();
+    block_solve_lower(&Ls[0][0], NMAX + 1, &X[0][0], 2 * NMAX + 2, n, nc, NT_PAIR);
+    // [gX1 | gx2] = [-X1 (gP' + gP'^T) - x2 gi'^T | -X1 gi' + gZ' x2]
+    for (int x = tid; x < n * nc; x += NT_PAIR) {
+      const int k = x / nc, c = x % nc;
+      float acc;
+      if (c < n2) {
+        acc = -X[k][n2] * gis[c];
+        for (int j = 0; j < n2; ++j) acc = fmaf(-X[k][j], G[j][c], acc);
+      } else {
+        acc = gz * X[k][n2];
+        for (int j = 0; j < n2; ++j) acc = fmaf(-X[k][j], gis[j], acc);
+      }
+      GX[k][c] = acc;
+    }
+    __syncthreads();
+    block_solve_lower_t(&Ls[0][0], NMAX + 1, &GX[0][0], 2 * NMAX + 2, n, nc, NT_PAIR);
+    // gL = -tril(gB X^T) - gZ' / L_jj on the diagonal
+    for (int x = tid; x < n * n; x += NT_PAIR) {
+      const int i = x / n, j = x % n;
+      float acc = 0.f;
+      if (j <= i) {
+        for (int c = 0; c < nc; ++c) acc = fmaf(-GX[i][c], X[j][c], acc);
+        if (i == j) acc -= gz / Ls[i][i];
+      }
+      W[i][j] = acc;
+    }
+    __syncthreads();
+    block_cholesky_adjoint(&Ls[0][0], NMAX + 1, &W[0][0], &Y[0][0], NMAX + 1, n, NT_PAIR);
+    // scatter into the pair's two factors: P_mm = Px[n:, n:] + Py[:n, :n],
+    // P_mk = [Px[:n, n:]^T | Py[:n, n:]], i_m = ix[n:] + iy[:n]
+    const long long fx = r * t + 2 * p;
+    float* gPx = gP + fx * n2 * n2;
+    float* gPy = gPx + n2 * n2;
+    for (int x = tid; x < n2 * n2; x += NT_PAIR) {
+      const int i = x / n2, j = x % n2;
+      float vx, vy;
+      if (i < n && j < n) {
+        vx = 0.5f * G[i][j];
+        vy = W[i][j];
+      } else if (i >= n && j >= n) {
+        vx = W[i - n][j - n];
+        vy = 0.5f * G[i][j];
+      } else if (i < n) {
+        vx = 0.5f * GX[j - n][i];
+        vy = 0.5f * GX[i][j];
+      } else {
+        vx = 0.5f * GX[i - n][j];
+        vy = 0.5f * GX[j][i];
+      }
+      gPx[x] = vx;
+      gPy[x] = vy;
+    }
+    for (int i = tid; i < n2; i += NT_PAIR) {
+      ginfo[fx * n2 + i] = i < n ? gis[i] : GX[i - n][n2];
+      ginfo[(fx + 1) * n2 + i] = i < n ? GX[i][n2] : gis[i];
+    }
+    if (tid == 0) glogZ[fx] = glogZ[fx + 1] = gz;
+    __syncthreads();
+  }
+}
+
 extern "C" {
 
 int gl_halving(const float* P, const float* info, long long info_rs, const float* logZ, long long logZ_rs, int R,
@@ -329,6 +682,24 @@ int gl_contract(const float* P, const float* info, const float* logZ, int R, int
 int gl_mids(const float* cur, int m_cur, const float* L, long long L_stride, const float* Pmk, long long Pmk_stride,
             const float* im, const float* eps, int D, int R, int Np, int n, int blocks, float* out, cudaStream_t st) {
   gl_mids_kernel<<<blocks, NT_MIDS, 0, st>>>(cur, m_cur, L, L_stride, Pmk, Pmk_stride, im, eps, D, R, Np, n, out);
+  return (int)cudaGetLastError();
+}
+
+int gl_halving_bwd(const float* P, const float* L, const float* ib, const float* gP_out, const float* gi_out,
+                   const float* gZ_out, int R, int m, int n, int blocks, float* partial, float* gP, float* ginfo,
+                   float* glogZ, cudaStream_t st) {
+  gl_halving_bwd_pairs_kernel<<<blocks, NT_HALVE, 0, st>>>(P, L, ib, gi_out, gZ_out, R, m, n, ginfo, glogZ, partial);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  gl_halving_bwd_shared_kernel<<<1, NT_HALVE, 0, st>>>(P, L, gP_out, partial, blocks, n, gP);
+  return (int)cudaGetLastError();
+}
+
+int gl_contract_bwd(const float* L_tape, const float* Pmk_tape, const float* im_tape, const float* gP_out,
+                    const float* gi_out, const float* gZ_out, int R, int t, int n, int t_out, int blocks, float* gP,
+                    float* ginfo, float* glogZ, cudaStream_t st) {
+  gl_contract_bwd_kernel<<<blocks, NT_PAIR, 0, st>>>(L_tape, Pmk_tape, im_tape, gP_out, gi_out, gZ_out, R, t, n,
+                                                     t_out, gP, ginfo, glogZ);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 from . import constraints
 from .continuous import Beta, HalfCauchy, Normal
-from .delta import Delta
+from .delta import Delta, Unit
 from .discrete import Bernoulli, Categorical
 from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution
 from .hmm import DiscreteHMM, GaussianHMM
@@ -23,6 +23,7 @@ __all__ = [
     "MultivariateNormal",
     "Normal",
     "StickBreakingTransform",
+    "Unit",
     "biject_to",
     "constraints",
     "transform_to",

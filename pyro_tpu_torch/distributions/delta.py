@@ -1,5 +1,6 @@
-"""Delta: a point mass (counterpart of ``pyro_tpu/distributions/delta.py``);
-used by AutoDelta guides and ``deterministic`` sites."""
+"""Delta, a point mass used by AutoDelta guides and ``deterministic``
+sites, and Unit, the site of ``factor`` (counterpart of
+``pyro_tpu/distributions/delta.py``)."""
 
 from __future__ import annotations
 
@@ -48,3 +49,31 @@ class Delta(Distribution):
         value = value.expand(shape)
         lp = torch.where(value == v, 0.0, -torch.inf).to(self.log_density.dtype)
         return sum_rightmost(lp, self._event_dim_arg) + self.log_density
+
+
+class Unit(Distribution):
+    """The trivial distribution over the empty tensor, carrying
+    ``log_factor`` as its log density: the site of ``pyro.factor``."""
+
+    arg_constraints = {"log_factor": constraints.real}
+    support = constraints.real
+
+    def __init__(self, log_factor, *, has_rsample=None):
+        log_factor = torch.as_tensor(log_factor)
+        self.log_factor = log_factor if log_factor.is_floating_point() else log_factor.to(torch.get_default_dtype())
+        if has_rsample is not None:
+            self.has_rsample = has_rsample
+        super().__init__(self.log_factor.shape, (0,))
+
+    def sample(self, generator=None, sample_shape=()):
+        return self.log_factor.new_zeros(self.shape(sample_shape))
+
+    def rsample(self, generator=None, sample_shape=()):
+        return self.log_factor.new_zeros(self.shape(sample_shape))
+
+    def log_prob(self, value):
+        shape = torch.broadcast_shapes(self.batch_shape, value.shape[:-1])
+        return self.log_factor.expand(shape)
+
+    def expand(self, batch_shape, _instance=None):
+        return Unit(self.log_factor.expand(tuple(batch_shape)))

@@ -1,6 +1,7 @@
 """Gaussian state-space HMMs at the JAX package's bench shapes: scoring
-sequences with ``GaussianHMM.log_prob`` and drawing the posterior of their
-hidden states with ``rsample_posterior``.
+sequences with ``GaussianHMM.log_prob``, drawing the posterior of their
+hidden states with ``rsample_posterior``, and fitting the homogeneous
+model by maximum likelihood with SVI (``--train``).
 
 Two configurations, built from numpy (seed 0) as ``bench.py`` builds them
 with ``jax.random``:
@@ -13,10 +14,17 @@ with ``jax.random``:
   ``0.9 I + 0.02 N(0, 1)`` of shape (T, 16, 16), 64 posterior draws; the
   levels run K4b and the draws K4c.
 
+``--train`` fits the homogeneous configuration: ``trans_mat``, ``obs_mat``
+and the three scales become ``pyro.param``s (the scales positive), the
+model adds ``GaussianHMM.log_prob(data).sum()`` with ``pyro.factor``, the
+guide is empty, and ``Trace_ELBO`` with Adam takes the steps; every step's
+backward runs through the K4a backward kernels on the card.
+
 Run on the card (``--cpu`` for the CPU)::
 
     python -m pyro_tpu_torch.examples.gaussian_hmm --config homogeneous
     python -m pyro_tpu_torch.examples.gaussian_hmm --config heterogeneous
+    python -m pyro_tpu_torch.examples.gaussian_hmm --train --num-steps 5
 """
 
 from __future__ import annotations
@@ -29,6 +37,9 @@ import torch
 
 import pyro_tpu_torch as pyro
 from pyro_tpu_torch import distributions as dist
+from pyro_tpu_torch.distributions import constraints
+from pyro_tpu_torch.infer import SVI, Trace_ELBO
+from pyro_tpu_torch.optim import Adam
 
 CONFIGS = {
     # sequences (or draws), T, hidden, obs, the transition's noise around 0.9 I
@@ -36,6 +47,11 @@ CONFIGS = {
     "heterogeneous": {"batch": 64, "T": 4000, "hidden": 16, "obs": 4, "trans_noise": 0.02, "varying": True},
 }
 INIT_SCALE, TRANS_SCALE, OBS_SCALE = 1.0, 0.3, 0.5
+# the parameters ``--train`` fits, with their constraints; the locations stay fixed
+TRAIN_PARAMS = {
+    "trans_mat": constraints.real, "obs_mat": constraints.real, "init_scale": constraints.positive,
+    "trans_scale": constraints.positive, "obs_scale": constraints.positive,
+}
 
 
 def make_arrays(config, seed=0, **overrides):
@@ -60,11 +76,12 @@ def make_arrays(config, seed=0, **overrides):
     return {k: v.astype(np.float32) for k, v in out.items()}
 
 
-def params_from_jax(named):
+def params_from_jax(named, dtype=torch.float32):
     """The JAX model's parameter arrays (name -> numpy, the names of
-    ``make_arrays``) as this package's float32 tensors on its device."""
+    ``make_arrays`` or of the JAX param store of the ``--train`` model) as
+    this package's tensors on its device, float32 unless ``dtype`` is given."""
     device = pyro.get_default_device()
-    return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device) for k, v in named.items()}
+    return {k: torch.tensor(np.asarray(v), dtype=dtype, device=device) for k, v in named.items()}
 
 
 def make_hmm(params, duration):
@@ -79,11 +96,46 @@ def make_hmm(params, duration):
     )
 
 
+def make_train_model(params):
+    """The ``--train`` model over ``params`` (tensors by the names of
+    ``make_arrays``, without ``data``): the entries of ``TRAIN_PARAMS``
+    become ``pyro.param``s initialised from them; ``model(data)`` adds the
+    log-likelihood of ``data`` (batch, T, obs) with ``pyro.factor``."""
+
+    def model(data):
+        p = {k: v for k, v in params.items() if k not in TRAIN_PARAMS}
+        p.update({k: pyro.param(k, params[k], constraint=c) for k, c in TRAIN_PARAMS.items()})
+        pyro.factor("log_prob", make_hmm(p, data.shape[-2]).log_prob(data).sum())
+
+    return model
+
+
+def make_train_svi(model):
+    """SVI over ``model`` with the empty guide, Trace_ELBO and Adam (lr
+    0.01): maximum likelihood."""
+    return SVI(model, lambda *args: None, Adam({"lr": 0.01}), Trace_ELBO())
+
+
+def timed_steps(svi, num_steps, *args):
+    """``num_steps`` SVI steps: their losses, the first step's milliseconds
+    (set-up: it builds the param store) and the mean milliseconds of the
+    others, each step ending when its loss is read."""
+    losses, ms = [], []
+    for _ in range(num_steps):
+        t0 = time.perf_counter()
+        losses.append(svi.step(*args))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    steady = sum(ms[1:]) / len(ms[1:]) if len(ms) > 1 else float("nan")
+    return losses, ms[0], steady
+
+
 def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", choices=sorted(CONFIGS), default="homogeneous")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--calls", type=int, default=10)
+    parser.add_argument("--train", action="store_true", help="fit the homogeneous model with SVI")
+    parser.add_argument("--num-steps", type=int, default=5)
     parser.add_argument("--cpu", action="store_true")
     return parser.parse_args(argv)
 
@@ -93,6 +145,15 @@ def main(argv=None):
     if args.cpu:
         pyro.set_default_device("cpu")
     device = pyro.get_default_device()
+    if args.train:
+        params = params_from_jax(make_arrays("homogeneous", args.seed))
+        data = params.pop("data")
+        pyro.clear_param_store()
+        svi = make_train_svi(make_train_model(params))
+        losses, setup_ms, step_ms = timed_steps(svi, args.num_steps, data)
+        print(f"homogeneous --train on {device}: set-up (first step) {setup_ms:.3f} ms, "
+              f"{step_ms:.3f} ms a steady step; losses {losses}")
+        return
     c = CONFIGS[args.config]
     params = params_from_jax(make_arrays(args.config, args.seed))
     data = params.pop("data")

@@ -1,15 +1,12 @@
 """The halving levels of the information-form Gaussian algebra: K4a, K4b
-and K4c, forward only.
+and K4c, with the backward of K4a and K4b.
 
 Each function has a plain PyTorch version beside it, the arithmetic of the
 JAX package's level code (``pyro_tpu/ops/gaussian.py``), and a wrapper.  On
-CUDA tensors the wrapper launches the hand-written kernel of
-``csrc/gaussian_levels.cu`` (float32, state dim n <= 32) behind a
-``torch.autograd.Function`` whose backward raises: training through these
-levels on the card is ROADMAP.md Queue 2's open K4 item.  On CPU tensors
-the wrapper runs the plain version, which autograd differentiates.  A CUDA
-tensor never reaches a plain version: the kernel launches or the call
-raises.
+CUDA tensors the wrapper launches the hand-written kernels of
+``csrc/gaussian_levels.cu`` (float32, state dim n <= 32); on CPU tensors
+it runs the plain versions.  A CUDA tensor never reaches a plain version:
+the kernel launches or the call raises.
 
 - ``halving_level`` (K4a): one level of a time-homogeneous chain, every
   factor sharing one precision P (2n, 2n); info (R, 2m, 2n) and logZ
@@ -21,6 +18,26 @@ raises.
   ``tape``, each pair's L (n, n), P_mk (n, 2n) and i_m (n) for the descent.
 - ``level_mids`` (K4c): a level's midpoint draws, the points (D, R, m, n)
   to (D, R, m + Np, n) with the mids in their interleaved places.
+
+Training: ``halving_level`` and ``contract_pairs`` each run through one
+``torch.autograd.Function`` on every device, whose backward is the plain
+adjoint (``halving_level_bwd_plain``, ``contract_pairs_bwd_plain``, written
+out, not autograd) on the CPU and the backward kernels on the card: K4a's
+in two launches a level (the pairs, with block partial sums of the
+adjoints of the shared Kt and L in a fixed order, then one CTA that sums
+them and carries the shared factorisation back to P), K4b's in one.  The
+forward keeps the tape (K4a's L and ib, K4b's L, P_mk and i_m) when a
+gradient is wanted and the backward recomputes the rest from it.  The
+taped outputs are not differentiated: a gradient that reaches one of them
+raises (their adjoint runs through K4c's backward, ROADMAP.md Queue 2).
+K4c's backward raises on the card.
+
+The gradient of a precision P is returned symmetrised: the forward reads
+one triangle of each symmetric block (``P[:n, n:]``, never ``P[n:, :n]``),
+and both the plain backward and the kernels return (g + g^T) / 2 of that
+read's gradient, which gives every symmetric perturbation of P the same
+derivative.  Compare P gradients in symmetrised form, or end to end on the
+parameters P is built from.
 """
 
 from __future__ import annotations
@@ -33,15 +50,16 @@ import torch
 
 from . import cuda_build, linalg_small
 
-# Launches of the K4 kernels, counted by the wrappers.
-launches = {"halving": 0, "contract": 0, "mids": 0}
+# Launches of the K4 kernels, counted by the wrappers (``halving_bwd`` once a
+# level for its two kernels).
+launches = {"halving": 0, "contract": 0, "mids": 0, "halving_bwd": 0, "contract_bwd": 0}
 MAX_DIM = 32  # the largest state dim n the kernels take (NMAX of the source)
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
 
 
 def reset_counts():
     """Set every launch count to 0."""
-    launches.update(halving=0, contract=0, mids=0)
+    launches.update(dict.fromkeys(launches, 0))
 
 
 # -- plain versions -----------------------------------------------------------------
@@ -118,6 +136,95 @@ def level_mids_plain(cur, L, P_mk, i_m, eps):
     return torch.cat([pairs, cur[..., Np:, :]], dim=-2)
 
 
+def _sym(g):
+    return 0.5 * (g + g.transpose(-1, -2))
+
+
+def _cholesky_adjoint(L, gL):
+    """The symmetric gradient of A given that of its factor L = chol(A):
+    L^-T S L^-1, S the symmetric matrix of the lower triangle of L^T gL
+    with every entry halved."""
+    M = torch.tril(L.transpose(-1, -2) @ gL)
+    S = 0.5 * (M + torch.tril(M, -1).transpose(-1, -2))
+    Y = linalg_small.solve_lower_t(L, S)
+    return _sym(linalg_small.solve_lower_t(L, Y.transpose(-1, -2)))
+
+
+def _or_zeros(g, shape, like):
+    return torch.zeros(shape, dtype=like.dtype, device=like.device) if g is None else g
+
+
+def halving_level_bwd_plain(P, L, ib, g_P, g_info, g_logZ):
+    """K4a's backward, plain: the gradients of P (symmetrised), info and
+    logZ from those of P', info' and logZ' (any of them None for zero),
+    recomputing Kt and s from P and the tape (L, ib)."""
+    n = P.shape[-1] // 2
+    R, m, _ = ib.shape
+    g_P = _or_zeros(g_P, P.shape, P)
+    gi = _or_zeros(g_info, (R, m, 2 * n), P).reshape(-1, 2 * n).T  # (2n, R m)
+    gz = _or_zeros(g_logZ, (R, m), P).reshape(-1)
+    B = P[:n, n:]
+    Kt = linalg_small.solve_lower(L, torch.cat([B.T, B], dim=1))  # (n, 2n)
+    s = linalg_small.solve_lower(L, ib.reshape(-1, n).T)  # (n, R m)
+    g_ib = linalg_small.solve_lower_t(L, gz * s - Kt @ gi)  # (n, R m)
+    gi_r, g_ib_r = gi.T.reshape(R, m, 2 * n), g_ib.T.reshape(R, m, n)
+    g1 = torch.cat([gi_r[..., :n], g_ib_r], dim=-1)
+    g2 = torch.cat([g_ib_r, gi_r[..., n:]], dim=-1)
+    g_info_in = torch.stack([g1, g2], dim=-2).reshape(R, 2 * m, 2 * n)
+    g_logZ_in = gz.reshape(R, m, 1).expand(R, m, 2).reshape(R, 2 * m)
+    # the shared part: P' = diag(A, D) - Kt^T Kt, Kt = L^-1 [B^T | B], L = chol(D + A)
+    G = g_P + g_P.T
+    gKt = -s @ gi.T - Kt @ G
+    gCt = linalg_small.solve_lower_t(L, gKt)
+    gL = -torch.tril(g_ib @ s.T + gCt @ Kt.T) - torch.diag(gz.sum() / torch.diagonal(L))
+    gJ = _cholesky_adjoint(L, gL)
+    gB = 0.5 * (gCt[:, :n].T + gCt[:, n:])
+    g_P_in = torch.cat([
+        torch.cat([0.5 * G[:n, :n] + gJ, gB], dim=1),
+        torch.cat([gB.T, 0.5 * G[n:, n:] + gJ], dim=1),
+    ], dim=0)
+    return g_P_in, g_info_in, g_logZ_in
+
+
+def contract_pairs_bwd_plain(t, L, P_mk, i_m, g_P, g_info, g_logZ):
+    """K4b's backward, plain: the gradients of P (R, t, 2n, 2n)
+    (symmetrised), info and logZ from those of P', info' and logZ' (any of
+    them None for zero), recomputing X = L^-1 [P_mk | i_m] from the tape."""
+    R, np_, n, _ = L.shape
+    t_out, e = t - np_, 2 * np_
+    g_P = _or_zeros(g_P, (R, t_out, 2 * n, 2 * n), L)
+    g_info = _or_zeros(g_info, (R, t_out, 2 * n), L)
+    g_logZ = _or_zeros(g_logZ, (R, t_out), L)
+    X = linalg_small.solve_lower(L, torch.cat([P_mk, i_m.unsqueeze(-1)], dim=-1))
+    X1, x2 = X[..., :-1], X[..., -1]
+    G = g_P[:, :np_] + g_P[:, :np_].transpose(-1, -2)
+    gi, gz = g_info[:, :np_], g_logZ[:, :np_]
+    gX1 = -X1 @ G - x2.unsqueeze(-1) * gi.unsqueeze(-2)
+    gx2 = -(X1 @ gi.unsqueeze(-1)).squeeze(-1) + gz.unsqueeze(-1) * x2
+    gB = linalg_small.solve_lower_t(L, torch.cat([gX1, gx2.unsqueeze(-1)], dim=-1))
+    gL = -torch.tril(gB @ X.transpose(-1, -2)) - torch.diag_embed(gz.unsqueeze(-1) / torch.diagonal(L, dim1=-2, dim2=-1))
+    gPmm = _cholesky_adjoint(L, gL)
+    gl, gr, gim = 0.5 * gB[..., :n], 0.5 * gB[..., n:-1], gB[..., -1]
+    gPx = torch.cat([
+        torch.cat([0.5 * G[..., :n, :n], gl.transpose(-1, -2)], dim=-1),
+        torch.cat([gl, gPmm], dim=-1),
+    ], dim=-2)
+    gPy = torch.cat([
+        torch.cat([gPmm, gr], dim=-1),
+        torch.cat([gr.transpose(-1, -2), 0.5 * G[..., n:, n:]], dim=-1),
+    ], dim=-2)
+    g_P_in = torch.stack([gPx, gPy], dim=2).reshape(R, e, 2 * n, 2 * n)
+    g_info_in = torch.stack([
+        torch.cat([gi[..., :n], gim], dim=-1), torch.cat([gim, gi[..., n:]], dim=-1),
+    ], dim=2).reshape(R, e, 2 * n)
+    g_logZ_in = gz.unsqueeze(-1).expand(R, np_, 2).reshape(R, e)
+    if t > e:  # the odd level's last factor passes its gradient through
+        g_P_in = torch.cat([g_P_in, _sym(g_P[:, -1:])], dim=1)
+        g_info_in = torch.cat([g_info_in, g_info[:, -1:]], dim=1)
+        g_logZ_in = torch.cat([g_logZ_in, g_logZ[:, -1:]], dim=1)
+    return g_P_in, g_info_in, g_logZ_in
+
+
 # -- CUDA kernels ---------------------------------------------------------------------
 
 _P = ctypes.c_void_p
@@ -131,7 +238,9 @@ def _lib():
     lib.gl_halving.argtypes = [_P, _P, _ll, _P, _ll, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
     lib.gl_contract.argtypes = [_P, _P, _P, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P, _P]
     lib.gl_mids.argtypes = [_P, _c, _P, _ll, _P, _ll, _P, _P, _c, _c, _c, _c, _c, _P, _P]
-    for fn in (lib.gl_halving, lib.gl_contract, lib.gl_mids):
+    lib.gl_halving_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _P, _P, _P, _P, _P]
+    lib.gl_contract_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _P, _P, _P, _P]
+    for fn in (lib.gl_halving, lib.gl_contract, lib.gl_mids, lib.gl_halving_bwd, lib.gl_contract_bwd):
         fn.restype = ctypes.c_int
     return lib
 
@@ -237,33 +346,94 @@ def _mids_cuda(cur, L, P_mk, i_m, eps):
     return out
 
 
-def _no_backward(name):
-    raise NotImplementedError(
-        f"{name}: the CUDA kernel has no backward yet; training through the Gaussian "
-        "halving levels on the card is ROADMAP.md Queue 2's K4 item"
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _grads(*grads):
+    """The upstream gradients, contiguous; None (zero) stays None."""
+    return [None if g is None else g.contiguous() for g in grads]
+
+
+def _halving_bwd_cuda(P, L, ib, g_P, g_info, g_logZ):
+    R, m, n = ib.shape
+    n2 = 2 * n
+    g_P, g_info, g_logZ = _grads(g_P, g_info, g_logZ)
+    _check_cuda("halving_level backward", n, P, L, ib, *(g for g in (g_P, g_info, g_logZ) if g is not None))
+    P = P.contiguous()
+    new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
+    blocks = max(1, min(-(-R * m // 32), 2 * _sms(P.device)))
+    partial = new((blocks, 3 * n * n + 1))
+    gP, g_info_in, g_logZ_in = new((n2, n2)), new((R, 2 * m, n2)), new((R, 2 * m))
+    err = _lib().gl_halving_bwd(
+        P.data_ptr(), L.data_ptr(), ib.data_ptr(), _ptr(g_P), _ptr(g_info), _ptr(g_logZ), R, m, n, blocks,
+        partial.data_ptr(), gP.data_ptr(), g_info_in.data_ptr(), g_logZ_in.data_ptr(), _stream(P),
     )
+    _raise_on(err, "halving_level backward")
+    launches["halving_bwd"] += 1
+    return gP, g_info_in, g_logZ_in
 
 
-class _HalvingCUDA(torch.autograd.Function):
+def _contract_bwd_cuda(t, L, P_mk, i_m, g_P, g_info, g_logZ):
+    R, np_, n, _ = L.shape
+    n2, t_out = 2 * n, t - np_
+    g_P, g_info, g_logZ = _grads(g_P, g_info, g_logZ)
+    _check_cuda("contract_pairs backward", n, L, P_mk, i_m, *(g for g in (g_P, g_info, g_logZ) if g is not None))
+    new = functools.partial(torch.empty, dtype=L.dtype, device=L.device)
+    gP, g_info_in, g_logZ_in = new((R, t, n2, n2)), new((R, t, n2)), new((R, t))
+    blocks = max(1, min(R * t_out, 16 * _sms(L.device)))
+    err = _lib().gl_contract_bwd(
+        L.data_ptr(), P_mk.data_ptr(), i_m.data_ptr(), _ptr(g_P), _ptr(g_info), _ptr(g_logZ), R, t, n, t_out,
+        blocks, gP.data_ptr(), g_info_in.data_ptr(), g_logZ_in.data_ptr(), _stream(L),
+    )
+    _raise_on(err, "contract_pairs backward")
+    launches["contract_bwd"] += 1
+    return gP, g_info_in, g_logZ_in
+
+
+def _taped_not_differentiated(name, *grads):
+    if any(g is not None for g in grads):
+        raise NotImplementedError(
+            f"{name}: a gradient reached the level's tape (its Cholesky factor and the pair "
+            "blocks kept for the sampler); differentiating through it is K4c's backward, "
+            "ROADMAP.md Queue 2"
+        )
+
+
+class _Halving(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, P, info, logZ, tape):
-        return _halving_cuda(P, info, logZ, tape)
+    def forward(ctx, P, info, logZ, keep, cuda):
+        ctx.set_materialize_grads(False)
+        ctx.cuda = cuda
+        P_out, info_out, logZ_out, L, ib = (_halving_cuda if cuda else halving_level_plain)(P, info, logZ, keep)
+        if keep:
+            ctx.save_for_backward(P, L, ib)
+        return P_out, info_out, logZ_out, L, ib
 
     @staticmethod
-    def backward(ctx, *grads):
-        _no_backward("halving_level")
+    def backward(ctx, g_P, g_info, g_logZ, g_L, g_ib):
+        _taped_not_differentiated("halving_level", g_L, g_ib)
+        P, L, ib = ctx.saved_tensors
+        bwd = _halving_bwd_cuda if ctx.cuda else halving_level_bwd_plain
+        return *bwd(P, L, ib, g_P, g_info, g_logZ), None, None
 
 
-class _ContractCUDA(torch.autograd.Function):
+class _Contract(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, P, info, logZ, tape):
-        P_out, info_out, logZ_out, saved = _contract_cuda(P, info, logZ, tape)
+    def forward(ctx, P, info, logZ, keep, cuda):
+        ctx.set_materialize_grads(False)
+        ctx.cuda, ctx.t = cuda, P.shape[-3]
+        P_out, info_out, logZ_out, saved = (_contract_cuda if cuda else contract_pairs_plain)(P, info, logZ, keep)
         saved = saved or (None, None, None)
+        if keep:
+            ctx.save_for_backward(*saved)
         return P_out, info_out, logZ_out, *saved
 
     @staticmethod
-    def backward(ctx, *grads):
-        _no_backward("contract_pairs")
+    def backward(ctx, g_P, g_info, g_logZ, g_L, g_Pmk, g_im):
+        _taped_not_differentiated("contract_pairs", g_L, g_Pmk, g_im)
+        bwd = _contract_bwd_cuda if ctx.cuda else contract_pairs_bwd_plain
+        return *bwd(ctx.t, *ctx.saved_tensors, g_P, g_info, g_logZ), None, None
 
 
 class _MidsCUDA(torch.autograd.Function):
@@ -273,26 +443,33 @@ class _MidsCUDA(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        _no_backward("level_mids")
+        raise NotImplementedError(
+            "level_mids: the CUDA kernel has no backward yet; differentiating posterior draws "
+            "on the card is K4c's backward, ROADMAP.md Queue 2"
+        )
 
 
 def _on_cuda(*tensors):
     return any(t.is_cuda for t in tensors)
 
 
+def _keep_tape(tape, *tensors):
+    """Whether the forward keeps its tape: asked for, or a gradient wanted."""
+    return tape or (torch.is_grad_enabled() and any(t.requires_grad for t in tensors))
+
+
 def halving_level(P, info, logZ, tape=False):
     """K4a: one halving level of a homogeneous chain (see the module doc)."""
-    if _on_cuda(P, info, logZ):
-        return _HalvingCUDA.apply(P, info, logZ, tape)
-    return halving_level_plain(P, info, logZ, tape)
+    P_out, info_out, logZ_out, L, ib = _Halving.apply(
+        P, info, logZ, _keep_tape(tape, P, info, logZ), _on_cuda(P, info, logZ))
+    return P_out, info_out, logZ_out, L, ib if tape else None
 
 
 def contract_pairs(P, info, logZ, tape=False):
     """K4b: the contraction of adjacent pairs (see the module doc)."""
-    if _on_cuda(P, info, logZ):
-        P_out, info_out, logZ_out, *saved = _ContractCUDA.apply(P, info, logZ, tape)
-        return P_out, info_out, logZ_out, tuple(saved) if tape else None
-    return contract_pairs_plain(P, info, logZ, tape)
+    P_out, info_out, logZ_out, *saved = _Contract.apply(
+        P, info, logZ, _keep_tape(tape, P, info, logZ), _on_cuda(P, info, logZ))
+    return P_out, info_out, logZ_out, tuple(saved) if tape else None
 
 
 def level_mids(cur, L, P_mk, i_m, eps):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..distributions import constraints
@@ -82,6 +83,19 @@ def get_param_store() -> ParamStoreDict:
 
 def clear_param_store() -> None:
     _PARAM_STORE.clear()
+
+
+def param_store_from_jax(named) -> None:
+    """Load the JAX package's param store into this one: ``named`` maps each
+    name to its constrained value as a numpy array (the JAX store's names,
+    for example ``GenericLGSSM.trans_matrix``).  Each is stored under the
+    same name and the constraint this store holds for it, so register the
+    model's parameters first (run it once)."""
+    store = get_param_store()
+    for name, value in named.items():
+        if name not in store:
+            raise KeyError(f"param '{name}' is not registered here: run the model once before loading")
+        store._set(name, torch.from_numpy(np.array(value)), store._constraints[name])
 
 
 def param_with_module_name(pyro_name: str, param_name: str) -> str:

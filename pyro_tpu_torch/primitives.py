@@ -1,5 +1,5 @@
 """Modeling primitives (counterpart of ``pyro_tpu/primitives.py``):
-sample, param, deterministic, plate, vectorized_markov and module."""
+sample, param, factor, deterministic, plate, vectorized_markov and module."""
 
 from __future__ import annotations
 
@@ -8,7 +8,7 @@ from typing import Optional
 import torch
 
 from .distributions import constraints as _constraints
-from .distributions.delta import Delta
+from .distributions.delta import Delta, Unit
 from .params.param_store import get_param_store, param_with_module_name
 from .poutine.plate_messenger import PlateMessenger
 from .poutine.runtime import am_i_wrapped, apply_stack, new_message
@@ -43,6 +43,14 @@ def param(name: str, init_value=None, constraint=_constraints.real, event_dim: O
 
 def _param_fn(name, init_value, constraint=_constraints.real, event_dim=None):
     return get_param_store().get_param(name, init_value, constraint, event_dim)
+
+
+def factor(name: str, log_factor, *, has_rsample: Optional[bool] = None):
+    """Add ``log_factor`` to the model's log density: an observed ``Unit``
+    site, marked auxiliary."""
+    unit_dist = Unit(log_factor, has_rsample=has_rsample)
+    unit_value = unit_dist.log_factor.new_zeros(unit_dist.shape())
+    sample(name, unit_dist, obs=unit_value, infer={"is_auxiliary": True})
 
 
 def deterministic(name: str, value, event_dim: Optional[int] = None):

@@ -19,9 +19,11 @@ float64's before the carry was kept shifted, and is about 1e-5 since
 against each other as each against the plain version.  K2's cases run on
 the route the wrapper chooses, which they check, unless a test names one.
 K4, the Gaussian halving levels: each kernel within rtol 1e-4 plus atol
-1e-4 times the largest entry of its plain version's output; GaussianHMM on
-the card against the port's float64 CPU run, log_prob rtol 1e-4 with atol
-1e-3, the filter's mean and the posterior mean rtol and atol 1e-3.
+1e-4 times the largest entry of its plain version's output, forward and
+backward (the P gradients symmetrised); GaussianHMM on the card against
+the port's float64 CPU run, log_prob rtol 1e-4 with atol 1e-3, the
+filter's mean and the posterior mean rtol and atol 1e-3; a training step's
+loss rtol 1e-5 and gradients within 1e-3 times their largest entry.
 """
 
 import numpy as np
@@ -505,25 +507,165 @@ def test_mids_kernel_matches_plain(cuda, D, R, m, Np, n, shared):
 
 
 def test_k4_backward_raises(cuda):
-    """A backward through a K4 kernel on the card raises; it never falls
-    back to the plain version."""
+    """On the card a backward through K4a and K4b runs the backward kernels
+    (never the plain versions), and one through K4c raises, naming the
+    roadmap; a gradient that reaches a level's tape raises too."""
     from pyro_tpu_torch.ops import gaussian_levels as gl
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     P = _spd(gen, (), 8, cuda).requires_grad_()
     info = torch.randn(2, 6, 8, generator=gen, device=cuda, requires_grad=True)
     logZ = torch.randn(2, 6, generator=gen, device=cuda)
-    with pytest.raises(NotImplementedError):
-        gl.halving_level(P, info, logZ)[1].sum().backward()
+    gl.reset_counts()
+    gl.halving_level(P, info, logZ)[1].sum().backward()
     Pt = _spd(gen, (2, 6), 8, cuda).requires_grad_()
-    with pytest.raises(NotImplementedError):
-        gl.contract_pairs(Pt, info, logZ)[2].sum().backward()
+    gl.contract_pairs(Pt, info, logZ)[2].sum().backward()
+    torch.cuda.synchronize()
+    assert gl.launches["halving_bwd"] == 1 and gl.launches["contract_bwd"] == 1
+    assert bool(P.grad.isfinite().all()) and bool(Pt.grad.isfinite().all())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gl.halving_level(P, info, logZ, tape=True)[3].sum().backward()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gl.contract_pairs(Pt, info, logZ, tape=True)[3][1].sum().backward()
     L = torch.linalg.cholesky(_spd(gen, (), 4, cuda)).requires_grad_()
     cur = torch.randn(1, 2, 4, 4, generator=gen, device=cuda)
     mids = gl.level_mids(cur, L, torch.randn(4, 8, device=cuda), torch.randn(2, 3, 4, device=cuda),
                          torch.randn(1, 2, 3, 4, device=cuda))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         mids.sum().backward()
+
+
+def _sym(g):
+    return 0.5 * (g + g.transpose(-1, -2))
+
+
+@pytest.mark.parametrize("R,m,n", [(8, 5000, 32), (1, 7, 16), (8, 3, 1), (1, 1, 32), (8, 9, 16)])
+def test_halving_backward_kernel_matches_plain(cuda, R, m, n):
+    """K4a's backward kernels against the plain backward at the same tape and
+    upstream gradients, with and without each upstream gradient."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(m + n)
+    P = _spd(gen, (), 2 * n, cuda)
+    info = torch.randn(R, 2 * m, 2 * n, generator=gen, device=cuda)
+    logZ = torch.randn(R, 2 * m, generator=gen, device=cuda)
+    _, _, _, L, ib = gl.halving_level(P, info, logZ, tape=True)
+    g_P = torch.randn(2 * n, 2 * n, generator=gen, device=cuda)
+    g_info = torch.randn(R, m, 2 * n, generator=gen, device=cuda)
+    g_logZ = torch.randn(R, m, generator=gen, device=cuda)
+    for grads in ((g_P, g_info, g_logZ), (None, g_info, g_logZ), (g_P, None, None)):
+        before = gl.launches["halving_bwd"]
+        out_k = gl._halving_bwd_cuda(P, L, ib, *grads)
+        out_p = gl.halving_level_bwd_plain(P, L, ib, *grads)
+        torch.cuda.synchronize()
+        assert gl.launches["halving_bwd"] == before + 1
+        _assert_near(_sym(out_k[0]), _sym(out_p[0]))
+        for a, b in zip(out_k[1:], out_p[1:]):
+            _assert_near(a, b)
+
+
+@pytest.mark.parametrize("R,t,n", [(1, 4001, 16), (8, 13, 32), (1, 7, 1), (8, 9, 16), (1, 2, 32)])
+def test_contract_backward_kernel_matches_plain(cuda, R, t, n):
+    """K4b's backward kernel against the plain backward at the same tape and
+    upstream gradients (an odd t passes the last factor's through)."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(t + n)
+    P = _spd(gen, (R, t), 2 * n, cuda)
+    info = torch.randn(R, t, 2 * n, generator=gen, device=cuda)
+    logZ = torch.randn(R, t, generator=gen, device=cuda)
+    *_, tape = gl.contract_pairs(P, info, logZ, tape=True)
+    t_out = t - t // 2
+    g_P = torch.randn(R, t_out, 2 * n, 2 * n, generator=gen, device=cuda)
+    g_info = torch.randn(R, t_out, 2 * n, generator=gen, device=cuda)
+    g_logZ = torch.randn(R, t_out, generator=gen, device=cuda)
+    for grads in ((g_P, g_info, g_logZ), (None, g_info, g_logZ), (g_P, None, None)):
+        before = gl.launches["contract_bwd"]
+        out_k = gl._contract_bwd_cuda(t, *tape, *grads)
+        out_p = gl.contract_pairs_bwd_plain(t, *tape, *grads)
+        torch.cuda.synchronize()
+        assert gl.launches["contract_bwd"] == before + 1
+        _assert_near(_sym(out_k[0]), _sym(out_p[0]))
+        for a, b in zip(out_k[1:], out_p[1:]):
+            _assert_near(a, b)
+
+
+def test_backward_kernels_reject_a_state_dim_above_32(cuda):
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    n = 33
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    L = torch.linalg.cholesky(_spd(gen, (), n, cuda))
+    with pytest.raises(ValueError, match="n <= 32"):
+        gl._halving_bwd_cuda(_spd(gen, (), 2 * n, cuda), L, torch.randn(1, 2, n, device=cuda), None, None,
+                             torch.ones(1, 2, device=cuda))
+    with pytest.raises(ValueError, match="n <= 32"):
+        gl._contract_bwd_cuda(3, L[None, None], torch.randn(1, 1, n, 2 * n, device=cuda),
+                              torch.randn(1, 1, n, device=cuda), None, None, torch.ones(1, 2, device=cuda))
+
+
+def test_halving_backward_is_deterministic(cuda):
+    """The reductions over pairs run in a fixed order: two runs give the
+    same bits."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    R, m, n = 8, 5000, 32
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    P = _spd(gen, (), 2 * n, cuda)
+    _, _, _, L, ib = gl.halving_level(P, torch.randn(R, 2 * m, 2 * n, generator=gen, device=cuda),
+                                      torch.randn(R, 2 * m, generator=gen, device=cuda), tape=True)
+    grads = (torch.randn(2 * n, 2 * n, generator=gen, device=cuda),
+             torch.randn(R, m, 2 * n, generator=gen, device=cuda), torch.randn(R, m, generator=gen, device=cuda))
+    first = gl._halving_bwd_cuda(P, L, ib, *grads)
+    second = gl._halving_bwd_cuda(P, L, ib, *grads)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("path", ["lgssm", "homogeneous"])
+def test_training_step_on_the_card(cuda, path):
+    """One training step's loss and gradients through the K4 kernels (forward
+    and backward) against the port's float64 CPU run at small widths: loss
+    rtol 1e-5, each gradient within 1e-3 times its largest entry."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.contrib.timeseries import GenericLGSSM
+    from pyro_tpu_torch.examples import gaussian_hmm as ex
+    from pyro_tpu_torch.examples import lgssm
+    from pyro_tpu_torch.infer import Trace_ELBO
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+    from pyro_tpu_torch.params import param_store_from_jax
+
+    out = []
+    pyro.clear_param_store()
+    for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        pyro.set_default_device(device)
+        if path == "lgssm":
+            data = ex.params_from_jax({"data": ex.make_arrays("heterogeneous", 0, T=45)["data"][:, :2]}, dtype)["data"]
+            model = lgssm.make_model(GenericLGSSM(obs_dim=2, state_dim=5, name="GenericLGSSM"))
+        else:
+            params = ex.params_from_jax(ex.make_arrays("homogeneous", 0, batch=3, T=45, hidden=6, obs=2), dtype)
+            data = params.pop("data")
+            model = ex.make_train_model(params)
+        store = pyro.get_param_store()
+        if device == "cpu":
+            param_store_from_jax({k: store[k].detach().double().cpu().numpy() for k in names})
+        gl.reset_counts()
+        with poutine.trace(param_only=True) as capture:
+            loss = Trace_ELBO().differentiable_loss(model, lambda *a: None, data)
+        loss.backward()
+        names = sorted(capture.trace.param_nodes())
+        if device == "cuda":
+            torch.cuda.synchronize()
+            kind = "contract" if path == "lgssm" else "halving"
+            assert gl.launches[kind] > 0 and gl.launches[f"{kind}_bwd"] > 0
+        out.append((float(loss.detach()), {k: store.get_unconstrained(k).grad.detach().double().cpu() for k in names}))
+    pyro.clear_param_store()
+    pyro.set_default_device("cuda")
+    (loss32, g32), (loss64, g64) = out
+    assert loss32 == pytest.approx(loss64, rel=1e-5)
+    for k in g64:
+        torch.testing.assert_close(g32[k], g64[k], rtol=0, atol=1e-3 * float(g64[k].abs().max()))
 
 
 @pytest.mark.parametrize("config,T,hidden", [("homogeneous", 37, 32), ("heterogeneous", 45, 16)])
