@@ -97,9 +97,36 @@ Phases (any failure exits non-zero):
      losses; the K4 forward and backward kernels launched in every step;
      the set-up (first step) and steady step times, and one profiled step
      with its device busy share and top device operations;
-  12. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
-     backward on each route, K4a-c, K4a and K4b backward), the card's name
-     and power limit, then the result line.
+  12. K2g, the time-varying Markov scan (``markov_scan.cu``'s ``mstv_*``
+     kernels), forward and the gradients of all its inputs against its
+     plain version in float64 on the card (and in float32, printed): at
+     model_1vt's shape (B=32, T'=127, S=256, A_t shared, emissions about
+     -35 a step), one A_t per row (B=8, T'=63, S=64), odd S (7 with L,
+     257 with one A_t per row), T'=1 with L, and on five seeds of data with
+     -inf entries, columns no state reaches and -inf states of alpha0 (-inf
+     values exactly where float64 has them, no NaN); the backward twice,
+     bitwise equal; forward and backward timed in turns with the plain
+     version beside the bound;
+  13. slice 8 at full width: model_1vt of ``examples/hmm.py`` (model_1v
+     with a transition matrix per step, ``probs_x`` (128, 256, 256)) at
+     ``32.128.51.256`` with AutoDelta, ``TraceEnum_ELBO(max_plate_nesting=3)``
+     and Adam: the first step's loss and gradients through K2g against the
+     plain loop in float64 on the card; 5 SVI steps, each with exactly one
+     K2g launch each way and no K2 or K1 launch, finite falling losses,
+     set-up and steady ms, one profiled step;
+  14. the ten chain cases of ``tests/test_vectorized_markov.py``
+     (``examples/vectorized_markov.py``) on the card through the route each
+     takes (K2, K2g, or the pairwise fallback's K1 rounds), loss and
+     gradients against the port's float64 CPU run; model_5 (history 2) at
+     x_dim 16, T=128, 51 tones (windows of 256 states, K1 at (63, 256, 256)
+     in the first round): the first step against float64 on the CPU, 3 SVI
+     steps with their K1 launches, one profiled step; model_1 (unrolled
+     under ``pyro.markov``) at ``20.32.51.16``: its step-0 loss against
+     model_1v's at the same params, 3 SVI steps with their launch counts,
+     one profiled step;
+  15. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+     backward on each route, K4a-c, K4a and K4b backward, K2g forward and
+     backward), the card's name and power limit, then the result line.
 
 Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
 atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS, and its
@@ -127,7 +154,13 @@ within 6.5 standard errors of it at every entry, the mean squared
 t-statistic in [0.8, 1.25].  K4 backward: each output of each level within
 1e-4 times its largest entry (plus 1e-5) of the plain backward's, P
 gradients symmetrised; a training step's loss rtol 1e-5 and each
-parameter's gradient within 1e-3 times its largest entry of float64's.  The VAE's first-step loss rtol 1e-4 and
+parameter's gradient within 1e-3 times its largest entry of float64's.
+K2g: finite forward values atol 1e-4 plus rtol 1e-6 of float64, each
+gradient within 1e-3 * max|grad| of float64 (as K2's unreachable-states
+check); model_1vt's and wide model_5's first step as a training step's
+above; the ten chain cases' loss rtol 1e-5 and gradients rtol 1e-4 with
+atol 1e-5 * max|grad| against float64 (as the port's CPU parity tests hold
+them against the JAX package); model_1 against model_1v rtol 1e-5.  The VAE's first-step loss rtol 1e-4 and
 each gradient rtol 1e-4 with atol 1e-6 * max|grad| against the CPU run
 (float32 sums in another order; TF32 off).  Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -402,9 +435,17 @@ def phase_slice(torch, lm):
         d, value = site["fn"], site["value"]
         lp = d.log_prob(value)
         v = value.unsqueeze(-1 - d.observation_dist.event_dim)
-        result = d.transition_logits + d.observation_dist.log_prob(v).unsqueeze(-2)
-        result = hmm._sequential_logmatmulexp(result, logmatmulexp=lm.logmatmulexp_plain)
+        factors = d.transition_logits + d.observation_dist.log_prob(v).unsqueeze(-2)  # (B, T, S, S)
+        result = hmm._sequential_logmatmulexp(factors, logmatmulexp=lm.logmatmulexp_plain)
         lp_plain = torch.logsumexp(d.initial_logits + torch.logsumexp(result, dim=-1), dim=-1)
+        # K3, forward: the 7 halving rounds through K1 against the same rounds
+        # through the plain version, in turns
+        k3_t = alternate({
+            "kernel": lambda: hmm._sequential_logmatmulexp(factors),
+            "plain": lambda: hmm._sequential_logmatmulexp(factors, logmatmulexp=lm.logmatmulexp_plain),
+        }, iters=3)
+    print(f"  K3 forward ({T.bit_length() - 1} rounds of K1 over {tuple(factors.shape)}): kernel "
+          f"{k3_t['kernel']:.4f} ms, plain {k3_t['plain']:.4f} ms")
     check(lp.shape == (B,) and bool(torch.isfinite(lp).all()), f"log_prob shape {tuple(lp.shape)} or values bad")
     rel = float(((lp - lp_plain).abs() / lp_plain.abs()).max())
     check(rel <= 1e-4, f"DiscreteHMM.log_prob differs from the plain reduction by rtol {rel}")
@@ -1439,6 +1480,361 @@ def phase_train(torch, gl):
     return out
 
 
+# -- slice 8: K2g, the time-varying scan; the pairwise fallback; pyro.markov --
+
+K2G_TOL = 1e-3  # each K2g gradient against the float64 plain version, times its max|grad|
+K2G_SEEDS = 5  # seeds of the unreachable-states data
+TV_STEPS = 5
+M5_X, M5_STEPS = 16, 3  # model_5's hidden dim at full width (the 20.32.51.16 row's), its SVI steps
+M1_B, M1_T, M1_S, M1_STEPS = 20, 32, 16, 3  # model_1 at the hmm_enum_steps_per_sec row, 20.32.51.16
+
+
+def tv_inputs(torch, gen, B, T, S, per_row=False, with_L=False, unreachable=False, emission=0.0):
+    """alpha0, A_t (log transition probabilities, shared or one per row), R
+    and L on the card, drawn from ``gen``; with ``unreachable``, -inf
+    entries, a column no state reaches at every third step and half of
+    alpha0's states -inf."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    A = torch.log_softmax(randn(*((T, B, S, S) if per_row else (T, S, S))) * 2.0, dim=-1)
+    alpha0 = randn(B, S)
+    if unreachable:
+        A[A < -6.0] = -float("inf")
+        A[::3, ..., :, S // 3] = -float("inf")
+        alpha0[:, S // 2:] = -float("inf")
+    R = randn(T, B, S) * (3.0 if emission else 1.0) + emission
+    L = randn(T, B, S) if with_L else None
+    return [alpha0, A, R, L], randn(B, S)
+
+
+def check_k2g(torch, ms, inputs, g, label):
+    """K2g forward and the gradients of all its inputs against the plain
+    version in float64 on the card (-inf exactly where it is -inf, finite
+    values within atol 1e-4 + rtol 1e-6, each gradient finite and within
+    K2G_TOL * max|grad|), and against the plain version in float32 (printed);
+    one launch each way.  Returns the largest forward and gradient
+    distances to the float32 plain version."""
+    n = dict(ms.tv_launches)
+    leaves = [None if t is None else t.detach().clone().requires_grad_() for t in inputs]
+    out = ms.markov_scan_tv(*leaves)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    check(ms.tv_launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1},
+          f"{label}: expected one K2g launch each way, got {ms.tv_launches} after {n}")
+    runs = {}
+    for dtype in (torch.float32, torch.float64):
+        lv = [None if t is None else t.detach().to(dtype).requires_grad_() for t in inputs]
+        o = ms.markov_scan_tv_plain(*lv)
+        (o * g.to(dtype)).sum().backward()
+        runs[dtype] = (o.detach(), [None if t is None else t.grad for t in lv])
+    (out32, grads32), (out64, grads64) = runs[torch.float32], runs[torch.float64]
+    out = out.detach()
+    check(torch.equal(torch.isneginf(out), torch.isneginf(out64)) and not bool(torch.isnan(out).any()),
+          f"{label}: the -inf entries differ from float64's, or NaN")
+    live = torch.isfinite(out64)
+    fwd_excess = float(((out.double() - out64).abs() - (1e-4 + 1e-6 * out64.abs()))[live].max())
+    check(fwd_excess <= 0, f"{label}: forward outside atol 1e-4 + rtol 1e-6 of float64 by {fwd_excess:.3g}")
+    fwd_err = float((out - out32)[live].abs().max())
+    bwd_err, errs, failures = 0.0, [], []
+    for name, k, p, d in zip(("alpha0", "A", "R", "L"), leaves, grads32, grads64):
+        if k is None:
+            continue
+        if not bool(torch.isfinite(k.grad).all()):
+            failures.append(f"non-finite d{name}")
+            continue
+        scale = float(d.abs().max()) + 1e-30
+        err = float((k.grad.double() - d).abs().max()) / scale
+        errs.append(f"d{name} {err:.3g} (plain f32 {float((p.double() - d).abs().max()) / scale:.3g})")
+        bwd_err = max(bwd_err, max_err(k.grad, p))
+        if err > K2G_TOL:
+            failures.append(f"d{name} is {err:.3g} * max|grad| from float64, over {K2G_TOL}")
+    print(f"  {label}: forward max abs err to plain {fwd_err:.3g} ({int((~live).sum())} entries -inf); "
+          f"to float64 over max|grad|: {', '.join(errs)}")
+    check(not failures, f"{label}: " + "; ".join(failures))
+    return fwd_err, bwd_err
+
+
+def k2g_bounds(steps, B, S, nA):
+    """K2g's least times on the card, forward and backward.  Forward: each
+    of T'*B*S*S terms added and accumulated (2 operations); bytes: alpha0,
+    A_t, R in, alpha_T' out.  Backward: the same per product, two of them
+    (dh and dA_t); bytes: A_t, the forward's two stacks and g in, dalpha0,
+    dA_t and dR out."""
+    terms = steps * B * S * S
+    a = nA * steps * S * S
+    return (bound(2 * terms, 4 * (2 * B * S + a + steps * B * S)),
+            bound(4 * terms, 4 * (2 * B * S + 2 * a + 3 * steps * B * S)))
+
+
+def phase_k2g(torch, ms):
+    print("phase 12: K2g, the time-varying Markov scan, against its plain version (float64 and float32) on the card")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    steps = T - 1
+    main, g = tv_inputs(torch, gen, B, steps, S, emission=EMISSION)
+    fwd_err, bwd_err = check_k2g(torch, ms, main, g, f"model_1vt's shape B={B}, T'={steps}, S={S}, A_t shared")
+    for args, label in (
+        ((8, 63, 64, True), "one A_t per row, B=8, T'=63, S=64"),
+        ((4, 9, 7, False, True), "odd S=7 with L, B=4, T'=9"),
+        ((2, 5, 257, True), "odd S=257, one A_t per row, B=2, T'=5"),
+        ((5, 1, 33, False, True), "T'=1 with L, B=5, S=33"),
+    ):
+        check_k2g(torch, ms, *tv_inputs(torch, gen, *args), label)
+    for seed in range(K2G_SEEDS):
+        gs = torch.Generator(device="cuda").manual_seed(1200 + seed)
+        check_k2g(torch, ms, *tv_inputs(torch, gs, B, steps, S, unreachable=True, emission=EMISSION),
+                  f"seed {1200 + seed}: B={B}, T'={steps}, S={S}, unreachable states and -inf columns")
+    # the backward twice on the same inputs: bitwise equal
+    alpha0, A, R, _ = main
+    with torch.no_grad():
+        _, hs, os = ms._tv_forward_cuda(alpha0, A, R)
+    again = [ms._tv_backward_cuda(A, None, hs, os, g), ms._tv_backward_cuda(A, None, hs, os, g)]
+    check(all(torch.equal(a, b) for a, b in zip(*again) if a is not None), "K2g backward: two runs differ")
+    # timing at model_1vt's shape, kernel and plain in turns
+    with torch.no_grad():
+        fwd = alternate({"kernel": lambda: ms._tv_forward_cuda(alpha0, A, R),
+                         "plain": lambda: ms.markov_scan_tv_plain(alpha0, A, R)}, iters=5)
+    leaves = [t.detach().clone().requires_grad_() for t in (alpha0, A, R)]
+    out_p = ms.markov_scan_tv_plain(*leaves)
+    bwd = alternate({"kernel": lambda: ms._tv_backward_cuda(A, None, hs, os, g),
+                     "plain": lambda: torch.autograd.grad(out_p, leaves, g, retain_graph=True)}, iters=5)
+    fb, bb = k2g_bounds(steps, B, S, 1)
+    print(f"  two runs of the backward bitwise equal; timing at B={B}, T'={steps}, S={S} f32, A_t shared "
+          f"({4 * steps * S * S / 1e6:.1f} MB):")
+    for name, t, b in (("forward ", fwd, fb), ("backward", bwd, bb)):
+        print(f"    {name} kernel {t['kernel']:.4f} ms ({1e3 * t['kernel'] / steps:.2f} us/step)  "
+              f"plain {t['plain']:.4f} ms  bound {b[0]:.4f} ms ({b[1]})")
+    return {"forward": {"max_abs_err": fwd_err, "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound": fb},
+            "backward": {"max_abs_err": bwd_err, "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound": bb}}
+
+
+@contextlib.contextmanager
+def default_dtype(torch, dtype):
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(dtype)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(old)
+
+
+def enum_loss_and_grads(torch, model, guide, args, names, nesting, values=None):
+    """-ELBO (TraceEnum_ELBO) and the gradients of ``names`` (as float64 on
+    the CPU); with ``values``, the params are first set to them."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.infer import TraceEnum_ELBO
+
+    elbo = TraceEnum_ELBO(max_plate_nesting=nesting)
+    store = pyro.get_param_store()
+    elbo.loss(model, guide, *args)  # registers the params
+    for k, v in (values or {}).items():
+        store.set_unconstrained(k, v.to(store.get_unconstrained(k).dtype))
+    loss = elbo.differentiable_loss(model, guide, *args)
+    loss.backward()
+    grads = {k: store.get_unconstrained(k).grad.detach().double().cpu() for k in names}
+    for k in names:
+        store.get_unconstrained(k).grad = None
+    return float(loss.detach()), grads
+
+
+def check_grads(label, g32, g64, tol):
+    for k in sorted(g64):
+        err, scale = max_err(g32[k], g64[k]), float(g64[k].abs().max())
+        print(f"    grad {k} {tuple(g64[k].shape)}: max abs err to float64 {err:.3g} (max|grad| {scale:.3g})")
+        check(bool(g32[k].isfinite().all()) and err <= tol * scale,
+              f"{label} grad {k}: {err:.3g} from float64, over {tol} * {scale:.3g}")
+
+
+def phase_tv_slice(torch, lm, ms):
+    print(f"phase 13: model_1vt SVI (a transition per step, TraceEnum_ELBO) at B={B}, T={T}, D={D}, S={S}")
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import hmm as example
+    from pyro_tpu_torch.ops import markov_product
+
+    args = example.parse_args([
+        "--model", "1vt", "--hidden-dim", str(S), "--num-sequences", str(B), "--max-length", str(T),
+        "--data-dim", str(D), "--num-steps", str(TV_STEPS),
+    ])
+    names = ("AutoDelta.probs_x", "AutoDelta.probs_y")
+    sequences, lengths = example.synthetic_sequences(args.seed, B, T, D)
+    # the first step's loss and gradients through K2g, then through the
+    # plain loop in float64 on the card at the same params
+    pyro.clear_param_store()
+    model, guide, _ = example.make_svi(args)
+    loss32, g32 = enum_loss_and_grads(torch, model, guide, (sequences, lengths), names, 3)
+    values = {k: pyro.get_param_store().get_unconstrained(k).detach().double() for k in names}
+    pyro.clear_param_store()
+    with default_dtype(torch, torch.float64):
+        markov_product.markov_scan_tv = ms.markov_scan_tv_plain
+        try:
+            model, guide, _ = example.make_svi(args)
+            loss64, g64 = enum_loss_and_grads(torch, model, guide, (sequences.double(), lengths), names, 3, values)
+        finally:
+            markov_product.markov_scan_tv = ms.markov_scan_tv
+    rel = abs(loss32 - loss64) / abs(loss64)
+    print(f"  first step: loss through K2g {loss32!r} against the plain loop in float64 {loss64!r} (rel diff {rel:.3g})")
+    check(math.isfinite(loss32) and rel <= TRAIN_LOSS_RTOL, f"model_1vt: loss rel diff {rel:.3g} over {TRAIN_LOSS_RTOL}")
+    check_grads("model_1vt", g32, g64, TRAIN_GRAD_TOL)
+
+    pyro.clear_param_store()
+    _, _, svi = example.make_svi(args, args.learning_rate)
+    losses, step_ms, per_step = [], [], []
+    for _ in range(TV_STEPS):
+        ms.reset_counts()
+        lm.launches.update(forward=0, backward=0)
+        t0 = time.perf_counter()
+        losses.append(svi.step(sequences, lengths))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append((dict(ms.tv_launches), dict(ms.launches), dict(lm.launches)))
+    steady = sum(step_ms[1:]) / (TV_STEPS - 1)
+    print(f"  losses {losses}")
+    print(f"  set-up (first step) {step_ms[0]:.3f} ms, steady {steady:.3f} ms a step ({[round(t, 3) for t in step_ms[1:]]})")
+    print(f"  launches a step: K2g {per_step[0][0]}, K2 {per_step[0][1]}, K1 {per_step[0][2]}")
+    check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0], f"model_1vt: losses {losses}")
+    for tv, k2, k1 in per_step:
+        check(tv == {"forward": 1, "backward": 1}, f"model_1vt: expected one K2g launch each way a step, got {tv}")
+        check(k2 == {"forward": 0, "backward": 0} and k1 == {"forward": 0, "backward": 0},
+              f"model_1vt: expected no K2 or K1 launch, got K2 {k2}, K1 {k1}")
+    print("  one more step:")
+    wall, busy, ops, kernels = profile_run(torch, lambda: svi.step(sequences, lengths), top=6)
+    k2g_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith("mstv_")) / 1e3
+    print(f"    K2g kernels {k2g_ms:.3f} ms of the busy time")
+    pyro.clear_param_store()
+    launches = {k: sum(tv[k] for tv, _, _ in per_step) for k in ("forward", "backward")}
+    return {"launches": launches, "setup_ms": step_ms[0], "step_ms": steady, "busy_share": busy / wall}
+
+
+def phase_fallback(torch, lm, ms):
+    print("phase 14: the vectorized chains of tests/test_vectorized_markov.py on the card (all routes), "
+          f"model_5 (history 2) at x_dim {M5_X}, T={T}, D={D}, and model_1 (pyro.markov) at "
+          f"{M1_B}.{M1_T}.{D}.{M1_S}")
+    import functools
+
+    import numpy as np
+
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.examples import hmm as example
+    from pyro_tpu_torch.examples import vectorized_markov as vm
+    from pyro_tpu_torch.infer import SVI, TraceEnum_ELBO
+    from pyro_tpu_torch.ops import markov_product
+    from pyro_tpu_torch.optim import Adam
+
+    def run_case(model, data_fn, args, device, dtype):
+        """Loss and param gradients of the vectorized chain on ``device``,
+        with the launches and routes it took."""
+        pyro.set_default_device(device)
+        with default_dtype(torch, dtype):
+            pyro.clear_param_store()
+            data = data_fn()
+            ms.reset_counts()
+            lm.launches.update(forward=0, backward=0)
+            markov_product.reset_routes()
+            with poutine.trace(param_only=True) as capture:
+                loss = TraceEnum_ELBO(max_plate_nesting=3).differentiable_loss(model, vm.no_guide, data, *args)
+            loss.backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+            store = pyro.get_param_store()
+            grads = {k: store.get_unconstrained(k).grad.detach().double().cpu() for k in capture.trace.param_nodes()}
+            counts = {"routes": dict(markov_product.routes), "K1": dict(lm.launches), "K2": dict(ms.launches),
+                      "K2g": dict(ms.tv_launches)}
+        pyro.clear_param_store()
+        pyro.set_default_device("cuda")
+        return float(loss.detach()), grads, counts
+
+    kernel_of = {"scan": "K2", "general": "K2g", "pairwise": "K1"}
+    for model, kind, shape, history in vm.CASES:
+        label = f"{model.__name__} T={shape[-2]} history {history}"
+        data_fn = functools.partial(vm.make_data, kind, shape)
+        loss32, g32, counts = run_case(model, data_fn, (history, True), "cuda", torch.float32)
+        loss64, g64, _ = run_case(model, data_fn, (history, True), "cpu", torch.float64)
+        route = vm.ROUTES[model]
+        kern = counts[kernel_of[route]]
+        rel = abs(loss32 - loss64) / abs(loss64)
+        gerr = max(max_err(g32[k], g64[k]) / (float(g64[k].abs().max()) + 1e-30) for k in g64)
+        print(f"  {label}: route {route}, launches {counts['K1']} K1, {counts['K2']} K2, {counts['K2g']} K2g; "
+              f"loss {loss32:.6f} vs float64 CPU {loss64:.6f} (rel {rel:.3g}); grads to float64 over max|grad| {gerr:.3g}")
+        check(counts["routes"][route] == 1 and kern["forward"] > 0 and kern["backward"] > 0,
+              f"{label}: expected the {route} route through {kernel_of[route]}, got {counts}")
+        check(rel <= 1e-5 and sorted(g32) == sorted(g64), f"{label}: loss rel diff {rel:.3g}")
+        for k in g64:
+            excess = float(((g32[k] - g64[k]).abs() - (1e-5 * float(g64[k].abs().max()) + 1e-4 * g64[k].abs())).max())
+            check(bool(g32[k].isfinite().all()) and excess <= 0, f"{label} grad {k} outside tolerance by {excess:.3g}")
+
+    # model_5 (a second-order chain) at full width: windows of 16^2 = 256
+    # states, K1 at (63, 256, 256) in the first round
+    rng = np.random.default_rng(5)
+    bits = rng.integers(0, 2, size=(T, D))
+    model5 = functools.partial(vm.model_5, x_dim=M5_X, y_dim=2)
+
+    def data5():
+        return torch.tensor(bits, dtype=torch.long, device=pyro.get_default_device())
+
+    loss32, g32, counts = run_case(model5, data5, (2, True), "cuda", torch.float32)
+    loss64, g64, _ = run_case(model5, data5, (2, True), "cpu", torch.float64)
+    rel = abs(loss32 - loss64) / abs(loss64)
+    print(f"  model_5 x_dim {M5_X}, T={T}, D={D}: first step loss {loss32!r} vs float64 CPU {loss64!r} (rel {rel:.3g}); "
+          f"launches {counts}")
+    check(counts["routes"]["pairwise"] == 1 and rel <= TRAIN_LOSS_RTOL, f"model_5: rel {rel:.3g}, {counts}")
+    check_grads("model_5", g32, g64, TRAIN_GRAD_TOL)
+    pyro.clear_param_store()
+    svi = SVI(model5, vm.no_guide, Adam({"lr": 0.05}), TraceEnum_ELBO(max_plate_nesting=3))
+    data = data5()
+    losses, step_ms, k1 = [], [], []
+    for _ in range(M5_STEPS):
+        lm.launches.update(forward=0, backward=0)
+        t0 = time.perf_counter()
+        losses.append(svi.step(data, 2, True))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        k1.append(dict(lm.launches))
+    print(f"  model_5 SVI: losses {losses}; ms a step {[round(t, 3) for t in step_ms]} (the first with set-up); "
+          f"K1 launches a step {k1}")
+    check(all(math.isfinite(l) for l in losses) and all(k == k1[0] and k["forward"] > 0 and k["backward"] > 0
+                                                        for k in k1), f"model_5: {losses}, {k1}")
+    print("  model_5, one more step:")
+    _, _, _, kernels = profile_run(torch, lambda: svi.step(data, 2, True), top=5)
+    print(f"    K1 kernels {sum(e.self_device_time_total for e in kernels if 'lme_' in e.key) / 1e3:.3f} ms")
+    pyro.clear_param_store()
+
+    # model_1, unrolled under pyro.markov, at the hmm_enum_steps_per_sec row;
+    # its step-0 loss against model_1v's (the vectorized chain) at the same params
+    names = ("AutoDelta.probs_x", "AutoDelta.probs_y")
+    argv = ["--hidden-dim", str(M1_S), "--num-sequences", str(M1_B), "--max-length", str(M1_T), "--data-dim", str(D)]
+    args1 = example.parse_args(["--model", "1", *argv])
+    sequences, lengths = example.synthetic_sequences(args1.seed, M1_B, M1_T, D)
+    model, guide, svi = example.make_svi(args1, args1.learning_rate)
+    loss1, _ = enum_loss_and_grads(torch, model, guide, (sequences, lengths), names, 2)
+    values = {k: pyro.get_param_store().get_unconstrained(k).detach() for k in names}
+    pyro.clear_param_store()
+    model_v, guide_v, _ = example.make_svi(example.parse_args(["--model", "1v", *argv]))
+    loss1v, _ = enum_loss_and_grads(torch, model_v, guide_v, (sequences, lengths), names, 3, values)
+    rel = abs(loss1 - loss1v) / abs(loss1v)
+    print(f"  model_1 at {M1_B}.{M1_T}.{D}.{M1_S}: step-0 loss {loss1!r}, model_1v at the same params {loss1v!r} "
+          f"(rel {rel:.3g})")
+    check(rel <= 1e-5, f"model_1 against model_1v: rel {rel:.3g}")
+    pyro.clear_param_store()
+    _, _, svi = example.make_svi(args1, args1.learning_rate)
+    losses, step_ms, launches = [], [], []
+    for _ in range(M1_STEPS):
+        ms.reset_counts()
+        lm.launches.update(forward=0, backward=0)
+        t0 = time.perf_counter()
+        losses.append(svi.step(sequences, lengths))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append({"K1": dict(lm.launches), "K2": dict(ms.launches), "K2g": dict(ms.tv_launches)})
+    print(f"  model_1 SVI: losses {losses}; ms a step {[round(t, 3) for t in step_ms]} (the first with set-up); "
+          f"launches a step {launches[-1]}")
+    check(all(math.isfinite(l) for l in losses), f"model_1: losses {losses}")
+    print("  model_1, one more step:")
+    profile_run(torch, lambda: svi.step(sequences, lengths), top=5)
+    pyro.clear_param_store()
+    return {"model_5_k1": k1[0], "model_1": launches[-1]}
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -1520,6 +1916,9 @@ def main():
     k4.update(phase_k4_backward(torch, gl))
     train_launches = phase_train(torch, gl)["launches"]  # the backward kernels' main path
     k4_launches.update(halving_bwd=train_launches["halving_bwd"], contract_bwd=train_launches["contract_bwd"])
+    k2g = phase_k2g(torch, ms)
+    tv_launches = phase_tv_slice(torch, lm, ms)["launches"]
+    phase_fallback(torch, lm, ms)
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"
@@ -1542,6 +1941,10 @@ def main():
          k4_launches["halving_bwd"]),
         ("gaussian_contract_bwd", "gaussian_levels.cu", "pyro_tpu/ops/gaussian.py:501", k4["contract_bwd"],
          k4_launches["contract_bwd"]),
+        ("markov_scan_tv_fwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:436", k2g["forward"],
+         tv_launches["forward"]),
+        ("markov_scan_tv_bwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:436", k2g["backward"],
+         tv_launches["backward"]),
     ):
         kernels.append({
             "name": name,

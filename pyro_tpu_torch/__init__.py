@@ -9,7 +9,7 @@ levels) run as hand-written CUDA kernels there.
 
 from . import distributions, infer, optim, poutine
 from .params.param_store import clear_param_store, get_param_store
-from .primitives import deterministic, factor, module, param, plate, sample, vectorized_markov
+from .primitives import deterministic, factor, markov, module, param, plate, sample, vectorized_markov
 from .settings import get_default_device, set_default_device
 
 __version__ = "0.1.0"
@@ -22,6 +22,7 @@ __all__ = [
     "get_default_device",
     "get_param_store",
     "infer",
+    "markov",
     "module",
     "optim",
     "param",

@@ -1136,6 +1136,12 @@ static int set_attributes(void) {
 
 // The launch configuration of a cluster kernel: `clusters` clusters of C
 // CTAs of NTC threads.
+// Each entry point reads its launches' errors with cudaGetLastError, which
+// also returns an error an earlier call of this library left unread (a
+// refused cluster launch returns its error without reading it): clear that
+// first, so that a refused launch does not fail the next one.
+static void clear_last_error(void) { (void)cudaGetLastError(); }
+
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
@@ -1172,6 +1178,236 @@ static int fold_dA(const float* A, const float* craw, const float* dR, int B, in
   const int blocks = (int)((n + NT - 1) / NT < 1024 ? (n + NT - 1) / NT : 1024);
   ms_dA_kernel<<<blocks, NT, 0, st>>>(A, craw, cc, partial, nA, S, splits, dA);
   return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- time-varying scan (K2g) --
+//
+// The general body of pyro_tpu/ops/markov_product.py:427-451 (scanned at
+// :469), for a transition that varies with time:
+//
+//   alpha_t+1 = R_t + logsumexp_l(alpha_t + L_t + A_t)     t = 0 .. T-1
+//
+// with A_t (T, S, S) shared by the B rows or (T, B, S, S) one per row.
+// Unlike K2 its values are the body's own, -inf for a state that no path
+// reaches (not log(FLT_MIN)), so each column's logsumexp is shifted by the
+// column's own max, term by term (an online max with one rescale per four
+// terms): no term underflows where a column has a finite one, and a column
+// that has none is -inf.  The gradient through such a column, and through
+// every -inf entry, is 0 (the reference's NaN there is a fault of
+// jax.scipy.special.logsumexp, not copied).  The carry is kept shifted as
+// K2's: the kernels carry alpha less the row maxima so far (hs = h - m is
+// what a step adds to A_t) and sum the shifts in double.
+//
+// Bound on an H100 SXM at model_1vt's shape (B=32, T=127, S=256, A_t shared,
+// f32): the bytes, 33.3 MB of A_t plus 4.2 MB of R, 11 us at 3.35 TB/s (the
+// backward also writes dA_t: about 24 us); 0.53 G exponentials and adds.
+// As K2's, each step is a chain of dependent block phases, so latency, and
+// the SFU's 16 exponentials a clock per SM, set the time at 32 SMs.
+//
+// Forward (mstv_forward_kernel): one block of NTS threads per row b, as K2's
+// streaming route; thread (part, c) runs the online logsumexp of column c
+// over the part-th quarter of l, A_t read from L2/HBM each step (A_t does
+// not fit one block's shared memory at S=256), the quarters merged in a
+// fixed order.  It writes hs_t and o_t = logsumexp_l(hs_t + A_t) (T, B, S)
+// for the backward.
+//
+// Backward: the reverse scan (mstv_backward_kernel, a block per row) with
+// w_t[l, r] = exp(hs_t[l] + A_t[l, r] - o_t[r]) recomputed from the stacks
+// (0 where o_t[r] is -inf): dR_t = g, dh[l] = sum_r g[r] w[l, r] by a warp
+// per l (lanes over r, a shuffle tree), dL_t = dh, g = dh.  Then the fold
+// (mstv_fold_kernel), fully parallel: dA_t[l, r] = sum of g_t[r] w_t[l, r]
+// over the rows that use A_t, in row order: no atomics, so two runs give
+// the same bits.
+
+#define FOLD_L 16  // rows l of dA_t a thread of the fold takes
+
+// Ask L2 for the S*S floats at `next`, the transition of the step after
+// this one, which does not depend on the carry: block `part` of `parts`
+// blocks reading the same matrix asks for every parts-th 128-byte line.
+__device__ __forceinline__ void prefetch_next(const float* next, int S, int part, int parts) {
+  const long long lines = ((long long)S * S * 4 + 127) / 128;
+  const char* p = reinterpret_cast<const char*>(next);
+  for (long long i = part + (long long)threadIdx.x * parts; i < lines; i += (long long)NTS * parts)
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i * 128));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Online logsumexp: (mx, s) holds sum exp(x - mx) of the terms so far; mx
+// is -inf (and s 0) until a finite term comes.
+__device__ __forceinline__ void lse_add4(float& mx, float& s, float x0, float x1, float x2, float x3) {
+  const float m4 = fmaxf(fmaxf(x0, x1), fmaxf(x2, x3));
+  if (m4 > mx) {
+    s *= expf(mx - m4);
+    mx = m4;
+  }
+  if (mx > -INFINITY) s += (expf(x0 - mx) + expf(x1 - mx)) + (expf(x2 - mx) + expf(x3 - mx));
+}
+__device__ __forceinline__ void lse_add1(float& mx, float& s, float x) {
+  if (x > mx) {
+    s *= expf(mx - x);
+    mx = x;
+  }
+  if (mx > -INFINITY) s += expf(x - mx);
+}
+
+// One block per row b.  Shared memory: alpha, hs (S each), the quarters'
+// maxima and sums (NTS each), red (NTS/32).
+__global__ void __launch_bounds__(NTS) mstv_forward_kernel(const float* __restrict__ alpha0,
+                                                           const float* __restrict__ A, const float* __restrict__ R,
+                                                           const float* __restrict__ L, int B, int T, int S,
+                                                           int per_row_A, float* __restrict__ hs_out,
+                                                           float* __restrict__ o_out, float* __restrict__ out) {
+  extern __shared__ float smem[];
+  float* alpha = smem;
+  float* hs = alpha + S;
+  float* pmx = hs + S;
+  float* ps = pmx + NTS;
+  float* red = ps + NTS;
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int c = tid & 255, part = tid >> 8;
+  const int per = (S + NPART - 1) / NPART;
+  const int l_begin = min(S, part * per), l_end = min(S, l_begin + per);
+  for (int l = tid; l < S; l += NTS) alpha[l] = alpha0[(long long)b * S + l];
+  __syncthreads();
+  double norm = 0.0;  // the row's shifts so far (the same in every thread)
+  for (int t = 0; t < T; ++t) {
+    const long long row = ((long long)t * B + b) * S;
+    const float* At = A + ((long long)t * (per_row_A ? B : 1) + (per_row_A ? b : 0)) * S * S;
+    if (t + 1 < T) prefetch_next(At + (long long)(per_row_A ? B : 1) * S * S, S, per_row_A ? 0 : b, per_row_A ? 1 : B);
+    float m = -INFINITY;
+    for (int l = tid; l < S; l += NTS) {
+      const float h = L ? alpha[l] + L[row + l] : alpha[l];
+      hs[l] = h;
+      m = fmaxf(m, h);
+    }
+    m = finite_or_zero(block_max(m, red));
+    norm += (double)m;
+    for (int l = tid; l < S; l += NTS) {
+      const float v = hs[l] - m;
+      hs[l] = v;
+      hs_out[row + l] = v;
+    }
+    __syncthreads();
+    for (int rb = 0; rb < S; rb += 256) {
+      const int r = rb + c;
+      float mx = -INFINITY, s = 0.f;
+      if (r < S) {
+        const float* Ar = At + r;
+        int l = l_begin;
+#pragma unroll 2
+        for (; l + 4 <= l_end; l += 4)
+          lse_add4(mx, s, hs[l] + Ar[(long long)l * S], hs[l + 1] + Ar[(long long)(l + 1) * S],
+                   hs[l + 2] + Ar[(long long)(l + 2) * S], hs[l + 3] + Ar[(long long)(l + 3) * S]);
+        for (; l < l_end; ++l) lse_add1(mx, s, hs[l] + Ar[(long long)l * S]);
+      }
+      pmx[tid] = mx;
+      ps[tid] = s;
+      __syncthreads();
+      if (part == 0 && r < S) {
+        const float M = fmaxf(fmaxf(pmx[c], pmx[256 + c]), fmaxf(pmx[512 + c], pmx[768 + c]));
+        float o = -INFINITY;
+        if (M > -INFINITY) {
+          const float tot = (ps[c] * expf(pmx[c] - M) + ps[256 + c] * expf(pmx[256 + c] - M)) +
+                            (ps[512 + c] * expf(pmx[512 + c] - M) + ps[768 + c] * expf(pmx[768 + c] - M));
+          o = logf(tot) + M;
+        }
+        o_out[row + r] = o;
+        alpha[r] = o + R[row + r];
+      }
+      __syncthreads();
+    }
+  }
+  for (int r = tid; r < S; r += NTS) out[(long long)b * S + r] = (float)((double)alpha[r] + norm);
+}
+
+// One block per row b, t from T-1 down to 0.  Shared memory: g and the next
+// g (S each), hs (S) and o with -inf read as +inf (S).  Writes dR, dL (if
+// L) and dalpha0.
+__global__ void __launch_bounds__(NTS) mstv_backward_kernel(const float* __restrict__ A,
+                                                            const float* __restrict__ hs_in,
+                                                            const float* __restrict__ o_in,
+                                                            const float* __restrict__ gout, int B, int T, int S,
+                                                            int per_row_A, float* __restrict__ dR,
+                                                            float* __restrict__ dL, float* __restrict__ dalpha0) {
+  extern __shared__ float smem[];
+  float* g = smem;
+  float* gn = g + S;
+  float* hs = gn + S;
+  float* og = hs + S;
+  const int b = blockIdx.x, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  for (int r = tid; r < S; r += NTS) g[r] = gout[(long long)b * S + r];
+  __syncthreads();
+  for (int t = T - 1; t >= 0; --t) {
+    const long long row = ((long long)t * B + b) * S;
+    const float* At = A + ((long long)t * (per_row_A ? B : 1) + (per_row_A ? b : 0)) * S * S;
+    if (t > 0) prefetch_next(At - (long long)(per_row_A ? B : 1) * S * S, S, per_row_A ? 0 : b, per_row_A ? 1 : B);
+    for (int l = tid; l < S; l += NTS) {
+      dR[row + l] = g[l];
+      hs[l] = hs_in[row + l];
+      const float o = o_in[row + l];
+      og[l] = o == -INFINITY ? INFINITY : o;
+    }
+    __syncthreads();
+    for (int l = warp; l < S; l += NTS / 32) {
+      const float hl = hs[l];
+      float acc = 0.f;
+      if (hl > -INFINITY) {  // warp-uniform
+        const float* Al = At + (long long)l * S;
+#pragma unroll 4
+        for (int r = lane; r < S; r += 32) acc = fmaf(g[r], expf(hl + Al[r] - og[r]), acc);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) {
+        gn[l] = acc;
+        if (dL) dL[row + l] = acc;
+      }
+    }
+    __syncthreads();
+    float* tmp = g;
+    g = gn;
+    gn = tmp;
+  }
+  for (int l = tid; l < S; l += NTS) dalpha0[(long long)b * S + l] = g[l];
+}
+
+// dA[t, a, l, r] = sum over the rows b that use A[t, a] (all B when A_t is
+// shared, b = a when each row has its own) of
+// G[t, b, r] * exp(hs[t, b, l] + A[t, a, l, r] - o[t, b, r]), in row order.
+// Grid: x over (t, a), y over tiles of 256 columns r and FOLD_L rows l; a
+// thread takes one r and FOLD_L l.
+__global__ void __launch_bounds__(256) mstv_fold_kernel(const float* __restrict__ A, const float* __restrict__ hs,
+                                                        const float* __restrict__ os, const float* __restrict__ G,
+                                                        int B, int T, int S, int nA, float* __restrict__ dA) {
+  const int col_tiles = (S + 255) / 256;
+  const int r = (blockIdx.y % col_tiles) * 256 + threadIdx.x, l0 = (blockIdx.y / col_tiles) * FOLD_L;
+  const int t = blockIdx.x / nA, a = blockIdx.x % nA;
+  if (r >= S) return;
+  const int nl = min(FOLD_L, S - l0);
+  const long long base = ((long long)t * nA + a) * S * S + (long long)l0 * S + r;
+  float av[FOLD_L], acc[FOLD_L];
+#pragma unroll
+  for (int i = 0; i < FOLD_L; ++i) {
+    av[i] = i < nl ? A[base + (long long)i * S] : 0.f;
+    acc[i] = 0.f;
+  }
+  const int b_begin = nA > 1 ? a : 0, b_end = nA > 1 ? a + 1 : B;
+  for (int b = b_begin; b < b_end; ++b) {
+    const long long row = ((long long)t * B + b) * S;
+    const float gr = G[row + r], o = os[row + r];
+    if (gr == 0.f || o == -INFINITY) continue;  // the row adds nothing to column r
+    const float* hb = hs + row + l0;
+#pragma unroll
+    for (int i = 0; i < FOLD_L; ++i)
+      if (i < nl) acc[i] = fmaf(gr, expf(hb[i] + av[i] - o), acc[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < FOLD_L; ++i)
+    if (i < nl) dA[base + (long long)i * S] = acc[i];
 }
 
 extern "C" {
@@ -1214,6 +1450,7 @@ int msc_active_clusters(int S, int C, int rows, int* count) {
 int ms_forward(const float* alpha0, const float* A, const float* R, const float* L, int B, int T, int S, int nA,
                float* alphas, float* zs, float* out, float* Q, float* QT, float* craw, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  clear_last_error();
   int err = set_attributes();
   if (err) return err;
   dim3 prep_grid((S + NT - 1) / NT, nA);
@@ -1233,6 +1470,7 @@ int ms_backward(const float* A, const float* alphas, const float* zs, const floa
                 float* dalpha0, float* dR, float* dL, float* dA, float* P, float* W, float* Wc, float* cc,
                 float* partial, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  clear_last_error();
   int err = set_attributes();
   if (err) return err;
   const size_t smem = (6 * (size_t)S + NTS + NTS / 32) * sizeof(float);
@@ -1249,6 +1487,7 @@ int ms_backward(const float* A, const float* alphas, const float* zs, const floa
 int msc_forward(const float* alpha0, const float* A, const float* R, const float* L, int B, int T, int S, int nA,
                 int C, int rows, float* alphas, float* zs, float* out, float* craw, void* stream) {
   if (!cl_takes(S, C, rows)) return (int)cudaErrorInvalidValue;
+  clear_last_error();
   int err = set_attributes();
   if (err) return err;
   ClusterLaunch launch(C, (B + rows - 1) / rows, (size_t)msc_smem_bytes(S, C, rows, 0), (cudaStream_t)stream);
@@ -1268,6 +1507,7 @@ int msc_backward(const float* A, const float* alphas, const float* zs, const flo
                  float* G0, float* G1, float* F0, float* F1, float* crcs, int* two, void* stream) {
   if (!cl_takes(S, C, rows)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
+  clear_last_error();
   int err = set_attributes();
   if (err) return err;
   const int groups = (B + rows - 1) / rows;
@@ -1286,6 +1526,32 @@ int msc_backward(const float* A, const float* alphas, const float* zs, const flo
   err = (int)cudaGetLastError();
   if (err) return err;
   return fold_dA(A, craw, dR, B, T, S, nA, splits, dA, P, W, Wc, cc, partial, st);
+}
+
+// Time-varying scan (K2g).  alpha0 (B, S); A (T, nA, S, S), nA 1 or B; R and
+// L (T, B, S), L may be null; outputs: hs and o (T, B, S), kept for the
+// backward, and out (B, S).
+int mstv_forward(const float* alpha0, const float* A, const float* R, const float* L, int B, int T, int S, int nA,
+                 float* hs, float* o, float* out, void* stream) {
+  clear_last_error();
+  const size_t smem = (2 * (size_t)S + 2 * NTS + NTS / 32) * sizeof(float);
+  mstv_forward_kernel<<<B, NTS, smem, (cudaStream_t)stream>>>(alpha0, A, R, L, B, T, S, nA > 1, hs, o, out);
+  return (int)cudaGetLastError();
+}
+
+// gout (B, S) is dloss/dalpha_T; hs and o are the forward's.  Outputs
+// dalpha0 (B, S), dR (T, B, S), dL (T, B, S) or null, dA (T, nA, S, S).
+int mstv_backward(const float* A, const float* hs, const float* o, const float* gout, float* dL, int B, int T,
+                  int S, int nA, float* dalpha0, float* dR, float* dA, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  clear_last_error();
+  const size_t smem = 4 * (size_t)S * sizeof(float);
+  mstv_backward_kernel<<<B, NTS, smem, st>>>(A, hs, o, gout, B, T, S, nA > 1, dR, dL, dalpha0);
+  int err = (int)cudaGetLastError();
+  if (err) return err;
+  dim3 grid((unsigned)T * nA, ((S + 255) / 256) * ((S + FOLD_L - 1) / FOLD_L));
+  mstv_fold_kernel<<<grid, 256, 0, st>>>(A, hs, o, dR, B, T, S, nA, dA);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

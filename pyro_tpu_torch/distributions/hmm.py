@@ -27,22 +27,14 @@ from ..ops.gaussian import (
     sequential_gaussian_tensordot,
     sequential_gaussian_tensordot_homogeneous,
 )
-from ..ops.log_matmul import logmatmulexp
+from ..ops.log_matmul import logmatmulexp, sequential_logmatmulexp_timemajor
 
 
 def _sequential_logmatmulexp(logits, logmatmulexp=logmatmulexp):
     """Reduce a (..., T, S, S) chain of log transition factors to one
-    (..., S, S) factor in ceil(log2 T) rounds.  The paired halves are
-    strided views, which the kernel reads in place."""
-    while logits.shape[-3] > 1:
-        time = logits.shape[-3]
-        even_time = time // 2 * 2
-        x_y = logits[..., :even_time, :, :].reshape(logits.shape[:-3] + (even_time // 2, 2) + logits.shape[-2:])
-        contracted = logmatmulexp(x_y[..., 0, :, :], x_y[..., 1, :, :])
-        if time > even_time:
-            contracted = torch.cat([contracted, logits[..., even_time:, :, :]], dim=-3)
-        logits = contracted
-    return logits[..., 0, :, :]
+    (..., S, S) factor: ``sequential_logmatmulexp_timemajor`` on the view
+    with time leading."""
+    return sequential_logmatmulexp_timemajor(logits.movedim(-3, 0), logmatmulexp)
 
 
 class DiscreteHMM(Distribution):

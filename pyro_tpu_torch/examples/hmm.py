@@ -9,6 +9,11 @@
   dimension vectorized by ``vectorized_markov`` and its hidden states
   enumerated; ``TraceEnum_ELBO`` eliminates the chain with the Markov-chain
   scan, the CUDA kernel of ``ops/markov_scan.py`` on the card.
+* model 1vt (``--model 1vt``) is model 1v with a transition matrix per
+  step (``probs_x`` of shape (T, H, H)); its chain goes through the
+  time-varying scan, ``markov_scan_tv`` (K2g on the card).
+* model 1 (``--model 1``) is the HMM of model 1v unrolled over time under
+  ``pyro.markov``, the enumeration engine's own path (no scan).
 
 Run on the card:  python -m pyro_tpu_torch.examples.hmm --model 1v --num-steps 20
 (``--cpu`` for the CPU)
@@ -61,7 +66,7 @@ _FLAX_LAYERS = {"Conv_0": "conv", "Dense_0": "dense_x", "Dense_1": "dense_y", "D
 
 
 def params_from_jax(named):
-    """Map the JAX store's unconstrained model_7 or model_1v params (name ->
+    """Map the JAX store's unconstrained model_7, 1v, 1vt or 1 params (name ->
     numpy array) onto this package's names: flax Dense kernels (in, out)
     become ``nn.Linear`` weights (out, in), the flax Conv kernel (width, in,
     out) becomes the ``Conv1d`` weight (out, in, width); biases,
@@ -144,6 +149,85 @@ def model_1v(sequences, lengths, args, include_prior=True):
                 x_prev = x_curr
 
 
+def model_1vt(sequences, lengths, args, include_prior=True):
+    """model_1v with a transition matrix per step: x_t ~ Categorical(
+    probs_x[t, x_{t-1}]), x_{-1} = 0; ``probs_x`` (T, H, H) has the prior
+    Dirichlet(0.9 I + 0.1) at every step.  Constants take the data's dtype."""
+    num_sequences, max_length, data_dim = sequences.shape
+    device, dtype = sequences.device, sequences.dtype
+    with poutine.mask(mask=include_prior):
+        probs_x = pyro.sample(
+            "probs_x",
+            dist.Dirichlet(0.9 * torch.eye(args.hidden_dim, device=device, dtype=dtype) + 0.1)
+            .expand((max_length, args.hidden_dim))
+            .to_event(2),
+        )
+        probs_y = pyro.sample(
+            "probs_y",
+            dist.Beta(torch.tensor(0.1, device=device, dtype=dtype), torch.tensor(0.9, device=device, dtype=dtype))
+            .expand((args.hidden_dim, data_dim))
+            .to_event(2),
+        )
+    tones_plate = pyro.plate("tones", data_dim, dim=-1)
+    with pyro.plate("sequences", num_sequences, dim=-3) as batch:
+        lengths_b = lengths[batch]
+        batch = batch[:, None]
+        x_prev = 0
+        for t in pyro.vectorized_markov(name="time", size=max_length, dim=-2):
+            with poutine.mask(mask=(t < lengths_b[:, None])[..., None]):
+                step = t if isinstance(t, int) else t[:, None]
+                x_curr = pyro.sample(
+                    f"x_{t}",
+                    dist.Categorical(Vindex(probs_x)[..., step, x_prev, :]),
+                    infer={"enumerate": "parallel"},
+                )
+                with tones_plate:
+                    pyro.sample(
+                        f"y_{t}",
+                        dist.Bernoulli(Vindex(probs_y)[..., x_curr.squeeze(-1), :]),
+                        obs=Vindex(sequences)[batch, t],
+                    )
+                x_prev = x_curr
+
+
+def model_1(sequences, lengths, args, include_prior=True):
+    """The HMM with Bernoulli tones, vectorized over sequences (dim -2) and
+    unrolled over time under ``pyro.markov``; tones at dim -1."""
+    num_sequences, max_length, data_dim = sequences.shape
+    device = sequences.device
+    with poutine.mask(mask=include_prior):
+        probs_x = pyro.sample(
+            "probs_x",
+            dist.Dirichlet(0.9 * torch.eye(args.hidden_dim, device=device) + 0.1).to_event(1),
+        )
+        probs_y = pyro.sample(
+            "probs_y",
+            dist.Beta(torch.tensor(0.1, device=device), torch.tensor(0.9, device=device))
+            .expand((args.hidden_dim, data_dim))
+            .to_event(2),
+        )
+    tones_plate = pyro.plate("tones", data_dim, dim=-1)
+    with pyro.plate("sequences", num_sequences, dim=-2):
+        x = torch.zeros((), dtype=torch.long, device=device)
+        for t in pyro.markov(range(max_length)):
+            with poutine.mask(mask=(t < lengths)[:, None]):
+                x = pyro.sample(
+                    f"x_{t}",
+                    dist.Categorical(Vindex(probs_x)[..., x, :]),
+                    infer={"enumerate": "parallel"},
+                )
+                with tones_plate:
+                    pyro.sample(
+                        f"y_{t}",
+                        dist.Bernoulli(Vindex(probs_y)[..., x.squeeze(-1), :]),
+                        obs=sequences[:, t],
+                    )
+
+
+# the enumerated models: --model name -> (model, max_plate_nesting)
+ENUM_MODELS = {"1v": (model_1v, 3), "1vt": (model_1vt, 3), "1": (model_1, 2)}
+
+
 def synthetic_sequences(seed, num_sequences, max_length, data_dim, hidden_dim=4):
     """Sequences sampled with numpy from a random ground-truth HMM."""
     rng = np.random.default_rng(seed)
@@ -166,15 +250,18 @@ def _is_global(msg):
 def make_svi(args, lr=0.05):
     """The model chosen by ``args.model`` (7 when unset), its AutoDelta guide
     and SVI with Adam, as ``examples/hmm.py::main`` builds them: model_7
-    with Trace_ELBO (sets ``args.tones_generator``), model_1v with
-    ``TraceEnum_ELBO(max_plate_nesting=3)``."""
-    if str(getattr(args, "model", "7")) == "1v":
+    with Trace_ELBO (sets ``args.tones_generator``), the enumerated models
+    (1v, 1vt, 1) with ``TraceEnum_ELBO`` at their ``ENUM_MODELS`` plate
+    nesting (3, 3, 2)."""
+    name = str(getattr(args, "model", "7"))
+    if name in ENUM_MODELS:
+        enum_model, nesting = ENUM_MODELS[name]
 
         def model_v(sequences, lengths):
-            return model_1v(sequences, lengths, args)
+            return enum_model(sequences, lengths, args)
 
         guide = AutoDelta(poutine.block(model_v, expose_fn=_is_global))
-        elbo = TraceEnum_ELBO(max_plate_nesting=3)
+        elbo = TraceEnum_ELBO(max_plate_nesting=nesting)
         return model_v, guide, SVI(model_v, guide, Adam({"lr": lr}), elbo, seed=args.seed)
     if getattr(args, "tones_generator", None) is None:
         torch.manual_seed(args.seed)
@@ -207,7 +294,7 @@ def run(args):
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--model", choices=["7", "1v"], default="7")
+    p.add_argument("--model", choices=["7", *ENUM_MODELS], default="7")
     p.add_argument("--hidden-dim", type=int, default=8)
     p.add_argument("--num-sequences", type=int, default=20)
     p.add_argument("--max-length", type=int, default=32)

@@ -296,3 +296,23 @@ def logmatmulexp(x, y):
     if x.is_cuda or y.is_cuda:
         return _LogMatMulExpCUDA.apply(x, y)
     return logmatmulexp_plain(x, y)
+
+
+def sequential_logmatmulexp_timemajor(logits, logmatmulexp=logmatmulexp):
+    """Reduce a (T, ..., S, S) chain of log transition factors to one
+    (..., S, S) factor in ceil(log2 T) halving rounds, each one batched
+    ``logmatmulexp`` over the time-paired halves (K1 on the card: one
+    launch a round each way).  Counterpart of
+    ``pyro_tpu/ops/log_matmul.py::sequential_logmatmulexp_timemajor``
+    (K3), whose body is ``logmatmulexp`` in rounds.  The halves are strided
+    views along the leading time axis, which the kernel reads in place; an
+    odd round's last factor passes through to the next."""
+    while logits.shape[0] > 1:
+        time = logits.shape[0]
+        even = time // 2 * 2
+        pairs = logits[:even].reshape((time // 2, 2) + logits.shape[1:])
+        contracted = logmatmulexp(pairs[:, 0], pairs[:, 1])
+        if time > even:
+            contracted = torch.cat([contracted, logits[even:]], dim=0)
+        logits = contracted
+    return logits[0]

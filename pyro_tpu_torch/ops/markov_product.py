@@ -10,20 +10,24 @@ factors for ``contract_tensor_tree`` to finish.  The scan's per-step
 factors stay compact: a homogeneous transition stays (S, S) and is never
 built at (B, T, S, S).
 
-Routes of the scan, by the shape of the transition:
+Routes, by the chain and the shape of its transition (counted in
+``routes`` per chain eliminated):
 
-* shared by every plate row (the homogeneous HMM):
+* ``"scan"``, a transition with no time axis, shared by every plate row
+  (the homogeneous HMM) or one per row:
   ``alpha' = R_t + logmatmulexp(alpha + L_t, A)``, the plate rows
-  flattened into the product's rows; ``ops/markov_scan.py``, one kernel
-  launch on the card for all steps;
-* one transition per plate row: the same kernel, which takes one A per row;
-* a transition that varies with time: a plain PyTorch loop of elementwise
-  logsumexp steps.
-
-The O(log T) pairwise matrix-product fallback of the JAX package (for
-``history >= 2``, several interleaved chain variables, per-step local
-enumeration dims, or endpoints that cannot be absorbed) is not ported yet:
-it raises ``NotImplementedError`` (ROADMAP.md Queue 1 item 4).
+  flattened into the product's rows; ``ops/markov_scan.py::markov_scan``
+  (K2), one kernel launch each way on the card for all steps;
+* ``"general"``, a transition that varies with time:
+  ``alpha' = R_t + logsumexp_l(alpha + L_t + A_t)`` with A_t (T, S, S) or
+  one per row; ``ops/markov_scan.py::markov_scan_tv`` (K2g), one launch
+  each way on the card;
+* ``"pairwise"``, the O(log T) matrix-product fallback for chains the scan
+  does not take (``history >= 2``, several chain variables, per-step local
+  enumeration dims, or endpoints that cannot be absorbed): the (T, ...,
+  S, S) window transitions, time-major, reduced by
+  ``ops/log_matmul.py::sequential_logmatmulexp_timemajor`` in ceil(log2 T)
+  rounds of ``logmatmulexp`` (K1 on the card).
 """
 
 from __future__ import annotations
@@ -33,7 +37,24 @@ import math
 import torch
 
 from . import packed
-from .markov_scan import markov_scan
+from .log_matmul import sequential_logmatmulexp_timemajor
+from .markov_scan import markov_scan, markov_scan_tv, masked_logsumexp
+
+# chains eliminated by each route since the last reset_routes()
+routes = {"scan": 0, "general": 0, "pairwise": 0}
+
+
+def reset_routes():
+    routes.update(scan=0, general=0, pairwise=0)
+
+
+def _packed_sum(terms):
+    """Sum log factors, aligned to the union of their dims."""
+    parts = packed.broadcast_all(*terms)
+    val = parts[0].value
+    for p in parts[1:]:
+        val = val + p.value
+    return val, parts[0].dims
 
 
 def _reduce_to_ordinal(term, ordinal, target_ordinal, sym_size):
@@ -124,16 +145,67 @@ def eliminate_markov_chains(model_trace, log_factors, sum_dims):
 
         union_dims = set().union(*[set(x.dims) for x in reduced])
         local = [d for d in union_dims if d not in chain_syms and d != time_sym and d not in sym_size]
-        if not (len(chain_set) == 1 and history == 1 and not local) or not _try_scan_elimination(
+        if len(chain_set) == 1 and history == 1 and not local and _try_scan_elimination(
             log_factors, sum_dims, reduced, int_syms[0][0], slice_syms[0][0], slice_syms[0][1], sizes[0],
             time_sym, target_ordinal, sym_size,
         ):
-            raise NotImplementedError(
-                "this vectorized_markov chain needs the O(log T) pairwise matrix-product elimination "
-                "(history >= 2, several chain variables, per-step local enumeration dims, or endpoint "
-                "factors that cannot be absorbed), which is not ported yet; see ROADMAP.md Queue 1 item 4"
-            )
+            continue
+        _pairwise_elimination(log_factors, sum_dims, reduced, local, chain_syms, int_syms, slice_syms, sizes,
+                              history, time_sym, target_ordinal)
     return sum_dims
+
+
+def _pairwise_elimination(log_factors, sum_dims, reduced, local, chain_syms, int_syms, slice_syms, sizes, history,
+                          time_sym, target_ordinal):
+    """The O(log T) fallback (``pyro_tpu/ops/markov_product.py:213-291``):
+    sum out the local dims, lay the joint transition out time-major as
+    (time, plates..., slots of each variable), constrain the overlap of
+    consecutive windows (history >= 2) by -inf-masked duplicates of the
+    middle slots, reshape to window matrices (T, plates..., S, S) with
+    S = prod(sizes ** history), and reduce them pairwise.  Leaves one
+    factor over the first window's int sites and the last window's slice
+    sites."""
+    V, h = len(slice_syms), history
+    A, A_dims = _packed_sum(reduced)
+    if local:
+        A = masked_logsumexp(A, tuple(A_dims.index(d) for d in local))
+        A_dims = "".join(d for d in A_dims if d not in local)
+
+    other = "".join(d for d in A_dims if d not in chain_syms and d != time_sym)
+    slot_order = [slice_syms[v][i] for v in range(V) for i in range(h + 1)]
+    A = packed.align(packed.PackedTensor(A, A_dims), time_sym + other + "".join(slot_order)).value
+    nb = 1 + len(other)
+    A = A.expand(A.shape[:nb] + tuple(sizes[v] for v in range(V) for _ in range(h + 1)))
+
+    # right-hand duplicates of the middle slots: log-deltas tie each window's
+    # last h slots to the next window's first h
+    mid_axes = {}
+    for v in range(V):
+        for i in range(1, h):
+            K = sizes[v]
+            src = nb + v * (h + 1) + i
+            A = A.unsqueeze(-1).expand(A.shape + (K,))
+            eye = torch.eye(K, dtype=torch.bool, device=A.device)
+            A = torch.where(eye.reshape([K if ax in (src, A.ndim - 1) else 1 for ax in range(A.ndim)]), A, -torch.inf)
+            mid_axes[(v, i)] = A.ndim - 1
+
+    left_axes = [nb + v * (h + 1) + i for v in range(V) for i in range(h)]
+    right_axes = [mid_axes[(v, i)] if i < h else nb + v * (h + 1) + h for v in range(V) for i in range(1, h + 1)]
+    M = A.permute(list(range(nb)) + left_axes + right_axes)
+    S = math.prod(sizes[v] ** h for v in range(V))
+    M = M.reshape(M.shape[:nb] + (S, S))
+
+    R = sequential_logmatmulexp_timemajor(M)  # (plates..., S, S)
+    per_slot = tuple(sizes[v] for v in range(V) for _ in range(h))
+    R = R.reshape(R.shape[:-2] + per_slot + per_slot)
+    left_syms = [int_syms[v][i] for v in range(V) for i in range(h)]
+    right_syms = [slice_syms[v][i] for v in range(V) for i in range(1, h + 1)]
+    new_dims = other + "".join(left_syms) + "".join(right_syms)
+    assert len(set(new_dims)) == len(new_dims), new_dims
+    log_factors.setdefault(target_ordinal, []).append(packed.PackedTensor(R, new_dims))
+    sum_dims.update(left_syms)
+    sum_dims.update(right_syms)
+    routes["pairwise"] += 1
 
 
 def _try_scan_elimination(log_factors, sum_dims, reduced, i_sym, l_sym, r_sym, size, time_sym, target_ordinal,
@@ -192,6 +264,20 @@ def _try_scan_elimination(log_factors, sum_dims, reduced, i_sym, l_sym, r_sym, s
         else:
             c_r.append(packed.align(x, other + r_sym).value)
 
+    def per_step(tv, c):
+        """The (steps, rows, size) sum of the time-varying and constant
+        factors over one endpoint, or None where there is none."""
+        terms = tv + [v.unsqueeze(0) for v in c]
+        if not terms:
+            return None
+        total = sum(terms[1:], terms[0])
+        return total.expand((steps,) + other_shape + (size,)).reshape(steps, rows, size)
+
+    R = per_step(tv_r, c_r)
+    if R is None:
+        R = alpha0.new_zeros((steps, rows, size))
+    L = per_step(tv_l, c_l)
+    alpha0 = alpha0.reshape(rows, size)
     if c_lr and not tv_lr:
         # alpha' = R_t + logmatmulexp(alpha + L_t, A), the plate rows
         # flattened into the product's rows
@@ -200,34 +286,24 @@ def _try_scan_elimination(log_factors, sum_dims, reduced, i_sym, l_sym, r_sym, s
             A = A.reshape(A.shape[-2:])
         else:
             A = A.expand(other_shape + A.shape[-2:]).reshape((rows,) + A.shape[-2:])
-
-        def per_step(tv, c):
-            terms = tv + [v.unsqueeze(0) for v in c]
-            if not terms:
-                return None
-            total = sum(terms[1:], terms[0])
-            return total.expand((steps,) + other_shape + (size,)).reshape(steps, rows, size)
-
-        R = per_step(tv_r, c_r)
-        if R is None:
-            R = alpha0.new_zeros((steps, rows, size))
-        alpha = markov_scan(alpha0.reshape(rows, size), A, R, per_step(tv_l, c_l))
-        alpha = alpha.reshape(other_shape + (size,))
+        alpha = markov_scan(alpha0, A, R, L)
+        routes["scan"] += 1
     else:
-        # a transition that varies with time: build each step's (l, r)
-        # factor elementwise
-        consts = list(c_lr) + [v[..., :, None] for v in c_l] + [v[..., None, :] for v in c_r]
-
-        def at(v, t):
-            return v[t if v.shape[0] > 1 else 0]
-
-        alpha = alpha0
-        for t in range(steps):
-            M = sum([at(v, t) for v in tv_lr], 0.0)
-            M = M + sum([at(v, t)[..., :, None] for v in tv_l], 0.0)
-            M = M + sum([at(v, t)[..., None, :] for v in tv_r], 0.0)
-            M = M + sum(consts, 0.0)
-            alpha = torch.logsumexp(alpha[..., :, None] + M, dim=-2)
+        # a transition that varies with time: A_t = the (l, r) factors, with
+        # the constant ones broadcast over time, shared by the plate rows
+        # where no factor has a plate dim, else one per row
+        lr_terms = tv_lr + [v.unsqueeze(0) for v in c_lr]
+        if lr_terms:
+            A = sum(lr_terms[1:], lr_terms[0])  # (steps or 1, plates-or-1..., l, r)
+        else:
+            A = alpha0.new_zeros((1,) * (1 + len(other_shape)) + (size, size))
+        if all(d == 1 for d in A.shape[1:-2]):
+            A = A.reshape(A.shape[:1] + A.shape[-2:]).expand(steps, size, size)
+        else:
+            A = A.expand((steps,) + other_shape + (size, size)).reshape(steps, rows, size, size)
+        alpha = markov_scan_tv(alpha0, A, R, L)
+        routes["general"] += 1
+    alpha = alpha.reshape(other_shape + (size,))
 
     # drop the absorbed factors
     absorbed_ids = {id(x) for _, x in absorbed}

@@ -20,6 +20,18 @@ and the device's limits before the launch: the cluster route, which keeps
 that fits, and the streaming route, which re-reads it from L2 every step,
 for larger S.  A refused launch raises; neither route stands in for the
 other.
+
+``markov_scan_tv`` is the same scan with a transition per step (K2g),
+
+    alpha_{t+1} = R_t + logsumexp_l(alpha_t + L_t + A_t),   A_t (T, S, S) or (T, B, S, S),
+
+the general body of the JAX package's ``_try_scan_elimination``.  Its
+values are that body's (-inf for a state no path reaches), its gradients
+finite and 0 through every -inf entry.  On CUDA tensors it is one launch of
+the ``mstv_*`` kernels of ``csrc/markov_scan.cu`` (its backward one more),
+behind a ``torch.autograd.Function``; on CPU tensors
+``markov_scan_tv_plain`` runs, the plain loop under autograd that the
+kernels are held against.
 """
 
 from __future__ import annotations
@@ -72,6 +84,63 @@ def markov_scan_plain(alpha0, A, R, L=None):
     return (alpha.double() + norm).to(alpha.dtype)
 
 
+# -- the time-varying scan (K2g): plain versions ----------------------------------
+
+
+def _check_tv_shapes(alpha0, A, R, L):
+    if alpha0.ndim != 2:
+        raise ValueError(f"markov_scan_tv: alpha0 must be (B, S), got {tuple(alpha0.shape)}")
+    B, S = alpha0.shape
+    if R.ndim != 3 or R.shape[1:] != (B, S):
+        raise ValueError(f"markov_scan_tv: R must be (T, {B}, {S}), got {tuple(R.shape)}")
+    T = R.shape[0]
+    if A.shape not in ((T, S, S), (T, B, S, S)):
+        raise ValueError(f"markov_scan_tv: A must be ({T}, {S}, {S}) or ({T}, {B}, {S}, {S}), got {tuple(A.shape)}")
+    if L is not None and L.shape != R.shape:
+        raise ValueError(f"markov_scan_tv: L must be {tuple(R.shape)}, got {tuple(L.shape)}")
+
+
+def _finite(v):
+    return torch.where(torch.isfinite(v), v, torch.zeros_like(v))
+
+
+def masked_logsumexp(x, dim):
+    """``logsumexp`` over ``dim`` that is -inf where every term is -inf,
+    with gradient 0 there (and through every -inf term) instead of NaN:
+    the shift skips all -inf slices, and the log is taken only where the
+    sum is positive."""
+    m = _finite(x.detach().amax(dim, keepdim=True))
+    s = torch.exp(x - m).sum(dim)
+    live = s > 0
+    return torch.where(live, torch.log(torch.where(live, s, torch.ones_like(s))), -torch.inf) + m.squeeze(dim)
+
+
+def markov_scan_tv_plain(alpha0, A, R, L=None):
+    """``alpha_T`` of the time-varying scan
+
+        alpha_{t+1} = R_t + logsumexp_l(alpha_t + L_t + A_t),   t < T
+
+    with A_t (T, S, S) shared by the B rows or (T, B, S, S) one per row:
+    the general body of ``pyro_tpu/ops/markov_product.py:427-451`` as a
+    plain PyTorch loop, differentiated by autograd, on any device.
+
+    Its values are the general body's, -inf for a state no path reaches.
+    Unlike the JAX body, whose ``logsumexp`` gives NaN gradients at an all
+    -inf column, the gradients are finite and exactly 0 through every -inf
+    entry (``masked_logsumexp``).  The carry is kept shifted as in
+    ``markov_scan_plain``: each step subtracts the row max of h before
+    adding A_t, and the shifts add up beside it in float64."""
+    _check_tv_shapes(alpha0, A, R, L)
+    alpha = alpha0
+    norm = torch.zeros(alpha0.shape[:-1] + (1,), dtype=torch.float64, device=alpha0.device)
+    for t in range(R.shape[0]):
+        h = alpha if L is None else alpha + L[t]
+        m = _finite(h.detach().amax(-1, keepdim=True))
+        alpha = masked_logsumexp((h - m).unsqueeze(-1) + A[t], -2) + R[t]
+        norm = norm + m.double()
+    return (alpha.double() + norm).to(alpha.dtype)
+
+
 # -- CUDA kernels -----------------------------------------------------------------
 
 # Launches of the CUDA scan, counted by the wrapper, on either route.  On
@@ -90,9 +159,20 @@ CLUSTER_SIZES = (8, 16)
 CLUSTER_THREADS = 256  # NTC of csrc/markov_scan.cu
 
 
+# Launches of the time-varying scan's kernels (K2g), counted by the wrapper:
+# a forward launch runs one kernel, a backward launch two (the reverse scan,
+# then the dA_t fold).
+tv_launches = {"forward": 0, "backward": 0}
+# K2g's backward block keeps 4 rows of S floats in dynamic shared memory,
+# under the 48 KB a launch gets without opting in to more (the forward's
+# 2 S + 2080 floats allow a larger S)
+MAX_STATES_TV = 48 * 1024 // (4 * 4)
+
+
 def reset_counts():
     """Set every launch count to 0."""
     launches.update(forward=0, backward=0)
+    tv_launches.update(forward=0, backward=0)
     for counts in route_launches.values():
         counts.update(forward=0, backward=0)
 
@@ -199,6 +279,10 @@ def _lib():
     lib.msc_active_clusters.restype = ctypes.c_int
     lib.msc_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.msc_smem_limit.restype = ctypes.c_int
+    lib.mstv_forward.argtypes = [_P, _P, _P, _P, _c, _c, _c, _c, _P, _P, _P, _P]
+    lib.mstv_forward.restype = ctypes.c_int
+    lib.mstv_backward.argtypes = [_P] * 5 + [_c] * 4 + [_P] * 4
+    lib.mstv_backward.restype = ctypes.c_int
     return lib
 
 
@@ -358,3 +442,76 @@ def markov_scan(alpha0, A, R, L=None, plan=None):
     if any(t is not None and t.is_cuda for t in (alpha0, A, R, L)):
         return _MarkovScanCUDA.apply(alpha0, A, R, L, plan)
     return markov_scan_plain(alpha0, A, R, L)
+
+
+# -- the time-varying scan (K2g): CUDA kernels and the wrapper ---------------------
+
+
+def _tv_forward_cuda(alpha0, A, R, L=None):
+    """alpha_T and what the backward reads, hs_t = h_t - m_t and
+    o_t = logsumexp_l(hs_t + A_t) (T, B, S) each, by one launch of
+    ``mstv_forward_kernel``."""
+    _check_tv_shapes(alpha0, A, R, L)
+    _check_cuda(alpha0, A, R, L)
+    T, B, S = R.shape
+    if T == 0 or B == 0 or S == 0 or S > MAX_STATES_TV:
+        raise ValueError(f"markov_scan_tv: the kernel takes 1 <= T, 1 <= B and 1 <= S <= {MAX_STATES_TV}, "
+                         f"got {T, B, S}")
+    nA = 1 if A.ndim == 3 else B
+    alpha0, A, R = alpha0.contiguous(), A.contiguous(), R.contiguous()
+    L = None if L is None else L.contiguous()
+    new = functools.partial(torch.empty, dtype=alpha0.dtype, device=alpha0.device)
+    hs, os, out = new((T, B, S)), new((T, B, S)), new((B, S))
+    err = _lib().mstv_forward(alpha0.data_ptr(), A.data_ptr(), R.data_ptr(), _ptr(L), B, T, S, nA,
+                              hs.data_ptr(), os.data_ptr(), out.data_ptr(), _stream(alpha0))
+    if err:
+        raise RuntimeError(f"markov_scan_tv forward failed to launch: CUDA error {err}")
+    tv_launches["forward"] += 1
+    return out, hs, os
+
+
+def _tv_backward_cuda(A, L, hs, os, g):
+    """dalpha0, dA (one per step, and per row where A has a row axis), dR
+    and dL (None without L) from dloss/dalpha_T: ``mstv_backward_kernel``
+    (the reverse scan) and ``mstv_fold_kernel`` (dA_t)."""
+    _check_cuda(g, A, L, hs, os)
+    T, B, S = hs.shape
+    if g.shape != (B, S):
+        raise ValueError(f"markov_scan_tv: gradient shape {tuple(g.shape)} != ({B}, {S})")
+    nA = 1 if A.ndim == 3 else B
+    g, A = g.contiguous(), A.contiguous()
+    L = None if L is None else L.contiguous()
+    new = functools.partial(torch.empty, dtype=g.dtype, device=g.device)
+    dalpha0, dR, dA = new((B, S)), new((T, B, S)), new(A.shape)
+    dL = None if L is None else new((T, B, S))
+    err = _lib().mstv_backward(A.data_ptr(), hs.data_ptr(), os.data_ptr(), g.data_ptr(), _ptr(dL), B, T, S, nA,
+                               dalpha0.data_ptr(), dR.data_ptr(), dA.data_ptr(), _stream(g))
+    if err:
+        raise RuntimeError(f"markov_scan_tv backward failed to launch: CUDA error {err}")
+    tv_launches["backward"] += 1
+    return dalpha0, dA, dR, dL
+
+
+class _MarkovScanTVCUDA(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, alpha0, A, R, L):
+        out, hs, os = _tv_forward_cuda(alpha0, A, R, L)
+        ctx.save_for_backward(A, L, hs, os)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        A, L, hs, os = ctx.saved_tensors
+        return _tv_backward_cuda(A, L, hs, os, g)
+
+
+def markov_scan_tv(alpha0, A, R, L=None):
+    """``alpha_T`` of ``markov_scan_tv_plain``'s recurrence.  CUDA tensors
+    go through the hand-written kernels with their analytic backward (one
+    launch forward, one backward; float32 only, raising rather than
+    falling back); CPU tensors go through the plain version.  Replaces the
+    general body of ``pyro_tpu/ops/markov_product.py:427-451`` scanned at
+    ``:469``."""
+    if any(t is not None and t.is_cuda for t in (alpha0, A, R, L)):
+        return _MarkovScanTVCUDA.apply(alpha0, A, R, L)
+    return markov_scan_tv_plain(alpha0, A, R, L)

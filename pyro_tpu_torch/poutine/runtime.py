@@ -77,9 +77,12 @@ class _EnumAllocator:
         self.next_available_id = 0
         self.dim_to_id.clear()
 
-    def allocate(self):
-        """A fresh dim, never recycled (``pyro.markov``'s recyclable local
-        dims are not ported), and its id."""
+    def allocate(self, scope_dims=None):
+        """A dim and its id.  Without ``scope_dims`` the dim is global: never
+        recycled, and recorded in ``dim_to_id``.  With them (a site under
+        ``pyro.markov``) it is local: the first dim from the next available
+        one leftward that no site in the Markov scope holds, so sites out of
+        each other's scope share dims."""
         if self.next_available_dim is None:
             raise ValueError(
                 "enumeration requires an enclosing enum handler: use TraceEnum_ELBO "
@@ -88,8 +91,12 @@ class _EnumAllocator:
         dim = self.next_available_dim
         id_ = self.next_available_id
         self.next_available_id += 1
-        self.next_available_dim -= 1
-        self.dim_to_id[dim] = id_
+        if scope_dims is None:
+            self.next_available_dim -= 1
+            self.dim_to_id[dim] = id_
+        else:
+            while dim in scope_dims:
+                dim -= 1
         return dim, id_
 
 

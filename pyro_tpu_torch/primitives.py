@@ -1,5 +1,6 @@
 """Modeling primitives (counterpart of ``pyro_tpu/primitives.py``):
-sample, param, factor, deterministic, plate, vectorized_markov and module."""
+sample, param, factor, deterministic, plate, markov, vectorized_markov and
+module."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 from .distributions import constraints as _constraints
 from .distributions.delta import Delta, Unit
 from .params.param_store import get_param_store, param_with_module_name
+from .poutine.enum_messenger import markov
 from .poutine.plate_messenger import PlateMessenger
 from .poutine.runtime import am_i_wrapped, apply_stack, new_message
 from .poutine.vectorized_markov import vectorized_markov

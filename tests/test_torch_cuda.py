@@ -23,7 +23,13 @@ K4, the Gaussian halving levels: each kernel within rtol 1e-4 plus atol
 backward (the P gradients symmetrised); GaussianHMM on the card against
 the port's float64 CPU run, log_prob rtol 1e-4 with atol 1e-3, the
 filter's mean and the posterior mean rtol and atol 1e-3; a training step's
-loss rtol 1e-5 and gradients within 1e-3 times their largest entry.
+loss rtol 1e-5 and gradients within 1e-3 times their largest entry.  K2g,
+the time-varying scan: -inf exactly where the float64 plain version has
+it, finite values within atol 1e-4 plus rtol 1e-6 of it, each gradient
+within 1e-4 (a few steps) or 1e-3 (127 dependent steps, or unreachable
+states) times its largest entry of float64's; model_1vt's step as a
+training step's; the pairwise fallback's loss rtol 1e-5 and gradients rtol
+1e-4 with atol 1e-5 times their largest entry of the float64 CPU run's.
 """
 
 import numpy as np
@@ -724,3 +730,227 @@ def test_gaussian_hmm_on_the_card(cuda, monkeypatch, config, T, hidden):
     else:
         mean64 = tg.sequential_gaussian_filter_sample(hmm64._init, trans64.expand(trans64.batch_shape), noise=zeros64)
     torch.testing.assert_close(mean.double().cpu(), mean64, rtol=1e-3, atol=1e-3)
+
+
+# -- K2g, the time-varying scan (markov_scan_tv) -------------------------------
+
+
+def _tv_inputs(rng, B, T, S, cuda, per_row_A=False, with_L=False, unreachable=False, emission=0.0):
+    """alpha0, A_t (log transition probabilities, shared or one per row), R
+    and L; with ``unreachable``, -inf entries, a column no state reaches at
+    every third step and half of alpha0's states -inf."""
+    A = rng.normal(size=(T, B, S, S) if per_row_A else (T, S, S)) * 2
+    A = A - np.log(np.exp(A).sum(-1, keepdims=True))
+    alpha0 = rng.normal(size=(B, S))
+    if unreachable:
+        A[A < -6.0] = -np.inf
+        A[::3, ..., :, S // 3] = -np.inf
+        alpha0[:, S // 2:] = -np.inf
+    R = rng.normal(size=(T, B, S)) * (3.0 if emission else 1.0) + emission
+    L = rng.normal(size=(T, B, S)) if with_L else None
+    return [None if a is None else torch.tensor(a, dtype=torch.float32, device=cuda) for a in (alpha0, A, R, L)]
+
+
+def _compare_tv(inputs, g, tol):
+    """K2g forward and every gradient against the plain version in float64:
+    -inf exactly where it is -inf, the finite values within atol 1e-4 plus
+    rtol 1e-6, each gradient finite and within ``tol * max|grad|``."""
+    leaves = [None if t is None else t.clone().requires_grad_() for t in inputs]
+    n = dict(ms.tv_launches)
+    k2 = dict(ms.launches)
+    out = ms.markov_scan_tv(*leaves)
+    (out * g).sum().backward()
+    torch.cuda.synchronize()
+    assert ms.tv_launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1}
+    assert ms.launches == k2
+    leaves64 = [None if t is None else t.double().requires_grad_() for t in inputs]
+    out64 = ms.markov_scan_tv_plain(*leaves64)
+    (out64 * g.double()).sum().backward()
+    assert torch.equal(torch.isneginf(out), torch.isneginf(out64))
+    live = torch.isfinite(out64)
+    torch.testing.assert_close(out.double()[live], out64[live], rtol=1e-6, atol=1e-4)
+    for k, p in zip(leaves, leaves64):
+        if k is not None:
+            assert torch.isfinite(k.grad).all()
+            torch.testing.assert_close(k.grad.double(), p.grad, rtol=0, atol=tol * p.grad.abs().max().item())
+    return out.detach(), [None if k is None else k.grad for k in leaves]
+
+
+@pytest.mark.parametrize(
+    "B,T,S,per_row_A,with_L,tol",
+    [
+        (32, 127, 256, False, False, 1e-3),  # model_1vt's shape
+        (8, 63, 64, True, False, 1e-4),
+        (3, 6, 37, False, True, 1e-4),
+        (3, 6, 37, True, True, 1e-4),
+        (4, 9, 7, False, True, 1e-4),  # odd S
+        (2, 5, 257, True, False, 1e-4),
+        (5, 1, 33, False, True, 1e-4),  # T=1
+        (2, 2, ms.MAX_STATES_TV, False, True, 1e-4),  # the largest S the kernels take
+    ],
+)
+def test_tv_scan_kernel_matches_plain(cuda, B, T, S, per_row_A, with_L, tol):
+    rng = np.random.default_rng(1000 + S)
+    inputs = _tv_inputs(rng, B, T, S, cuda, per_row_A, with_L, emission=-35.0 if T > 100 else 0.0)
+    g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
+    _compare_tv(inputs, g, tol)
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("per_row_A", [False, True])
+def test_tv_scan_kernel_unreachable_states(cuda, seed, per_row_A):
+    """Columns of A_t that no state reaches, -inf entries and -inf states
+    of alpha0: -inf values where the plain version has them, no NaN, each
+    gradient within 1e-3 * max|grad| of float64."""
+    rng = np.random.default_rng(2000 + seed)
+    B, T, S = (8, 63, 64) if per_row_A else (32, 127, 256)
+    inputs = _tv_inputs(rng, B, T, S, cuda, per_row_A, unreachable=True, emission=-35.0)
+    g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
+    _compare_tv(inputs, g, 1e-3)
+
+
+def test_launch_after_a_refused_launch(cuda):
+    """A refused cluster launch returns its error without reading the
+    library's last-error state; the next launch of the library's kernels,
+    K2g's and K2's, must not report it as its own."""
+    rng = np.random.default_rng(6)
+    refused = _scan_inputs(rng, 2, 3, 1024, cuda)
+    with pytest.raises(RuntimeError):
+        ms.markov_scan(*refused, plan=ms.ScanPlan("cluster", 8, 1))
+    inputs = _tv_inputs(rng, 3, 6, 37, cuda)
+    _compare_tv(inputs, torch.tensor(rng.normal(size=(3, 37)), dtype=torch.float32, device=cuda), 1e-4)
+    with pytest.raises(RuntimeError):
+        ms.markov_scan(*refused, plan=ms.ScanPlan("cluster", 8, 1))
+    _compare_scan(_scan_inputs(rng, 3, 6, 37, cuda), torch.tensor(rng.normal(size=(3, 37)), dtype=torch.float32,
+                                                                device=cuda))
+
+
+def test_tv_scan_backward_is_deterministic(cuda):
+    """Two runs of K2g's backward (the reverse scan and the dA_t fold, sums
+    in a fixed order, no float atomics) give the same bits."""
+    rng = np.random.default_rng(5)
+    alpha0, A, R, L = _tv_inputs(rng, 32, 127, 256, cuda, with_L=True)
+    g = torch.tensor(rng.normal(size=(32, 256)), dtype=torch.float32, device=cuda)
+    with torch.no_grad():
+        _, hs, os = ms._tv_forward_cuda(alpha0, A, R, L)
+    first = ms._tv_backward_cuda(A, L, hs, os, g)
+    second = ms._tv_backward_cuda(A, L, hs, os, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_tv_scan_kernel_rejects_bad_operands(cuda):
+    alpha0 = torch.zeros(4, 8, device=cuda)
+    with pytest.raises(ValueError):
+        ms.markov_scan_tv(alpha0, torch.zeros(3, 8, 8, device=cuda), torch.zeros(2, 4, 8, device=cuda))
+    with pytest.raises(TypeError):
+        ms.markov_scan_tv(alpha0.double(), torch.zeros(3, 8, 8, device=cuda).double(),
+                          torch.zeros(3, 4, 8, device=cuda).double())
+    with pytest.raises(ValueError):
+        ms.markov_scan_tv(alpha0, torch.zeros(3, 8, 8), torch.zeros(3, 4, 8, device=cuda))
+    S = ms.MAX_STATES_TV + 1
+    with pytest.raises(ValueError):
+        ms.markov_scan_tv(torch.zeros(1, S, device=cuda), torch.zeros(1, S, S, device=cuda),
+                          torch.zeros(1, 1, S, device=cuda))
+
+
+def test_model_1vt_on_the_card_runs_k2g_not_the_plain_loop(cuda, monkeypatch):
+    """A time-varying chain on CUDA tensors goes through K2g: one launch
+    each way a step, no K2, and the plain loop never sees a CUDA tensor.  The step's loss and gradients match the
+    port's float64 CPU run (loss rtol 1e-5, gradients within 1e-3 times
+    their largest entry)."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import hmm as example
+    from pyro_tpu_torch.infer import TraceEnum_ELBO
+
+    def guard(name):
+        plain = getattr(ms, name)
+
+        def guarded(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                pytest.fail(f"a CUDA tensor reached {name}")
+            return plain(*args, **kwargs)
+
+        return guarded
+
+    monkeypatch.setattr(ms, "markov_scan_tv_plain", guard("markov_scan_tv_plain"))
+    args = example.parse_args(["--model", "1vt", "--hidden-dim", "6", "--num-sequences", "3", "--max-length", "11",
+                               "--data-dim", "5"])
+    names = ("AutoDelta.probs_x", "AutoDelta.probs_y")
+    elbo = TraceEnum_ELBO(max_plate_nesting=3)
+    store = pyro.get_param_store()
+    try:
+        pyro.set_default_device("cuda")
+        pyro.clear_param_store()
+        sequences, lengths = example.synthetic_sequences(0, 3, 11, 5)
+        model, guide, _ = example.make_svi(args)
+        elbo.loss(model, guide, sequences, lengths)  # registers the params
+        values = {k: store.get_unconstrained(k).detach().double().cpu() for k in names}
+        n, k2 = dict(ms.tv_launches), dict(ms.launches)
+        loss = elbo.differentiable_loss(model, guide, sequences, lengths)
+        loss.backward()
+        torch.cuda.synchronize()
+        assert ms.tv_launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1}
+        assert ms.launches == k2
+        loss32, g32 = float(loss.detach()), {k: store.get_unconstrained(k).grad.double().cpu() for k in names}
+
+        pyro.set_default_device("cpu")
+        torch.set_default_dtype(torch.float64)
+        pyro.clear_param_store()
+        sequences, lengths = sequences.double().cpu(), lengths.cpu()
+        model, guide, _ = example.make_svi(args)
+        elbo.loss(model, guide, sequences, lengths)
+        for k, v in values.items():
+            store.set_unconstrained(k, v)
+        loss = elbo.differentiable_loss(model, guide, sequences, lengths)
+        loss.backward()
+        loss64, g64 = float(loss.detach()), {k: store.get_unconstrained(k).grad for k in names}
+    finally:
+        torch.set_default_dtype(torch.float32)
+        pyro.clear_param_store()
+        pyro.set_default_device("cuda")
+    assert loss32 == pytest.approx(loss64, rel=1e-5)
+    for k in g64:
+        torch.testing.assert_close(g32[k], g64[k], rtol=0, atol=1e-3 * float(g64[k].abs().max()))
+
+
+@pytest.mark.parametrize("case", [3, 5, 9])
+def test_pairwise_fallback_on_the_card(cuda, case):
+    """The O(log T) fallback of vectorized chains (model_3, model_5 with
+    history 2, model_7 at T=23) through K1 on the card: the loss and every
+    param's gradient against the port's float64 CPU run (loss rtol 1e-5,
+    gradients rtol 1e-4 with atol 1e-5 * max|grad|), K1 launched each way."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.examples import vectorized_markov as vm
+    from pyro_tpu_torch.infer import TraceEnum_ELBO
+    from pyro_tpu_torch.ops import markov_product
+
+    model, kind, shape, history = vm.CASES[case]
+    out = []
+    try:
+        for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            pyro.set_default_device(device)
+            torch.set_default_dtype(dtype)
+            pyro.clear_param_store()
+            data = vm.make_data(kind, shape)
+            n = dict(lm.launches)
+            markov_product.reset_routes()
+            with poutine.trace(param_only=True) as capture:
+                loss = TraceEnum_ELBO(max_plate_nesting=3).differentiable_loss(model, vm.no_guide, data, history, True)
+            loss.backward()
+            assert markov_product.routes["pairwise"] == 1
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert lm.launches["forward"] > n["forward"] and lm.launches["backward"] > n["backward"]
+            store = pyro.get_param_store()
+            out.append((float(loss.detach()), {k: store.get_unconstrained(k).grad.double().cpu()
+                                      for k in capture.trace.param_nodes()}))
+    finally:
+        torch.set_default_dtype(torch.float32)
+        pyro.clear_param_store()
+        pyro.set_default_device("cuda")
+    (loss32, g32), (loss64, g64) = out
+    assert loss32 == pytest.approx(loss64, rel=1e-5)
+    assert sorted(g32) == sorted(g64)
+    for k in g64:
+        torch.testing.assert_close(g32[k], g64[k], rtol=1e-4, atol=1e-5 * float(g64[k].abs().max()))

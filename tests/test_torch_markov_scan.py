@@ -345,3 +345,185 @@ def test_scan_route_selection(B, S, nA, plan):
     else:
         assert all(ms.cluster_smem_bytes(S, C, 1) > H100_SMEM for C in ms.CLUSTER_SIZES)
 
+
+
+# -- the time-varying scan (K2g): markov_scan_tv_plain, the repaired general
+# body, which markov_scan_tv runs on CPU tensors.  Held against a direct
+# float64 form in linear space (probabilities multiplied step by step,
+# exp(-inf) = 0 exactly, the log taken once at the end), which shares no
+# code with it.
+
+
+def _direct_tv_linear64(alpha0, A, R, L=None):
+    """alpha_T of alpha_{t+1} = R_t + logsumexp_l(alpha_t + L_t + A_t) in
+    float64 probabilities; A (T, S, S) or (T, B, S, S)."""
+    p = torch.exp(alpha0)
+    for t in range(R.shape[0]):
+        h = p if L is None else p * torch.exp(L[t])
+        Q = torch.exp(A[t])
+        p = torch.exp(R[t]) * (h @ Q if Q.ndim == 2 else torch.einsum("bl,blr->br", h, Q))
+    return torch.log(p)
+
+
+def _tv_case(seed, B, T, S, per_row_A=False, with_L=False, unreachable=False):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(T, B, S, S) if per_row_A else (T, S, S)) * 2
+    A = A - np.log(np.exp(A).sum(-1, keepdims=True))
+    alpha0 = rng.normal(size=(B, S))
+    if unreachable:
+        # structural zeros, and at steps 1 and 3 a column no state reaches:
+        # alpha_2 and alpha_4 are -inf there, and the next step's row of
+        # that state is all -inf
+        A[A < -4.0] = -np.inf
+        A[1, ..., :, 2] = -np.inf
+        A[3, ..., :, S - 1] = -np.inf
+        alpha0[0, : S // 2] = -np.inf
+    out = {"alpha0": alpha0, "A": A, "R": rng.normal(size=(T, B, S)), "L": rng.normal(size=(T, B, S)) if with_L else None,
+           "g": rng.normal(size=(B, S))}
+    out = {k: None if v is None else v.astype(np.float32) for k, v in out.items()}
+    out["a_dims"] = ("tblr" if per_row_A else "tlr")
+    return out
+
+
+TV_CASES = {
+    "shared": lambda: _tv_case(20, 4, 6, 7),
+    "shared_with_L": lambda: _tv_case(21, 3, 7, 5, with_L=True),
+    "per_row": lambda: _tv_case(22, 3, 6, 5, per_row_A=True),
+    "per_row_with_L": lambda: _tv_case(23, 4, 5, 6, per_row_A=True, with_L=True),
+    "T1": lambda: _tv_case(24, 2, 1, 4, with_L=True),
+    "unreachable": lambda: _tv_case(25, 4, 6, 7, unreachable=True),
+    "unreachable_per_row_with_L": lambda: _tv_case(26, 3, 6, 7, per_row_A=True, with_L=True, unreachable=True),
+}
+
+
+@pytest.mark.parametrize("fn", ["markov_scan_tv_plain", "markov_scan_tv"])
+@pytest.mark.parametrize("name", list(TV_CASES))
+def test_tv_scan_matches_direct_float64(name, fn):
+    """Values (-inf exactly where the direct form's probability is 0) and
+    every gradient, finite, against the direct float64 form: values rtol
+    1e-5 with atol 1e-5, gradients rtol 1e-4 with atol 1e-5 * max|grad|."""
+    c = TV_CASES[name]()
+    leaves = _torch_leaves(c)
+    out = getattr(ms, fn)(*leaves)
+    (out * torch.tensor(c["g"])).sum().backward()
+    leaves64 = _torch_leaves(c, torch.float64)
+    out64 = _direct_tv_linear64(*leaves64)
+    (out64 * torch.tensor(c["g"], dtype=torch.float64)).sum().backward()
+    out, out64 = out.detach().numpy(), out64.detach().numpy()
+    np.testing.assert_array_equal(np.isneginf(out), np.isneginf(out64))
+    live = np.isfinite(out64)
+    np.testing.assert_allclose(out[live], out64[live], rtol=1e-5, atol=1e-5)
+    _close(_grads(leaves), _grads(leaves64))
+
+
+def test_tv_scan_unreachable_values_and_zero_gradients():
+    """A state no path reaches is -inf in the plain version (the general
+    body's value, not log(FLT_MIN)); every gradient is finite, and exactly 0
+    through each -inf entry of A_t and alpha0."""
+    c = TV_CASES["unreachable"]()
+    c["A"][-1, :, 3] = -np.inf  # the last step reaches no state 3
+    leaves = _torch_leaves(c)
+    out = ms.markov_scan_tv_plain(*leaves)
+    assert bool(torch.isneginf(out[:, 3]).all()) and bool(torch.isfinite(out[:, :3]).all())
+    g = torch.tensor(c["g"])
+    g[:, 3] = 0.0  # the loss reads the reachable states only
+    (out * g).sum().backward()
+    dalpha0, dA, dR, _ = _grads(leaves)
+    for d in (dalpha0, dA, dR):
+        assert np.isfinite(d).all()
+    assert (dA[np.isneginf(c["A"])] == 0).all()
+    assert (dalpha0[np.isneginf(c["alpha0"])] == 0).all()
+
+
+def test_tv_scan_on_the_cpu_runs_the_plain_loop(monkeypatch):
+    """On CPU tensors ``markov_scan_tv`` is ``markov_scan_tv_plain``: it
+    returns the plain loop's result and counts no kernel launch."""
+    c = TV_CASES["shared_with_L"]()
+    calls = []
+    plain = ms.markov_scan_tv_plain
+    monkeypatch.setattr(ms, "markov_scan_tv_plain", lambda *a: calls.append(a) or plain(*a))
+    n = dict(ms.tv_launches)
+    leaves = _torch_leaves(c)
+    out = ms.markov_scan_tv(*leaves)
+    assert len(calls) == 1 and ms.tv_launches == n
+    torch.testing.assert_close(out, plain(*leaves), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_tv_plain_long_chain_matches_float64(seed):
+    """127 dependent steps of emissions about -35 (the carry drifts to
+    about -4400) with unreachable columns: the float32 plain version within
+    1e-3 * max|grad| of itself in float64 (the carry is kept shifted)."""
+    B, T, S = 4, 127, 16
+    rng = np.random.default_rng(200 + seed)
+    A = np.log(rng.dirichlet(np.ones(S), size=(T, S)))
+    A[::7, :, 5] = -np.inf
+    c = {"alpha0": rng.normal(size=(B, S)), "A": A, "R": rng.normal(size=(T, B, S)) * 3 - 35.0, "L": None}
+    g = rng.normal(size=(B, S))
+    grads = {}
+    for dtype in (torch.float32, torch.float64):
+        leaves = _torch_leaves(c, dtype)
+        (ms.markov_scan_tv_plain(*leaves) * torch.tensor(g, dtype=dtype)).sum().backward()
+        grads[dtype] = _grads(leaves)
+    for a, e in zip(grads[torch.float32], grads[torch.float64]):
+        if e is not None:
+            assert np.isfinite(a).all()
+            assert np.abs(a - e).max() <= 1e-3 * np.abs(e).max()
+
+
+def _eliminate_tv(pkg, c):
+    """``_try_scan_elimination`` of ``pkg`` on a chain whose transition has
+    a time axis (and a row axis for "tblr"): the general body."""
+    mp, packed = pkg
+    T, B, S = c["R"].shape
+    reduced = [packed.PackedTensor(c["A"], c["a_dims"]), packed.PackedTensor(c["R"], "tbr")]
+    if c["L"] is not None:
+        reduced.append(packed.PackedTensor(c["L"], "tbl"))
+    log_factors = OrderedDict([(frozenset("b"), [packed.PackedTensor(c["alpha0"], "bx")])])
+    sum_dims = {"x", "l", "r"}
+    assert mp._try_scan_elimination(log_factors, sum_dims, reduced, "x", "l", "r", S, "t", frozenset("b"),
+                                    {"b": B, "t": T})
+    (term,) = log_factors[frozenset("b")]
+    return term.value
+
+
+@pytest.fixture(scope="module")
+def jax_tv_runs():
+    runs = {}
+    for name, make in TV_CASES.items():
+        c = make()
+        keys = [k for k in ("alpha0", "A", "R", "L") if c[k] is not None]
+
+        def f(*args, c=c, keys=keys):
+            out = _eliminate_tv((jmp, jpacked), {**c, **dict(zip(keys, args))})
+            return (out * jnp.asarray(c["g"])).sum(), out
+
+        (_, out), grads = jax.jit(jax.value_and_grad(f, argnums=tuple(range(len(keys))), has_aux=True))(
+            *[jnp.asarray(c[k]) for k in keys])
+        grads = dict(zip(keys, grads))
+        runs[name] = np.asarray(out), [None if k not in grads else np.asarray(grads[k]) for k in ("alpha0", "A", "R", "L")]
+    return runs
+
+
+# the JAX general body's jax.scipy.special.logsumexp gives NaN gradients at
+# a column of A_t that is all -inf (ROADMAP.md Queue 3); the port is held
+# there against the direct float64 form above
+_JAX_TV_FAULT = pytest.mark.xfail(
+    strict=True, reason="pyro_tpu/ops/markov_product.py:448 logsumexp NaN gradient at an all -inf column, "
+                        "ROADMAP.md Queue 3")
+
+
+@pytest.mark.parametrize(
+    "name", [pytest.param(n, marks=_JAX_TV_FAULT) if n.startswith("unreachable") else n for n in TV_CASES]
+)
+def test_tv_elimination_matches_jax(jax_tv_runs, name):
+    c = TV_CASES[name]()
+    leaves = _torch_leaves(c)
+    out = _eliminate_tv((tmp, tpacked), {**c, **dict(zip(("alpha0", "A", "R", "L"), leaves))})
+    (out * torch.tensor(c["g"])).sum().backward()
+    jout, jgrads = jax_tv_runs[name]
+    out = out.detach().numpy()
+    np.testing.assert_array_equal(np.isneginf(out), np.isneginf(jout))
+    live = np.isfinite(jout)
+    np.testing.assert_allclose(out[live], jout[live], rtol=1e-5, atol=1e-5)
+    _close(_grads(leaves), jgrads)

@@ -252,6 +252,7 @@ def test_import_leaves_out_jax():
         "import sys, pyro_tpu_torch, pyro_tpu_torch.examples.hmm, pyro_tpu_torch.examples.vae\n"
         "import pyro_tpu_torch.examples.eight_schools, pyro_tpu_torch.infer.mcmc\n"
         "import pyro_tpu_torch.examples.gaussian_hmm, pyro_tpu_torch.ops.gaussian_levels\n"
+        "import pyro_tpu_torch.examples.lgssm, pyro_tpu_torch.examples.vectorized_markov\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')"
         " or m == 'pyro_tpu' or m.startswith('pyro_tpu.')]\n"
         "print(bad)\n"
