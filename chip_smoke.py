@@ -124,9 +124,34 @@ Phases (any failure exits non-zero):
      under ``pyro.markov``) at ``20.32.51.16``: its step-0 loss against
      model_1v's at the same params, 3 SVI steps with their launch counts,
      one profiled step;
-  15. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+  15. K5a and K5b, the gamma-Gaussian halving levels (``gaussian_levels.cu``'s
+     ``gl_halving_kernel<true>`` and ``gl_contract_kernel<true>``), against
+     their plain versions at every level of slice 9's calls (recorded from
+     one call each through the kernels): the homogeneous
+     ``GammaGaussianHMM.log_prob`` at ``8.10000.32.4`` (K5a, 13 levels), the
+     heterogeneous one at ``8.4000.16.4`` (K5b, 12 levels) and the
+     homogeneous ``filter`` (K5b at n=32 over the expanded chain, 14
+     levels); alpha' exactly, every output against the float64 plain
+     version (both distances printed); each kernel's levels timed against
+     the plain version's in turns, beside the bound of the same levels;
+  16. slice 9 through ``examples/gamma_gaussian_hmm.py``'s models at full
+     width (numpy, seed 0; Student-t noise through a shared Gamma(2, 2)
+     scale): ``GammaGaussianHMM.log_prob`` at ``8.10000.32.4`` (13 K5a
+     launches a call) and ``8.4000.16.4`` (12 K5b), 10 chained calls, three
+     reps, sequences/s, each against the float64 plain levels on the card
+     (and the float32 plain levels beside it); ``filter`` at
+     ``8.10000.32.4`` (14 K5b) against float64; one profiled call of each;
+     then through K4 at ``8.10000.32.4``, each against float64 and with its
+     launch counts: ``IndependentHMM`` (4 channels of hidden 32, obs 1, each
+     with its own parameters, against the sum of its channels' GaussianHMMs),
+     ``GaussianMRF`` (MVN factors of dims 32, 64 and 36),
+     ``GaussianHMM.conjugate_update`` (a Normal likelihood; the identity
+     f + g = fg + log Z in float32 and float64) and ``prefix_condition`` at
+     t=8000 (the chain rule in float64);
+  17. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
      backward on each route, K4a-c, K4a and K4b backward, K2g forward and
-     backward), the card's name and power limit, then the result line.
+     backward, K5a and K5b), the card's name and power limit, then the
+     result line.
 
 Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
 atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS, and its
@@ -160,7 +185,20 @@ gradient within 1e-3 * max|grad| of float64 (as K2's unreachable-states
 check); model_1vt's and wide model_5's first step as a training step's
 above; the ten chain cases' loss rtol 1e-5 and gradients rtol 1e-4 with
 atol 1e-5 * max|grad| against float64 (as the port's CPU parity tests hold
-them against the JAX package); model_1 against model_1v rtol 1e-5.  The VAE's first-step loss rtol 1e-4 and
+them against the JAX package); model_1 against model_1v rtol 1e-5.  K5: alpha' exactly (a sum of constants);
+every other output of each level within 1e-4 times its largest entry (plus
+1e-5) of the plain version's and of the float64 plain version's;
+GammaGaussianHMM.log_prob within 1e-6 of float64 times the sum of the
+magnitudes of its last terms (the log normaliser, lgamma(concentration) and
+concentration * log(rate), each near 2e5 at T=10000, cancelling to a result
+about a seventh of their sum: float32 rounds each at about 1e-2, and the
+reference's arithmetic does the same); the filter's concentration rtol
+1e-6, its rate rtol 1e-4, its mean and covariance within 1e-3 times their
+largest entry of float64; IndependentHMM, GaussianMRF, conjugate_update's
+normaliser and updated log_prob, and prefix_condition's rest rtol 1e-5
+against float64 (as GaussianHMM's log_prob), the conjugate identity rtol
+1e-5 in float32 and 1e-10 in float64, the chain rule 1e-10 in float64.
+The VAE's first-step loss rtol 1e-4 and
 each gradient rtol 1e-4 with atol 1e-6 * max|grad| against the CPU run
 (float32 sums in another order; TF32 off).  Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
@@ -1036,12 +1074,14 @@ def phase_nuts(torch):
 # -- slice 6: the Gaussian state-space HMM and the K4 kernels -----------------------
 
 
-def slice_models(torch, dtype=None):
-    """The two configurations of ``examples/gaussian_hmm.py`` at full width
-    (numpy, seed 0) on the card: {config: (hmm, data)}, in float32 unless
-    ``dtype`` is given."""
-    from pyro_tpu_torch.examples import gaussian_hmm as example
+def slice_models(torch, dtype=None, example_name="gaussian_hmm"):
+    """The two configurations of ``examples/<example_name>.py``
+    (``gaussian_hmm`` or ``gamma_gaussian_hmm``) at full width (numpy, seed
+    0) on the card: {config: (hmm, data)}, in float32 unless ``dtype`` is
+    given."""
+    import importlib
 
+    example = importlib.import_module(f"pyro_tpu_torch.examples.{example_name}")
     out = {}
     for config in ("homogeneous", "heterogeneous"):
         arrays = example.make_arrays(config, 0)
@@ -1051,17 +1091,22 @@ def slice_models(torch, dtype=None):
     return out
 
 
+LEVEL_WRAPPERS = ("halving_level", "contract_pairs", "level_mids", "gamma_halving_level", "gamma_contract_pairs")
+
+
 @contextlib.contextmanager
 def plain_levels(gl):
-    """Within the block the Gaussian algebra runs the K4 plain versions,
-    which take any device and type (the reference in float64 on the card)."""
-    saved = gl.halving_level, gl.contract_pairs, gl.level_mids
-    gl.halving_level, gl.contract_pairs, gl.level_mids = (
-        gl.halving_level_plain, gl.contract_pairs_plain, gl.level_mids_plain)
+    """Within the block the Gaussian and gamma-Gaussian algebras run the K4
+    and K5 plain versions, which take any device and type (the reference in
+    float64 on the card)."""
+    saved = {name: getattr(gl, name) for name in LEVEL_WRAPPERS}
+    for name in LEVEL_WRAPPERS:
+        setattr(gl, name, getattr(gl, f"{name}_plain"))
     try:
         yield
     finally:
-        gl.halving_level, gl.contract_pairs, gl.level_mids = saved
+        for name, fn in saved.items():
+            setattr(gl, name, fn)
 
 
 @contextlib.contextmanager
@@ -1103,6 +1148,13 @@ def k4_bounds(name, args):
         n, pairs, t_out = n2 // 2, R * (t // 2), R * (t - t // 2)
         flops = pairs * (n * n + n**3 / 3 + n * n * (n2 + 1) + 4 * n * n2 * n + 4 * n * n + 2 * n)
         floats = R * t * (n2 * n2 + n2 + 1) + t_out * (n2 * n2 + n2 + 1) + (pairs * 3 * n * n + pairs * n if tape else 0)
+    elif name in ("gamma_halving", "gamma_contract"):
+        # K4a's or K4b's work without a tape, with alpha and beta read per
+        # factor and written per pair
+        P, info, logZ, alpha, beta = args
+        flops, nbytes = k4_bounds(name[len("gamma_"):], (P, info, logZ, False))
+        R, t = alpha.shape
+        return flops, nbytes + 4 * (2 * R * t + 2 * R * (t - t // 2))
     elif name == "halving_bwd":
         P, L, ib, g_P, g_info, g_logZ = args
         R, m, n = ib.shape
@@ -1140,6 +1192,20 @@ def check_k4_level(label, outs_k, outs_p):
         check(e <= 1e-4 * float(b.abs().max()) + 1e-5, f"{label}: max abs err {e:.3g} over 1e-4 * {float(b.abs().max()):.3g}")
         err = max(err, e)
     return err
+
+
+def counted(torch, gl, label, fn, keys, total=None):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; the counts of ``keys`` printed and added into ``total``."""
+    gl.reset_counts()
+    value = fn()
+    torch.cuda.synchronize()
+    counts = {k: gl.launches[k] for k in keys}
+    if total is not None:
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    print(f"    {label}: launches {counts}")
+    return value, counts
 
 
 def phase_k4(torch, gl):
@@ -1207,15 +1273,8 @@ def phase_gaussian_slice(torch, gl):
     launches = {"halving": 0, "contract": 0, "mids": 0}
     out = {}
 
-    def counted(label, fn):
-        gl.reset_counts()
-        value = fn()
-        torch.cuda.synchronize()
-        counts = {k: gl.launches[k] for k in launches}
-        for k, v in counts.items():
-            launches[k] += v
-        print(f"    {label}: K4 launches {counts}")
-        return value, counts
+    def counted_k4(label, fn):
+        return counted(torch, gl, label, fn, tuple(launches), launches)
 
     def rel_check(label, got, ref, rtol):
         rel = float(((got.double() - ref).abs() / ref.abs()).max())
@@ -1235,20 +1294,20 @@ def phase_gaussian_slice(torch, gl):
         times = []
         for rep in range(3):
             t0 = time.perf_counter()
-            acc, counts = counted(f"homogeneous log_prob, {GHMM_CALLS} chained calls (rep {rep})", chained)
+            acc, counts = counted_k4(f"homogeneous log_prob, {GHMM_CALLS} chained calls (rep {rep})", chained)
             times.append(time.perf_counter() - t0)
             check(counts["halving"] > 0 and math.isfinite(float(acc)), f"homogeneous log_prob: {counts}, acc {acc}")
         seqs = GHMM_CALLS * hom_data.shape[0]
         print(f"  homogeneous log_prob: {[round(1e3 * t / GHMM_CALLS, 3) for t in times]} ms a call, "
               f"{seqs / min(times):.1f} sequences/s at best ({seqs} sequences a rep)")
         out["ghmm_seq_per_s"] = seqs / min(times)
-        lp, _ = counted("homogeneous log_prob, checked", lambda: hom.log_prob(hom_data))
+        lp, _ = counted_k4("homogeneous log_prob, checked", lambda: hom.log_prob(hom_data))
         with plain_levels(gl):
             lp64 = models64["homogeneous"][0].log_prob(models64["homogeneous"][1])
         rel_check("homogeneous log_prob", lp, lp64, GHMM_RTOL)
 
         # heterogeneous log_prob
-        lp, counts = counted("heterogeneous log_prob", lambda: het.log_prob(het_data))
+        lp, counts = counted_k4("heterogeneous log_prob", lambda: het.log_prob(het_data))
         check(counts["contract"] > 0, f"heterogeneous log_prob: {counts}")
         with plain_levels(gl):
             lp64 = models64["heterogeneous"][0].log_prob(models64["heterogeneous"][1])
@@ -1267,7 +1326,7 @@ def phase_gaussian_slice(torch, gl):
         times = []
         for rep in range(3):
             t0 = time.perf_counter()
-            z, counts = counted(f"rsample_posterior, {GFS_DRAWS} draws (rep {rep})",
+            z, counts = counted_k4(f"rsample_posterior, {GFS_DRAWS} draws (rep {rep})",
                                 lambda: het.rsample_posterior(het_data, gen, (GFS_DRAWS,)))
             times.append(time.perf_counter() - t0)
             check(counts["contract"] > 0 and counts["mids"] > 0, f"rsample_posterior: {counts}")
@@ -1290,7 +1349,7 @@ def phase_gaussian_slice(torch, gl):
 
         for config, homogeneous in (("heterogeneous", False), ("homogeneous", True)):
             hmm, data = models[config]
-            mean, counts = counted(f"{config} posterior mean (zero noise)",
+            mean, counts = counted_k4(f"{config} posterior mean (zero noise)",
                                    lambda: posterior_mean(hmm, data, homogeneous))
             with plain_levels(gl):
                 mean64 = posterior_mean(*models64[config], homogeneous)
@@ -1306,7 +1365,7 @@ def phase_gaussian_slice(torch, gl):
                       f"mean t^2 {t_sq:.4f}")
                 check(t_max < GFS_T_MAX and 0.8 < t_sq < 1.25,
                       f"draws' mean: max |t| {t_max:.3g} (limit {GFS_T_MAX}), mean t^2 {t_sq:.4f} (limits 0.8, 1.25)")
-        zh, counts = counted("homogeneous rsample_posterior, 4 draws",
+        zh, counts = counted_k4("homogeneous rsample_posterior, 4 draws",
                              lambda: hom.rsample_posterior(hom_data, gen, (4,)))
         check(counts["halving"] > 0 and counts["mids"] > 0 and bool(torch.isfinite(zh).all()),
               f"homogeneous rsample_posterior: {counts}")
@@ -1835,6 +1894,318 @@ def phase_fallback(torch, lm, ms):
     return {"model_5_k1": k1[0], "model_1": launches[-1]}
 
 
+# -- slice 9: the Student-t state-space model (K5) and the rest of the family ---------
+
+GGHMM_HET_SIG = "8.4000.16.4"
+# log_prob against float64, times the sum of the magnitudes of its last terms:
+# the log normaliser, lgamma(concentration) and concentration * log(rate),
+# each near 2e5 at T=10000 (concentration 20002), which cancel to a result
+# about a seventh of their sum; float32 rounds each term at about 1e-2
+GGHMM_TERMS_RTOL = 1e-6
+GGHMM_RATE_RTOL = 1e-4  # the filter's Gamma rate against float64 (a float32 tree sum of 10^4 steps' quadratics)
+GGHMM_MVN_TOL = 1e-3  # the filter's mean and covariance against float64, times their largest entry
+IHMM_CHANNELS, PREFIX_T = 4, 8000
+K5_OUTPUTS = ("P'", "info'", "logZ'", "alpha'", "beta'")
+
+
+def phase_k5(torch, gl):
+    """Phase 15: K5a and K5b against their plain versions (and the float64
+    plain version) at every level of the slice's calls, the level inputs
+    recorded from one call through the kernels; then the call's levels timed
+    kernel against plain in turns, beside their bound."""
+    print("phase 15: K5a and K5b (gamma-Gaussian halving and contract) against their plain versions at the "
+          "slice's levels")
+    models = slice_models(torch, example_name="gamma_gaussian_hmm")
+    hom, hom_data = models["homogeneous"]
+    het, het_data = models["heterogeneous"]
+    result = {}
+    with torch.no_grad():
+        with record_levels(gl, "gamma_halving_level") as halving:
+            hom.log_prob(hom_data)
+        with record_levels(gl, "gamma_contract_pairs") as contract:
+            het.log_prob(het_data)
+        with record_levels(gl, "gamma_contract_pairs") as filt:
+            hom.filter(hom_data)
+        torch.cuda.synchronize()
+        sets = {
+            "gamma_halving": (halving, gl._gamma_halving_cuda, gl.gamma_halving_level_plain,
+                              f"homogeneous log_prob at {GHMM_SIG}"),
+            "gamma_contract": (contract, gl._gamma_contract_cuda, gl.gamma_contract_pairs_plain,
+                               f"heterogeneous log_prob at {GGHMM_HET_SIG}"),
+            "gamma_contract_filter": (filt, gl._gamma_contract_cuda, gl.gamma_contract_pairs_plain,
+                                      f"homogeneous filter at {GHMM_SIG} (n=32 over the expanded chain)"),
+        }
+        for name, (calls, kernel, plain, where) in sets.items():
+            check(calls, f"no {name} level was recorded")
+            err, to64 = 0.0, {"kernel": [0.0] * 5, "plain": [0.0] * 5}
+            for i, args in enumerate(calls):
+                outs_k, outs_p = kernel(*args), plain(*args)
+                check(torch.equal(outs_k[3], outs_p[3]), f"{name} level {i}: alpha' differs from the plain version's")
+                err = max(err, check_k4_level(f"{name} level {i}", outs_k, outs_p))
+                outs_64 = plain(*(a.double() for a in args))
+                for j, ref in enumerate(outs_64):
+                    scale = float(ref.abs().max())
+                    ek, ep = max_err(outs_k[j].double(), ref), max_err(outs_p[j].double(), ref)
+                    check(ek <= 1e-4 * scale + 1e-5, f"{name} level {i} {K5_OUTPUTS[j]}: {ek:.3g} from float64, "
+                                                     f"over 1e-4 * {scale:.3g}")
+                    to64["kernel"][j] = max(to64["kernel"][j], ek / max(scale, 1e-30))
+                    to64["plain"][j] = max(to64["plain"][j], ep / max(scale, 1e-30))
+                del outs_k, outs_p, outs_64
+            t = alternate({
+                "kernel": lambda: [kernel(*args) for args in calls],
+                "plain": lambda: [plain(*args) for args in calls],
+            }, iters=5 if name != "gamma_contract_filter" else 2)
+            flops = sum(k4_bounds(name[:14], args)[0] for args in calls)
+            nbytes = sum(k4_bounds(name[:14], args)[1] for args in calls)
+            b = bound(flops, nbytes)
+            first = calls[0][1]
+            print(f"  {name[:14]} over the {len(calls)} levels of the {where} (first level's input "
+                  f"{tuple(first.shape)}): alpha' exact, max abs err {err:.3g} to the plain version; to float64, "
+                  f"times each output's max, kernel "
+                  + ", ".join(f"{o} {e:.2g}" for o, e in zip(K5_OUTPUTS, to64["kernel"]))
+                  + "; plain float32 " + ", ".join(f"{o} {e:.2g}" for o, e in zip(K5_OUTPUTS, to64["plain"]))
+                  + f"; kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: "
+                  f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            result[name] = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"], "bound": b,
+                            "levels": len(calls)}
+    del halving, contract, filt, sets
+    torch.cuda.empty_cache()
+    return result
+
+
+def final_gamma(hmm, data):
+    """The Gamma left over the mixing variable once a GammaGaussianHMM's
+    log_prob has integrated out the states: its ``logsumexp()`` is log_prob."""
+    from pyro_tpu_torch.ops import gamma_gaussian as tgg
+
+    r = hmm._conditioned(data)
+    if r.precision.ndim == 2:
+        r = tgg.sequential_gamma_gaussian_tensordot_homogeneous(r)
+    else:
+        r = tgg.sequential_gamma_gaussian_tensordot(r.expand(r.batch_shape))
+    return tgg.gamma_gaussian_tensordot(hmm._init, r, dims=hmm.hidden_dim).event_logsumexp()
+
+
+def rel_to(torch, label, got, ref, scale, rtol):
+    """``got`` within ``rtol * scale`` of the float64 ``ref`` at every entry."""
+    diff = (got.double() - ref).abs()
+    rel = float((diff / scale).max())
+    print(f"  {label}: max abs diff to float64 {float(diff.max()):.4g} ({rel:.3g} of the scale; "
+          f"{float((diff / ref.abs()).max()):.3g} of the value)")
+    check(bool(torch.isfinite(got).all()) and rel <= rtol, f"{label}: {rel:.3g} over {rtol}")
+
+
+def independent_models(torch, dtype):
+    """IndependentHMM at 8.10000.32.4: IHMM_CHANNELS channels, each a
+    GaussianHMM of hidden 32, obs 1 with its own parameters (``make_arrays``
+    of ``examples/gaussian_hmm.py`` at seed c), 8 sequences of T=10000.
+    Returns the IndependentHMM, its data (8, T, C), and the channels'
+    GaussianHMMs (each homogeneous)."""
+    import numpy as np
+
+    import pyro_tpu_torch.distributions as tdist
+    from pyro_tpu_torch.examples import gaussian_hmm as example
+
+    arrays = [example.make_arrays("homogeneous", c, obs=1) for c in range(IHMM_CHANNELS)]
+    p = {k: torch.tensor(np.stack([a[k] for a in arrays]), dtype=dtype, device="cuda") for k in arrays[0]}
+    data = p["data"][..., 0].permute(1, 2, 0)  # (C, 8, T, 1) -> (8, T, C)
+    step = {k: v.unsqueeze(1) for k, v in p.items() if k not in ("init_loc", "init_scale", "data")}
+    base = tdist.GaussianHMM(
+        tdist.Normal(p["init_loc"], p["init_scale"]).to_event(1), step["trans_mat"],
+        tdist.Normal(step["trans_loc"], step["trans_scale"]).to_event(1), step["obs_mat"],
+        tdist.Normal(step["obs_loc"], step["obs_scale"]).to_event(1), duration=example.CONFIGS["homogeneous"]["T"],
+    )
+    channels = [example.make_hmm({k: v[c] for k, v in p.items()}, example.CONFIGS["homogeneous"]["T"])
+                for c in range(IHMM_CHANNELS)]
+    return tdist.IndependentHMM(base), data, channels
+
+
+def mrf_model(torch, dtype):
+    """GaussianMRF at 8.10000.32.4: time-homogeneous MVN factors over z_0
+    (32), (z, z') (64) and (z', y) (36) with random covariances A A^T / d +
+    I (numpy, seed 7), and 8 sequences of T=10000 observations of dim 4."""
+    import numpy as np
+
+    import pyro_tpu_torch.distributions as tdist
+
+    rng = np.random.default_rng(7)
+    h, o, T = 32, 4, 10_000
+
+    def mvn(d):
+        A = rng.standard_normal((d, d))
+        cov = torch.tensor(A @ A.T / d + np.eye(d), dtype=dtype, device="cuda")
+        return tdist.MultivariateNormal(torch.zeros(d, dtype=dtype, device="cuda"), covariance_matrix=cov)
+
+    mrf = tdist.GaussianMRF(mvn(h), mvn(2 * h), mvn(h + o), duration=T)
+    return mrf, torch.tensor(rng.standard_normal((8, T, o)), dtype=dtype, device="cuda")
+
+
+def phase_gamma_slice(torch, gl):
+    """Phase 16: the Student-t slice through its entry points, each call's
+    K5 launches counted and each result against the port's plain levels in
+    float64; then IndependentHMM, GaussianMRF, conjugate_update and
+    prefix_condition through K4 at 8.10000.32.4, each against float64."""
+    print(f"phase 16: GammaGaussianHMM log_prob at {GHMM_SIG} and {GGHMM_HET_SIG}, filter at {GHMM_SIG}; "
+          f"IndependentHMM, GaussianMRF, conjugate_update and prefix_condition at {GHMM_SIG}")
+    import numpy as np
+
+    import pyro_tpu_torch.distributions as tdist
+
+    k5 = ("gamma_halving", "gamma_contract")
+    k4 = ("halving", "contract")
+    models = slice_models(torch, example_name="gamma_gaussian_hmm")
+    models64 = slice_models(torch, torch.float64, example_name="gamma_gaussian_hmm")
+    launches, out = {}, {}
+    with torch.no_grad():
+        for config, sig in (("homogeneous", GHMM_SIG), ("heterogeneous", GGHMM_HET_SIG)):
+            hmm, data = models[config]
+            T = data.shape[-2]
+            # K5a: one launch a level of the largest power-of-two block; K5b: ceil(log2 T)
+            expect = ({"gamma_halving": T.bit_length() - 1, "gamma_contract": 0} if config == "homogeneous"
+                      else {"gamma_halving": 0, "gamma_contract": (T - 1).bit_length()})
+
+            def chained():
+                acc = torch.zeros((), device="cuda")
+                for _ in range(GHMM_CALLS):
+                    acc = acc + hmm.log_prob(data + 1e-6 * acc).sum()
+                return acc
+
+            chained()
+            torch.cuda.synchronize()
+            times = []
+            for rep in range(3):
+                t0 = time.perf_counter()
+                acc, counts = counted(torch, gl, f"{config} log_prob, {GHMM_CALLS} chained calls (rep {rep})",
+                                      chained, k5, launches)
+                times.append(time.perf_counter() - t0)
+                check(counts == {k: GHMM_CALLS * v for k, v in expect.items()} and math.isfinite(float(acc)),
+                      f"{config} log_prob: launches {counts}, expected {expect} a call; acc {acc}")
+            seqs = GHMM_CALLS * data.shape[0]
+            print(f"  {config} log_prob at {sig}: {[round(1e3 * t / GHMM_CALLS, 3) for t in times]} ms a call, "
+                  f"{seqs / min(times):.1f} sequences/s at best ({seqs} sequences a rep); "
+                  f"{expect} launches a call")
+            out[f"{config}_seq_per_s"] = seqs / min(times)
+            lp, _ = counted(torch, gl, f"{config} log_prob, checked", lambda: hmm.log_prob(data), k5, launches)
+            with plain_levels(gl):
+                hmm64, data64 = models64[config]
+                g64 = final_gamma(hmm64, data64)
+                lp64 = hmm64.log_prob(data64)
+                lp32_plain = hmm.log_prob(data)
+            terms = g64.log_normalizer.abs() + torch.lgamma(g64.concentration).abs() + (
+                g64.concentration * torch.log(g64.rate)).abs()
+            print(f"  {config} log_prob {lp.cpu().tolist()} against float64 {lp64.cpu().tolist()}; its terms "
+                  f"(|log normaliser| + |lgamma(conc)| + |conc log rate|) up to {float(terms.max()):.6g}, "
+                  f"concentration {g64.concentration.cpu().tolist()}")
+            rel_to(torch, f"{config} log_prob through K5", lp, lp64, terms, GGHMM_TERMS_RTOL)
+            rel_to(torch, f"{config} log_prob through the float32 plain levels (the reference's arithmetic)",
+                   lp32_plain, lp64, terms, GGHMM_TERMS_RTOL)
+
+        # the homogeneous filter: K5b over the expanded chain at n=32
+        hom, hom_data = models["homogeneous"]
+        T = hom_data.shape[-2]
+        (gamma, mvn), counts = counted(torch, gl, "homogeneous filter", lambda: hom.filter(hom_data), k5, launches)
+        check(counts == {"gamma_halving": 0, "gamma_contract": (T - 1).bit_length()}, f"filter: launches {counts}")
+        with plain_levels(gl):
+            gamma64, mvn64 = models64["homogeneous"][0].filter(models64["homogeneous"][1])
+        conc_err = max_err(gamma.concentration.double(), gamma64.concentration)
+        print(f"  homogeneous filter: concentration {gamma.concentration.cpu().tolist()} (float64 "
+              f"{gamma64.concentration.cpu().tolist()}), rate {gamma.rate.cpu().tolist()}")
+        check(conc_err <= 1e-6 * float(gamma64.concentration.abs().max()), f"filter concentration: {conc_err:.3g}")
+        rel_to(torch, "filter's Gamma rate", gamma.rate, gamma64.rate, gamma64.rate.abs(), GGHMM_RATE_RTOL)
+        for name, got, ref in (("mean", mvn.loc, mvn64.loc), ("covariance", mvn.covariance_matrix,
+                                                               mvn64.covariance_matrix)):
+            rel_to(torch, f"filter's {name}", got, ref, ref.abs().max(), GGHMM_MVN_TOL)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            hom.filter(hom_data)
+        torch.cuda.synchronize()
+        print(f"  homogeneous filter: {1e3 * (time.perf_counter() - t0) / 3:.3f} ms a call")
+        del gamma, mvn, gamma64, mvn64
+        torch.cuda.empty_cache()
+
+    het, het_data = models["heterogeneous"]
+    for label, fn in (("homogeneous log_prob", lambda: hom.log_prob(hom_data)),
+                      ("heterogeneous log_prob", lambda: het.log_prob(het_data)),
+                      ("homogeneous filter", lambda: hom.filter(hom_data))):
+        print(f"  {label}, one call:")
+        with torch.no_grad():
+            wall, busy, _, _ = profile_run(torch, fn, top=5)
+        out[f"busy_share {label}"] = busy / wall
+    del models, models64
+    torch.cuda.empty_cache()
+
+    with torch.no_grad():
+        # IndependentHMM: each channel its own parameters, so the chain runs K4b
+        ihmm, idata, _ = independent_models(torch, torch.float32)
+        lp, counts = counted(torch, gl, f"IndependentHMM log_prob ({IHMM_CHANNELS} channels)",
+                             lambda: ihmm.log_prob(idata), k4)
+        check(counts["contract"] > 0, f"IndependentHMM: launches {counts}")
+        _, idata64, channels64 = independent_models(torch, torch.float64)
+        with plain_levels(gl):
+            lp64 = sum(ch.log_prob(idata64[..., c:c + 1]) for c, ch in enumerate(channels64))
+        rel_to(torch, "IndependentHMM log_prob (against its channels' GaussianHMMs)", lp, lp64, lp64.abs(), GHMM_RTOL)
+        del ihmm, idata, idata64, channels64
+        torch.cuda.empty_cache()
+
+        mrf, mdata = mrf_model(torch, torch.float32)
+        lp, counts = counted(torch, gl, "GaussianMRF log_prob", lambda: mrf.log_prob(mdata), k4)
+        check(counts["contract"] > 0, f"GaussianMRF: launches {counts}")
+        mrf64, mdata64 = mrf_model(torch, torch.float64)
+        with plain_levels(gl):
+            lp64 = mrf64.log_prob(mdata64)
+        rel_to(torch, "GaussianMRF log_prob", lp, lp64, lp64.abs(), GHMM_RTOL)
+        del mrf, mdata, mrf64, mdata64
+        torch.cuda.empty_cache()
+
+        gmodels = slice_models(torch)
+        gmodels64 = slice_models(torch, torch.float64)
+        rng = np.random.default_rng(8)
+        like_loc = rng.standard_normal(tuple(gmodels["homogeneous"][1].shape))
+
+        def update(hmm, data):
+            loc = torch.tensor(like_loc, dtype=data.dtype, device="cuda")
+            g = tdist.Normal(loc, torch.ones_like(loc)).to_event(2)
+            fg, log_normalizer = hmm.conjugate_update(g)
+            return fg.log_prob(data), log_normalizer, hmm.log_prob(data) + g.log_prob(data)
+
+        hom, hom_data = gmodels["homogeneous"]
+        (fg_lp, log_normalizer, f_plus_g), counts = counted(torch, gl, "conjugate_update and its identity",
+                                                            lambda: update(hom, hom_data), k4)
+        check(counts["contract"] > 0 and counts["halving"] > 0, f"conjugate_update: launches {counts}")
+        with plain_levels(gl):
+            fg_lp64, log_normalizer64, f_plus_g64 = update(*gmodels64["homogeneous"])
+        rel_to(torch, "conjugate_update's log_normalizer", log_normalizer, log_normalizer64,
+               log_normalizer64.abs(), GHMM_RTOL)
+        rel_to(torch, "the updated model's log_prob", fg_lp, fg_lp64, fg_lp64.abs(), GHMM_RTOL)
+        rel_to(torch, "f.log_prob + g.log_prob against fg.log_prob + log_normalizer, float32", f_plus_g,
+               (fg_lp + log_normalizer).double(), f_plus_g64.abs(), GHMM_RTOL)
+        rel_to(torch, "the same identity in float64", f_plus_g64, fg_lp64 + log_normalizer64, f_plus_g64.abs(), 1e-10)
+
+        def prefix(hmm, data):
+            right = hmm.prefix_condition(data[:, :PREFIX_T])
+            return right.log_prob(data[:, PREFIX_T:])
+
+        rlp, counts = counted(torch, gl, f"prefix_condition at t={PREFIX_T} and the rest's log_prob",
+                              lambda: prefix(hom, hom_data), k4)
+        check(counts["contract"] > 0 and counts["halving"] > 0, f"prefix_condition: launches {counts}")
+        hom64, hom_data64 = gmodels64["homogeneous"]
+        with plain_levels(gl):
+            rlp64 = prefix(hom64, hom_data64)
+            from pyro_tpu_torch.examples import gaussian_hmm as example
+
+            p64 = {k: torch.tensor(v, dtype=torch.float64, device="cuda")
+                   for k, v in example.make_arrays("homogeneous", 0).items()}
+            p64.pop("data")
+            chain = example.make_hmm(p64, PREFIX_T).log_prob(hom_data64[:, :PREFIX_T]) + rlp64
+            full = hom64.log_prob(hom_data64)
+        rel_to(torch, f"log p(x[t:] | x[:t]) at t={PREFIX_T}", rlp, rlp64, rlp64.abs(), GHMM_RTOL)
+        rel_to(torch, "log p(x[:t]) + log p(x[t:] | x[:t]) against log p(x), float64", chain, full, full.abs(), 1e-10)
+    del gmodels, gmodels64
+    torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -1919,6 +2290,8 @@ def main():
     k2g = phase_k2g(torch, ms)
     tv_launches = phase_tv_slice(torch, lm, ms)["launches"]
     phase_fallback(torch, lm, ms)
+    k5 = phase_k5(torch, gl)
+    k5_launches = phase_gamma_slice(torch, gl)["launches"]
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"
@@ -1945,6 +2318,10 @@ def main():
          tv_launches["forward"]),
         ("markov_scan_tv_bwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:436", k2g["backward"],
          tv_launches["backward"]),
+        ("gamma_gaussian_halving", "gaussian_levels.cu", "pyro_tpu/ops/gamma_gaussian.py:401", k5["gamma_halving"],
+         k5_launches["gamma_halving"]),
+        ("gamma_gaussian_contract", "gaussian_levels.cu", "pyro_tpu/ops/gamma_gaussian.py:464",
+         k5["gamma_contract"], k5_launches["gamma_contract"]),
     ):
         kernels.append({
             "name": name,

@@ -1,5 +1,6 @@
 // The halving levels of the information-form Gaussian algebra on Hopper
-// (sm_90a): K4a, K4b and K4c, and the backward of K4a and K4b.  A Gaussian over x is
+// (sm_90a): K4a, K4b and K4c, the backward of K4a and K4b, and the
+// gamma-Gaussian levels K5a and K5b.  A Gaussian over x is
 // exp(c + i.x - x'Px/2) with log normaliser c, info vector i and precision
 // P; a factor of a Markov chain is a Gaussian over (z_t, z_t+1), 2n dims.
 // Time is contracted by pairwise halving: each level joins adjacent
@@ -36,6 +37,22 @@
 //   written with the left points into their interleaved places of the next
 //   level's points; L and P_mk are read with stride 0 where they are shared
 //   (never broadcast into memory).  A warp per (draw, pair), lane i row i.
+// K5a and K5b, gl_halving_kernel<true> and gl_contract_kernel<true>: the
+//   same levels of the gamma-Gaussian algebra (Student-t state-space
+//   models), exp(c) s^alpha exp(s (i.x - x'Px/2 - beta)) with a shared
+//   mixing variable s.  K5a replaces the loop body of reduce_pow2_block in
+//   pyro_tpu/ops/gamma_gaussian.py (:401-439), K5b the pairwise
+//   gamma_gaussian_tensordot of sequential_gamma_gaussian_tensordot
+//   (:464-486, marginalize :237-275).  Each does its K4 kernel's work and
+//   reads per factor alpha and beta as well: alpha' = alpha_1 + alpha_2 -
+//   n/2, beta' = beta_1 + beta_2 - |s|^2 / 2 (s = L^-1 ib, or L^-1 i_m), and
+//   logZ' leaves out the |s|^2 / 2 completion, which the Gaussian levels add
+//   (it is scaled by s here).  The kernel writes beta' itself: recovering it
+//   from logZ differences would cancel.  The Gaussian instantiations compile
+//   the gamma work away (if constexpr) and do K4's arithmetic unchanged.
+//   What bounds them is K4's (below): a call's levels move some 60 MB
+//   (K5a) or, for the filter's expanded chain at n = 32, 2 GB (K5b), and
+//   the per-level latency of the small factorisations sets the time.
 //
 // The backward (training through log_prob) recomputes from the forward's
 // tape (K4a: L and ib; K4b: L, P_mk and i_m) and returns the gradient of
@@ -189,11 +206,16 @@ __device__ __forceinline__ float warp_sum(float v) {
 // P (2n, 2n); info (R, 2m, 2n) and logZ (R, 2m) with row strides info_rs
 // and logZ_rs (elements); outputs P_out (2n, 2n), L_out (n, n) (CTA 0),
 // info_out (R, m, 2n), logZ_out (R, m), and ib_out (R, m, n) unless null.
+// GAMMA (K5a): alpha and beta (R, 2m) with row strides alpha_rs and beta_rs
+// in, alpha_out and beta_out (R, m) out, and logZ' without |s|^2 / 2.
+template <bool GAMMA>
 __global__ void __launch_bounds__(NT_HALVE) gl_halving_kernel(
     const float* __restrict__ P, const float* __restrict__ info, long long info_rs,
     const float* __restrict__ logZ, long long logZ_rs, int R, int m, int n, float* __restrict__ P_out,
     float* __restrict__ L_out, float* __restrict__ info_out, float* __restrict__ logZ_out,
-    float* __restrict__ ib_out) {
+    float* __restrict__ ib_out, const float* __restrict__ alpha, long long alpha_rs,
+    const float* __restrict__ beta, long long beta_rs, float* __restrict__ alpha_out,
+    float* __restrict__ beta_out) {
   __shared__ float Ls[NMAX][NMAX + 1];
   __shared__ float Kt[NMAX][2 * NMAX + 1];
   __shared__ float sv[NT_HALVE / 32][NMAX];
@@ -258,7 +280,16 @@ __global__ void __launch_bounds__(NT_HALVE) gl_halving_kernel(
     const float ss = warp_sum(lane < n ? s * s : 0.f);
     if (lane == 0) {
       const float* lz = logZ + r * logZ_rs + 2 * p;
-      logZ_out[q] = lz[0] + lz[1] + c0 - half_logdet + 0.5f * ss;
+      if constexpr (GAMMA) {
+        // the completion |s|^2 / 2 goes to beta, scaled by the mixing variable
+        const float* al = alpha + r * alpha_rs + 2 * p;
+        const float* be = beta + r * beta_rs + 2 * p;
+        logZ_out[q] = lz[0] + lz[1] + c0 - half_logdet;
+        alpha_out[q] = al[0] + al[1] - 0.5f * (float)n;
+        beta_out[q] = be[0] + be[1] - 0.5f * ss;
+      } else {
+        logZ_out[q] = lz[0] + lz[1] + c0 - half_logdet + 0.5f * ss;
+      }
     }
     __syncwarp();
   }
@@ -270,14 +301,19 @@ __global__ void __launch_bounds__(NT_HALVE) gl_halving_kernel(
 // pairs (2p, 2p + 1) of each row go to P_out (R, t_out, 2n, 2n), info_out
 // (R, t_out, 2n), logZ_out (R, t_out) at p; the tape, unless L_tape is
 // null: L_tape (R, t / 2, n, n), Pmk_tape (R, t / 2, n, 2n), im_tape
-// (R, t / 2, n).
+// (R, t / 2, n).  GAMMA (K5b): alpha and beta (R, t) in, alpha_out and
+// beta_out (R, t_out) out, and logZ' without |L^-1 i_m|^2 / 2.
+template <bool GAMMA>
 __global__ void __launch_bounds__(NT_PAIR) gl_contract_kernel(
     const float* __restrict__ P, const float* __restrict__ info, const float* __restrict__ logZ, int R, int t,
     int n, int t_out, float* __restrict__ P_out, float* __restrict__ info_out, float* __restrict__ logZ_out,
-    float* __restrict__ L_tape, float* __restrict__ Pmk_tape, float* __restrict__ im_tape) {
+    float* __restrict__ L_tape, float* __restrict__ Pmk_tape, float* __restrict__ im_tape,
+    const float* __restrict__ alpha, const float* __restrict__ beta, float* __restrict__ alpha_out,
+    float* __restrict__ beta_out) {
   __shared__ float M[NMAX][NMAX + 1];
   __shared__ float X[NMAX][2 * NMAX + 2];  // [P_mk | i_m], then L^-1 of it
-  __shared__ float lz_terms;  // sum log diag L - |L^-1 i_m|^2 / 2
+  __shared__ float lz_terms;  // sum log diag L - |L^-1 i_m|^2 / 2 (GAMMA: sum log diag L)
+  __shared__ float completion;  // GAMMA: |L^-1 i_m|^2
   const int tid = threadIdx.x, n2 = 2 * n, nc = n2 + 1;
   const long long np = t / 2, pairs = (long long)R * np;
   for (long long q = blockIdx.x; q < pairs; q += gridDim.x) {
@@ -304,10 +340,21 @@ __global__ void __launch_bounds__(NT_PAIR) gl_contract_kernel(
       for (int x = tid; x < n * n; x += NT_PAIR) L_tape[q * n * n + x] = M[x / n][x % n];
     block_solve_lower(&M[0][0], NMAX + 1, &X[0][0], 2 * NMAX + 2, n, nc, NT_PAIR);
     if (tid < 32) {
-      float v = 0.f;
-      for (int i = tid; i < n; i += 32) v += logf(M[i][i]) - 0.5f * X[i][n2] * X[i][n2];
+      float v = 0.f, w = 0.f;
+      for (int i = tid; i < n; i += 32) {
+        if constexpr (GAMMA) {
+          v += logf(M[i][i]);
+          w += X[i][n2] * X[i][n2];
+        } else {
+          v += logf(M[i][i]) - 0.5f * X[i][n2] * X[i][n2];
+        }
+      }
       v = warp_sum(v);
-      if (tid == 0) lz_terms = v;
+      if constexpr (GAMMA) w = warp_sum(w);
+      if (tid == 0) {
+        lz_terms = v;
+        if constexpr (GAMMA) completion = w;
+      }
     }
     const long long o = r * t_out + p;
     for (int x = tid; x < n2 * n2; x += NT_PAIR) {
@@ -324,8 +371,12 @@ __global__ void __launch_bounds__(NT_PAIR) gl_contract_kernel(
     }
     __syncthreads();
     if (tid == 0) {
-      const float* lz = logZ + r * t + 2 * p;
-      logZ_out[o] = lz[0] + lz[1] + (float)n * HALF_LOG_2PI - lz_terms;
+      const long long f = r * t + 2 * p;
+      logZ_out[o] = logZ[f] + logZ[f + 1] + (float)n * HALF_LOG_2PI - lz_terms;
+      if constexpr (GAMMA) {
+        alpha_out[o] = alpha[f] + alpha[f + 1] - 0.5f * (float)n;
+        beta_out[o] = beta[f] + beta[f + 1] - 0.5f * completion;
+      }
     }
     __syncthreads();
   }
@@ -666,16 +717,36 @@ extern "C" {
 int gl_halving(const float* P, const float* info, long long info_rs, const float* logZ, long long logZ_rs, int R,
                int m, int n, int blocks, float* P_out, float* L_out, float* info_out, float* logZ_out,
                float* ib_out, cudaStream_t st) {
-  gl_halving_kernel<<<blocks, NT_HALVE, 0, st>>>(P, info, info_rs, logZ, logZ_rs, R, m, n, P_out, L_out, info_out,
-                                                 logZ_out, ib_out);
+  gl_halving_kernel<false><<<blocks, NT_HALVE, 0, st>>>(P, info, info_rs, logZ, logZ_rs, R, m, n, P_out, L_out,
+                                                        info_out, logZ_out, ib_out, nullptr, 0, nullptr, 0, nullptr,
+                                                        nullptr);
+  return (int)cudaGetLastError();
+}
+
+int gl_gamma_halving(const float* P, const float* info, long long info_rs, const float* logZ, long long logZ_rs,
+                     const float* alpha, long long alpha_rs, const float* beta, long long beta_rs, int R, int m,
+                     int n, int blocks, float* P_out, float* L_out, float* info_out, float* logZ_out,
+                     float* alpha_out, float* beta_out, cudaStream_t st) {
+  gl_halving_kernel<true><<<blocks, NT_HALVE, 0, st>>>(P, info, info_rs, logZ, logZ_rs, R, m, n, P_out, L_out,
+                                                       info_out, logZ_out, nullptr, alpha, alpha_rs, beta, beta_rs,
+                                                       alpha_out, beta_out);
   return (int)cudaGetLastError();
 }
 
 int gl_contract(const float* P, const float* info, const float* logZ, int R, int t, int n, int t_out, int blocks,
                 float* P_out, float* info_out, float* logZ_out, float* L_tape, float* Pmk_tape, float* im_tape,
                 cudaStream_t st) {
-  gl_contract_kernel<<<blocks, NT_PAIR, 0, st>>>(P, info, logZ, R, t, n, t_out, P_out, info_out, logZ_out, L_tape,
-                                                 Pmk_tape, im_tape);
+  gl_contract_kernel<false><<<blocks, NT_PAIR, 0, st>>>(P, info, logZ, R, t, n, t_out, P_out, info_out, logZ_out,
+                                                        L_tape, Pmk_tape, im_tape, nullptr, nullptr, nullptr,
+                                                        nullptr);
+  return (int)cudaGetLastError();
+}
+
+int gl_gamma_contract(const float* P, const float* info, const float* logZ, const float* alpha, const float* beta,
+                      int R, int t, int n, int t_out, int blocks, float* P_out, float* info_out, float* logZ_out,
+                      float* alpha_out, float* beta_out, cudaStream_t st) {
+  gl_contract_kernel<true><<<blocks, NT_PAIR, 0, st>>>(P, info, logZ, R, t, n, t_out, P_out, info_out, logZ_out,
+                                                       nullptr, nullptr, nullptr, alpha, beta, alpha_out, beta_out);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 from . import constraints
-from .continuous import Beta, HalfCauchy, Normal
+from .continuous import Beta, Gamma, HalfCauchy, Normal
 from .delta import Delta, Unit
 from .discrete import Bernoulli, Categorical
 from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution
-from .hmm import DiscreteHMM, GaussianHMM
+from .hmm import DiscreteHMM, GammaGaussianHMM, GaussianHMM, GaussianMRF, IndependentHMM
 from .multivariate import Dirichlet, MultivariateNormal
 from .transforms import StickBreakingTransform, biject_to, transform_to
 
@@ -14,11 +14,15 @@ __all__ = [
     "Delta",
     "Dirichlet",
     "DiscreteHMM",
+    "Gamma",
+    "GammaGaussianHMM",
     "GaussianHMM",
+    "GaussianMRF",
     "Distribution",
     "ExpandedDistribution",
     "HalfCauchy",
     "Independent",
+    "IndependentHMM",
     "MaskedDistribution",
     "MultivariateNormal",
     "Normal",

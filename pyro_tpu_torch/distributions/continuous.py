@@ -1,4 +1,4 @@
-"""Beta, Normal and HalfCauchy (counterpart of the part of
+"""Beta, Normal, HalfCauchy and Gamma (counterpart of the part of
 ``pyro_tpu/distributions/continuous.py`` this package uses)."""
 
 from __future__ import annotations
@@ -102,3 +102,37 @@ class HalfCauchy(Distribution):
 
     def expand(self, batch_shape, _instance=None):
         return HalfCauchy(self.scale.expand(tuple(batch_shape)))
+
+
+class Gamma(Distribution):
+    """Gamma(concentration, rate); draws take a ``torch.Generator``."""
+
+    arg_constraints = {"concentration": constraints.positive, "rate": constraints.positive}
+    support = constraints.positive
+    has_rsample = True
+
+    def __init__(self, concentration, rate=1.0):
+        like = concentration if isinstance(concentration, torch.Tensor) else rate
+        concentration, rate = _param(concentration, like), _param(rate, like)
+        shape = broadcast_shape(concentration.shape, rate.shape)
+        self.concentration, self.rate = concentration.expand(shape), rate.expand(shape)
+        super().__init__(shape)
+
+    def rsample(self, generator=None, sample_shape=()):
+        return _standard_gamma(self.concentration.expand(self.shape(sample_shape)), generator) / self.rate
+
+    def log_prob(self, value):
+        a, b = self.concentration, self.rate
+        return a * torch.log(b) + (a - 1) * torch.log(value) - b * value - torch.lgamma(a)
+
+    @property
+    def mean(self):
+        return self.concentration / self.rate
+
+    @property
+    def variance(self):
+        return self.concentration / self.rate**2
+
+    def expand(self, batch_shape, _instance=None):
+        batch_shape = tuple(batch_shape)
+        return Gamma(self.concentration.expand(batch_shape), self.rate.expand(batch_shape))

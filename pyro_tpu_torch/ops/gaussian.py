@@ -28,6 +28,7 @@ import torch
 
 from ..distributions.util import broadcast_shape
 from . import gaussian_levels, linalg_small
+from .gaussian_levels import _log_diag_sum
 
 
 def _mv(M, v):
@@ -38,8 +39,14 @@ def _tri_solve_vec(L, b):
     return linalg_small.solve_lower(L, b.unsqueeze(-1)).squeeze(-1)
 
 
-def _log_diag_sum(L):
-    return torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+def _reorder_events(info_vec, precision, blocks):
+    """``info_vec`` and ``precision`` with their event dims reordered as the
+    (start, stop) ``blocks`` list them, by concatenation: an index tensor
+    made from a Python list would be a copy from the host, which waits for
+    the device."""
+    info_vec = torch.cat([info_vec[..., a:b] for a, b in blocks], dim=-1)
+    rows = torch.cat([precision[..., a:b, :] for a, b in blocks], dim=-2)
+    return info_vec, torch.cat([rows[..., a:b] for a, b in blocks], dim=-1)
 
 
 class Gaussian:
@@ -109,13 +116,7 @@ class Gaussian:
         return Gaussian(self.log_normalizer, info_vec, precision)
 
     def _event_blocks(self, blocks) -> "Gaussian":
-        """The event dims reordered as the (start, stop) ``blocks`` list
-        them, by concatenation: an index tensor made from a Python list
-        would be a copy from the host, which waits for the device."""
-        info_vec = torch.cat([self.info_vec[..., a:b] for a, b in blocks], dim=-1)
-        rows = torch.cat([self.precision[..., a:b, :] for a, b in blocks], dim=-2)
-        precision = torch.cat([rows[..., a:b] for a, b in blocks], dim=-1)
-        return Gaussian(self.log_normalizer, info_vec, precision)
+        return Gaussian(self.log_normalizer, *_reorder_events(self.info_vec, self.precision, blocks))
 
     def __add__(self, other) -> "Gaussian":
         if isinstance(other, Gaussian):
@@ -291,17 +292,19 @@ def _unflatten(g, batch):
     return Gaussian(g.log_normalizer.reshape(batch), g.info_vec.reshape(tuple(batch) + (n,)), P)
 
 
-def _homogeneous_levels(P, info, logZ, tape=False):
+def _pow2_halvings(P, rows, level):
     """Reduce each maximal power-of-two block of the time axis of a
-    homogeneous chain (shared P (2n, 2n); info (R, T, 2n), logZ (R, T)).
+    homogeneous chain: shared P (2n, 2n), ``rows`` a list of tensors (R, T,
+    ...) (the info vectors, the log normalisers, and whatever else a factor
+    carries per step).
 
     After k levels every block still reducing has the same precision, so
-    one K4a launch reduces level k of all of them: the blocks lie in time
-    order, largest first, so those still reducing are a prefix of the
-    rows, each of even length.  Returns each block's Gaussian (batch R,
-    its own P) in time order and, per level, (P, L, ib) with ib over the
-    pairs of every block reducing at that level, in time order."""
-    sizes = _pow2_blocks(info.shape[-2])
+    one launch of ``level(P, *rows) -> (P', rows', saved)`` reduces level k
+    of all of them: the blocks lie in time order, largest first, so those
+    still reducing are a prefix of the rows, each of even length.  Returns
+    each block's ``(P, *rows)`` (rows of batch R) in time order and, per
+    level, ``(P, *saved)`` with P that level's input."""
+    sizes = _pow2_blocks(rows[0].shape[1])
     blocks, levels = [None] * len(sizes), []
     k = 0
     while True:
@@ -310,13 +313,27 @@ def _homogeneous_levels(P, info, logZ, tape=False):
         for j in range(active, len(sizes)):  # finished blocks: one row each, after the active ones
             if blocks[j] is None:
                 row = length + j - active
-                blocks[j] = Gaussian(logZ[..., row], info[..., row, :], P)
+                blocks[j] = (P, *(x[:, row] for x in rows))
         if not active:
             return blocks, levels
         P_in = P
-        P, info, logZ, L, ib = gaussian_levels.halving_level(P, info[..., :length, :], logZ[..., :length], tape)
-        levels.append((P_in, L, ib))
+        P, rows, saved = level(P, *(x[:, :length] for x in rows))
+        levels.append((P_in, *saved))
         k += 1
+
+
+def _homogeneous_levels(P, info, logZ, tape=False):
+    """``_pow2_halvings`` through K4a (info (R, T, 2n), logZ (R, T)): each
+    block's Gaussian (batch R, its own P) in time order and, per level,
+    (P, L, ib) with ib over the pairs of every block reducing at that level,
+    in time order."""
+
+    def level(P, info, logZ):
+        P, info, logZ, L, ib = gaussian_levels.halving_level(P, info, logZ, tape)
+        return P, (info, logZ), (L, ib)
+
+    blocks, levels = _pow2_halvings(P, (info, logZ), level)
+    return [Gaussian(logZ, info, P) for P, info, logZ in blocks], levels
 
 
 def sequential_gaussian_tensordot_homogeneous(gaussian: Gaussian) -> Gaussian:

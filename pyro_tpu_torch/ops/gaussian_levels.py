@@ -1,5 +1,6 @@
 """The halving levels of the information-form Gaussian algebra: K4a, K4b
-and K4c, with the backward of K4a and K4b.
+and K4c, with the backward of K4a and K4b; and those of the gamma-Gaussian
+algebra, K5a and K5b.
 
 Each function has a plain PyTorch version beside it, the arithmetic of the
 JAX package's level code (``pyro_tpu/ops/gaussian.py``), and a wrapper.  On
@@ -18,6 +19,13 @@ the kernel launches or the call raises.
   ``tape``, each pair's L (n, n), P_mk (n, 2n) and i_m (n) for the descent.
 - ``level_mids`` (K4c): a level's midpoint draws, the points (D, R, m, n)
   to (D, R, m + Np, n) with the mids in their interleaved places.
+- ``gamma_halving_level`` (K5a) and ``gamma_contract_pairs`` (K5b): K4a's
+  and K4b's levels of the gamma-Gaussian algebra (``ops/gamma_gaussian.py``,
+  the counterpart of ``pyro_tpu/ops/gamma_gaussian.py``), which carry per
+  factor a shape ``alpha`` and a rate ``beta`` (R, t) beside logZ:
+  alpha' = alpha_1 + alpha_2 - n/2, beta' = beta_1 + beta_2 - |s|^2 / 2 with
+  s the level's L^-1 ib (K5a) or L^-1 i_m (K5b), and logZ' without the
+  |s|^2 / 2 that K4 adds.  They keep no tape.
 
 Training: ``halving_level`` and ``contract_pairs`` each run through one
 ``torch.autograd.Function`` on every device, whose backward is the plain
@@ -30,7 +38,9 @@ forward keeps the tape (K4a's L and ib, K4b's L, P_mk and i_m) when a
 gradient is wanted and the backward recomputes the rest from it.  The
 taped outputs are not differentiated: a gradient that reaches one of them
 raises (their adjoint runs through K4c's backward, ROADMAP.md Queue 2).
-K4c's backward raises on the card.
+K4c's backward raises on the card, as does K5a's and K5b's (no path of the
+JAX package trains a gamma-Gaussian model yet: ROADMAP.md Queue 2); on the
+CPU the K5 plain versions differentiate through autograd.
 
 The gradient of a precision P is returned symmetrised: the forward reads
 one triangle of each symmetric block (``P[:n, n:]``, never ``P[n:, :n]``),
@@ -50,9 +60,10 @@ import torch
 
 from . import cuda_build, linalg_small
 
-# Launches of the K4 kernels, counted by the wrappers (``halving_bwd`` once a
-# level for its two kernels).
-launches = {"halving": 0, "contract": 0, "mids": 0, "halving_bwd": 0, "contract_bwd": 0}
+# Launches of the K4 and K5 kernels, counted by the wrappers (``halving_bwd``
+# once a level for its two kernels).
+launches = {"halving": 0, "contract": 0, "mids": 0, "halving_bwd": 0, "contract_bwd": 0, "gamma_halving": 0,
+            "gamma_contract": 0}
 MAX_DIM = 32  # the largest state dim n the kernels take (NMAX of the source)
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
 
@@ -65,8 +76,8 @@ def reset_counts():
 # -- plain versions -----------------------------------------------------------------
 
 
-def halving_level_plain(P, info, logZ, tape=False):
-    """K4a's plain version: ``(P', info', logZ', L, ib or None)``."""
+def _halving_core(P, info):
+    """A homogeneous level's shared and per-pair work: ``(P', info', L, ib, s)``."""
     n = P.shape[-1] // 2
     A, B, D = P[:n, :n], P[:n, n:], P[n:, n:]
     L = linalg_small.cholesky(D + A)
@@ -77,12 +88,29 @@ def halving_level_plain(P, info, logZ, tape=False):
     ib = i1[..., n:] + i2[..., :n]
     s = linalg_small.solve_lower(L, ib.reshape(-1, n).T).T.reshape(ib.shape)
     outer = torch.cat([i1[..., :n], i2[..., n:]], dim=-1)
-    info_new = outer - s @ Kt
-    logZ_new = (
-        logZ[..., 0::2] + logZ[..., 1::2] + n * _HALF_LOG_2PI
-        - torch.log(torch.diagonal(L)).sum() + 0.5 * (s * s).sum(-1)
-    )
+    return P_new, outer - s @ Kt, L, ib, s
+
+
+def _pair_sum(x):
+    """Each pair (2p, 2p + 1) of the last axis summed; an odd last is left out."""
+    e = x.shape[-1] // 2 * 2
+    return x[..., 0:e:2] + x[..., 1:e:2]
+
+
+def halving_level_plain(P, info, logZ, tape=False):
+    """K4a's plain version: ``(P', info', logZ', L, ib or None)``."""
+    n = P.shape[-1] // 2
+    P_new, info_new, L, ib, s = _halving_core(P, info)
+    logZ_new = _pair_sum(logZ) + n * _HALF_LOG_2PI - torch.log(torch.diagonal(L)).sum() + 0.5 * (s * s).sum(-1)
     return P_new, info_new, logZ_new, L, ib if tape else None
+
+
+def gamma_halving_level_plain(P, info, logZ, alpha, beta):
+    """K5a's plain version: ``(P', info', logZ', alpha', beta')``."""
+    n = P.shape[-1] // 2
+    P_new, info_new, L, _, s = _halving_core(P, info)
+    logZ_new = _pair_sum(logZ) + n * _HALF_LOG_2PI - torch.log(torch.diagonal(L)).sum()
+    return P_new, info_new, logZ_new, _pair_sum(alpha) - 0.5 * n, _pair_sum(beta) - 0.5 * (s * s).sum(-1)
 
 
 def _pair_blocks(P, info, n):
@@ -98,10 +126,10 @@ def _pair_blocks(P, info, n):
     return P_mm, P_mk, i_m, i_k, Px[..., :n, :n], Py[..., n:, n:]
 
 
-def contract_pairs_plain(P, info, logZ, tape=False):
-    """K4b's plain version: ``(P', info', logZ', (L, P_mk, i_m) or None)``."""
+def _contract_core(P, info):
+    """The pairs' contraction: ``(P', info', L, P_mk, i_m, L^-1 i_m)`` over the
+    t // 2 pairs."""
     n = P.shape[-1] // 2
-    t = P.shape[-3]
     P_mm, P_mk, i_m, i_k, P_ll, P_rr = _pair_blocks(P, info, n)
     L = linalg_small.cholesky(P_mm)
     X = linalg_small.solve_lower(L, torch.cat([P_mk, i_m.unsqueeze(-1)], dim=-1))
@@ -112,16 +140,38 @@ def contract_pairs_plain(P, info, logZ, tape=False):
     ], dim=-2)
     P_new = P_kk - LinvPmk.transpose(-1, -2) @ LinvPmk
     info_new = i_k - (LinvPmk.transpose(-1, -2) @ Linvim.unsqueeze(-1)).squeeze(-1)
-    e = t // 2 * 2
-    logZ_new = (
-        logZ[..., 0:e:2] + logZ[..., 1:e:2] + n * _HALF_LOG_2PI
-        - torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1) + 0.5 * (Linvim**2).sum(-1)
-    )
-    if t > e:
-        P_new = torch.cat([P_new, P[..., e:, :, :]], dim=-3)
-        info_new = torch.cat([info_new, info[..., e:, :]], dim=-2)
-        logZ_new = torch.cat([logZ_new, logZ[..., e:]], dim=-1)
+    return P_new, info_new, L, P_mk, i_m, Linvim
+
+
+def _carry_odd(t, new, old):
+    """An odd level's last factor of each of ``old`` (batch (R, t)) appended
+    to ``new``; ``new`` and ``old`` are lists of (P, info, then (R, t) rows)."""
+    if t % 2 == 0:
+        return new
+    return [torch.cat([a, b[:, t - 1:]], dim=1) for a, b in zip(new, old)]
+
+
+def _log_diag_sum(L):
+    """sum log diag L over the last two dims: half the log determinant of L L^T."""
+    return torch.log(torch.diagonal(L, dim1=-2, dim2=-1)).sum(-1)
+
+
+def contract_pairs_plain(P, info, logZ, tape=False):
+    """K4b's plain version: ``(P', info', logZ', (L, P_mk, i_m) or None)``."""
+    n = P.shape[-1] // 2
+    P_new, info_new, L, P_mk, i_m, Linvim = _contract_core(P, info)
+    logZ_new = _pair_sum(logZ) + n * _HALF_LOG_2PI - _log_diag_sum(L) + 0.5 * (Linvim**2).sum(-1)
+    P_new, info_new, logZ_new = _carry_odd(P.shape[-3], [P_new, info_new, logZ_new], [P, info, logZ])
     return P_new, info_new, logZ_new, (L, P_mk, i_m) if tape else None
+
+
+def gamma_contract_pairs_plain(P, info, logZ, alpha, beta):
+    """K5b's plain version: ``(P', info', logZ', alpha', beta')``."""
+    n = P.shape[-1] // 2
+    P_new, info_new, L, _, _, Linvim = _contract_core(P, info)
+    logZ_new = _pair_sum(logZ) + n * _HALF_LOG_2PI - _log_diag_sum(L)
+    new = [P_new, info_new, logZ_new, _pair_sum(alpha) - 0.5 * n, _pair_sum(beta) - 0.5 * (Linvim**2).sum(-1)]
+    return tuple(_carry_odd(P.shape[-3], new, [P, info, logZ, alpha, beta]))
 
 
 def level_mids_plain(cur, L, P_mk, i_m, eps):
@@ -240,7 +290,11 @@ def _lib():
     lib.gl_mids.argtypes = [_P, _c, _P, _ll, _P, _ll, _P, _P, _c, _c, _c, _c, _c, _P, _P]
     lib.gl_halving_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _P, _P, _P, _P, _P]
     lib.gl_contract_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _P, _P, _P, _P]
-    for fn in (lib.gl_halving, lib.gl_contract, lib.gl_mids, lib.gl_halving_bwd, lib.gl_contract_bwd):
+    lib.gl_gamma_halving.argtypes = [_P, _P, _ll, _P, _ll, _P, _ll, _P, _ll, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P,
+                                     _P]
+    lib.gl_gamma_contract.argtypes = [_P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
+    for fn in (lib.gl_halving, lib.gl_contract, lib.gl_mids, lib.gl_halving_bwd, lib.gl_contract_bwd,
+               lib.gl_gamma_halving, lib.gl_gamma_contract):
         fn.restype = ctypes.c_int
     return lib
 
@@ -321,6 +375,51 @@ def _contract_cuda(P, info, logZ, tape):
     if t > 2 * np_:  # the odd level's last factor, carried through
         P_out[:, -1], info_out[:, -1], logZ_out[:, -1] = P[:, -1], info[:, -1], logZ[:, -1]
     return P_out, info_out, logZ_out, (L, Pmk, im) if tape else None
+
+
+def _gamma_halving_cuda(P, info, logZ, alpha, beta):
+    R, two_m, n2 = info.shape
+    n, m = n2 // 2, two_m // 2
+    _check_cuda("gamma_halving_level", n, P, info, logZ, alpha, beta)
+    P = P.contiguous()
+    info, info_rs = _rows(info, two_m * n2)
+    (logZ, logZ_rs), (alpha, alpha_rs), (beta, beta_rs) = (_rows(x, two_m) for x in (logZ, alpha, beta))
+    new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
+    P_out, L_out, info_out = new((n2, n2)), new((n, n)), new((R, m, n2))
+    logZ_out, alpha_out, beta_out = new((R, m)), new((R, m)), new((R, m))
+    blocks = max(1, min(-(-R * m // 8), 8 * _sms(P.device)))
+    err = _lib().gl_gamma_halving(
+        P.data_ptr(), info.data_ptr(), info_rs, logZ.data_ptr(), logZ_rs, alpha.data_ptr(), alpha_rs,
+        beta.data_ptr(), beta_rs, R, m, n, blocks, P_out.data_ptr(), L_out.data_ptr(), info_out.data_ptr(),
+        logZ_out.data_ptr(), alpha_out.data_ptr(), beta_out.data_ptr(), _stream(P),
+    )
+    _raise_on(err, "gamma_halving_level")
+    launches["gamma_halving"] += 1
+    return P_out, info_out, logZ_out, alpha_out, beta_out
+
+
+def _gamma_contract_cuda(P, info, logZ, alpha, beta):
+    R, t, n2, _ = P.shape
+    n, np_ = n2 // 2, t // 2
+    _check_cuda("gamma_contract_pairs", n, P, info, logZ, alpha, beta)
+    P, info, logZ, alpha, beta = (x.contiguous() for x in (P, info, logZ, alpha, beta))
+    t_out = t - np_
+    new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
+    P_out, info_out = new((R, t_out, n2, n2)), new((R, t_out, n2))
+    logZ_out, alpha_out, beta_out = new((R, t_out)), new((R, t_out)), new((R, t_out))
+    blocks = max(1, min(R * np_, 16 * _sms(P.device)))
+    err = _lib().gl_gamma_contract(
+        P.data_ptr(), info.data_ptr(), logZ.data_ptr(), alpha.data_ptr(), beta.data_ptr(), R, t, n, t_out, blocks,
+        P_out.data_ptr(), info_out.data_ptr(), logZ_out.data_ptr(), alpha_out.data_ptr(), beta_out.data_ptr(),
+        _stream(P),
+    )
+    _raise_on(err, "gamma_contract_pairs")
+    launches["gamma_contract"] += 1
+    outs = (P_out, info_out, logZ_out, alpha_out, beta_out)
+    if t > 2 * np_:  # the odd level's last factor, carried through
+        for out, x in zip(outs, (P, info, logZ, alpha, beta)):
+            out[:, -1] = x[:, -1]
+    return outs
 
 
 def _mids_cuda(cur, L, P_mk, i_m, eps):
@@ -449,6 +548,23 @@ class _MidsCUDA(torch.autograd.Function):
         )
 
 
+class _GammaLevelCUDA(torch.autograd.Function):
+    """A K5 launch, whose backward raises: no path of the JAX package trains
+    a gamma-Gaussian model yet."""
+
+    @staticmethod
+    def forward(ctx, name, kernel, *args):
+        ctx.name = name
+        return kernel(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            f"{ctx.name}: the CUDA kernel has no backward yet; training a gamma-Gaussian model "
+            "on the card is K5's backward, ROADMAP.md Queue 2"
+        )
+
+
 def _on_cuda(*tensors):
     return any(t.is_cuda for t in tensors)
 
@@ -477,3 +593,19 @@ def level_mids(cur, L, P_mk, i_m, eps):
     if _on_cuda(cur, L, P_mk, i_m, eps):
         return _MidsCUDA.apply(cur, L, P_mk, i_m, eps)
     return level_mids_plain(cur, L, P_mk, i_m, eps)
+
+
+def gamma_halving_level(P, info, logZ, alpha, beta):
+    """K5a: one halving level of a homogeneous gamma-Gaussian chain (see the
+    module doc): ``(P', info', logZ', alpha', beta')``."""
+    if _on_cuda(P, info, logZ, alpha, beta):
+        return _GammaLevelCUDA.apply("gamma_halving_level", _gamma_halving_cuda, P, info, logZ, alpha, beta)
+    return gamma_halving_level_plain(P, info, logZ, alpha, beta)
+
+
+def gamma_contract_pairs(P, info, logZ, alpha, beta):
+    """K5b: the gamma-Gaussian contraction of adjacent pairs (see the module
+    doc): ``(P', info', logZ', alpha', beta')``."""
+    if _on_cuda(P, info, logZ, alpha, beta):
+        return _GammaLevelCUDA.apply("gamma_contract_pairs", _gamma_contract_cuda, P, info, logZ, alpha, beta)
+    return gamma_contract_pairs_plain(P, info, logZ, alpha, beta)

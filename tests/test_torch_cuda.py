@@ -23,7 +23,11 @@ K4, the Gaussian halving levels: each kernel within rtol 1e-4 plus atol
 backward (the P gradients symmetrised); GaussianHMM on the card against
 the port's float64 CPU run, log_prob rtol 1e-4 with atol 1e-3, the
 filter's mean and the posterior mean rtol and atol 1e-3; a training step's
-loss rtol 1e-5 and gradients within 1e-3 times their largest entry.  K2g,
+loss rtol 1e-5 and gradients within 1e-3 times their largest entry.  K5,
+the gamma-Gaussian levels, as K4, with alpha' exact; GammaGaussianHMM on the
+card against the port's float64 CPU run, log_prob rtol 1e-4 with atol 1e-3,
+the filter's Gamma rtol 1e-4 and its mean and covariance rtol and atol
+1e-3.  K2g,
 the time-varying scan: -inf exactly where the float64 plain version has
 it, finite values within atol 1e-4 plus rtol 1e-6 of it, each gradient
 within 1e-4 (a few steps) or 1e-3 (127 dependent steps, or unreachable
@@ -730,6 +734,162 @@ def test_gaussian_hmm_on_the_card(cuda, monkeypatch, config, T, hidden):
     else:
         mean64 = tg.sequential_gaussian_filter_sample(hmm64._init, trans64.expand(trans64.batch_shape), noise=zeros64)
     torch.testing.assert_close(mean.double().cpu(), mean64, rtol=1e-3, atol=1e-3)
+
+
+# -- K5, the gamma-Gaussian levels ------------------------------------------------
+#
+# Tolerances: as K4's; alpha', a sum of constants, exactly.
+
+
+def _gamma_rows(gen, R, t, cuda):
+    """Per-factor alpha and beta (R, t)."""
+    alpha = 2.0 + torch.randint(0, 4, (R, t), generator=gen, device=cuda).float()
+    return alpha, 1.0 + torch.rand(R, t, generator=gen, device=cuda)
+
+
+@pytest.mark.parametrize("R,m,n", [(8, 2501, 32), (3, 7, 16), (2, 1, 3)])
+def test_gamma_halving_kernel_matches_plain(cuda, R, m, n):
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    P = _spd(gen, (), 2 * n, cuda)
+    info = torch.randn(R, 2 * m + 3, 2 * n, generator=gen, device=cuda)[:, : 2 * m]  # strided rows
+    logZ = torch.randn(R, 2 * m + 3, generator=gen, device=cuda)[:, : 2 * m]
+    alpha, beta = (x[:, : 2 * m] for x in _gamma_rows(gen, R, 2 * m + 3, cuda))
+    before = gl.launches["gamma_halving"]
+    out_k = gl.gamma_halving_level(P, info, logZ, alpha, beta)
+    out_p = gl.gamma_halving_level_plain(P, info, logZ, alpha, beta)
+    torch.cuda.synchronize()
+    assert gl.launches["gamma_halving"] == before + 1
+    assert torch.equal(out_k[3], out_p[3])
+    for a, b in zip(out_k, out_p):
+        _assert_near(a, b)
+
+
+@pytest.mark.parametrize("R,t,n", [(1, 4003, 16), (2, 15, 32), (3, 7, 3)])
+def test_gamma_contract_kernel_matches_plain(cuda, R, t, n):
+    """Odd pair counts, and an odd t whose last factor is carried."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(t)
+    P = _spd(gen, (R, t), 2 * n, cuda)
+    info = torch.randn(R, t, 2 * n, generator=gen, device=cuda)
+    logZ = torch.randn(R, t, generator=gen, device=cuda)
+    alpha, beta = _gamma_rows(gen, R, t, cuda)
+    before = gl.launches["gamma_contract"]
+    out_k = gl.gamma_contract_pairs(P, info, logZ, alpha, beta)
+    out_p = gl.gamma_contract_pairs_plain(P, info, logZ, alpha, beta)
+    torch.cuda.synchronize()
+    assert gl.launches["gamma_contract"] == before + 1
+    assert torch.equal(out_k[3], out_p[3])
+    for a, b in zip(out_k, out_p):
+        _assert_near(a, b)
+
+
+@pytest.mark.parametrize("n", [3, 16, 32])
+def test_gamma_kernels_are_k4_with_the_completion_moved(cuda, n):
+    """On the same input K5 gives K4's info' and P' bit for bit (one
+    template), and logZ' of K4 less the completion |s|^2 / 2, which K5 takes
+    from beta instead (s = L^-1 ib from K4a's tape, L^-1 i_m from K4b's)."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(n + 1)
+    R, t = 2, 9
+    P = _spd(gen, (), 2 * n, cuda)
+    info = torch.randn(R, t - 1, 2 * n, generator=gen, device=cuda)
+    logZ = torch.randn(R, t - 1, generator=gen, device=cuda)
+    alpha, beta = _gamma_rows(gen, R, t - 1, cuda)
+    P4, info4, logZ4, L, ib = gl.halving_level(P, info, logZ, tape=True)
+    P5, info5, logZ5, _, beta5 = gl.gamma_halving_level(P, info, logZ, alpha, beta)
+    half_ss = 0.5 * (torch.linalg.solve_triangular(L, ib.reshape(-1, n).T, upper=False).T ** 2).sum(-1).reshape(R, -1)
+    assert torch.equal(P4, P5) and torch.equal(info4, info5)
+    _assert_near(logZ5, logZ4 - half_ss)
+    _assert_near(beta5, beta[:, 0::2] + beta[:, 1::2] - half_ss)
+
+    Pt = _spd(gen, (R, t), 2 * n, cuda)
+    info = torch.randn(R, t, 2 * n, generator=gen, device=cuda)
+    logZ = torch.randn(R, t, generator=gen, device=cuda)
+    alpha, beta = _gamma_rows(gen, R, t, cuda)
+    P4, info4, logZ4, (L, _, i_m) = gl.contract_pairs(Pt, info, logZ, tape=True)
+    P5, info5, logZ5, _, beta5 = gl.gamma_contract_pairs(Pt, info, logZ, alpha, beta)
+    half_ss = 0.5 * (torch.linalg.solve_triangular(L, i_m.unsqueeze(-1), upper=False).squeeze(-1) ** 2).sum(-1)
+    assert torch.equal(P4, P5) and torch.equal(info4, info5)
+    _assert_near(logZ5[:, :-1], logZ4[:, :-1] - half_ss)
+    _assert_near(beta5[:, :-1], beta[:, 0:t - 1:2] + beta[:, 1:t - 1:2] - half_ss)
+    assert torch.equal(logZ5[:, -1], logZ[:, -1]) and torch.equal(beta5[:, -1], beta[:, -1])
+
+
+def test_gamma_kernels_backward_and_bad_operands_raise(cuda):
+    """A gradient that reaches K5's outputs on the card raises, naming the
+    roadmap; a state dim above 32 raises."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    P = _spd(gen, (), 8, cuda).requires_grad_()
+    info = torch.randn(2, 6, 8, generator=gen, device=cuda, requires_grad=True)
+    logZ = torch.randn(2, 6, generator=gen, device=cuda)
+    alpha, beta = _gamma_rows(gen, 2, 6, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gl.gamma_halving_level(P, info, logZ, alpha, beta)[4].sum().backward()
+    Pt = _spd(gen, (2, 6), 8, cuda).requires_grad_()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        gl.gamma_contract_pairs(Pt, info, logZ, alpha, beta)[2].sum().backward()
+    n = 33
+    alpha, beta = _gamma_rows(gen, 1, 4, cuda)
+    with pytest.raises(ValueError, match="n <= 32"):
+        gl.gamma_halving_level(_spd(gen, (), 2 * n, cuda), torch.randn(1, 4, 2 * n, device=cuda),
+                               torch.zeros(1, 4, device=cuda), alpha, beta)
+    with pytest.raises(ValueError, match="n <= 32"):
+        gl.gamma_contract_pairs(_spd(gen, (1, 4), 2 * n, cuda), torch.randn(1, 4, 2 * n, device=cuda),
+                                torch.zeros(1, 4, device=cuda), alpha, beta)
+
+
+@pytest.mark.parametrize("config,T,hidden", [("homogeneous", 37, 32), ("heterogeneous", 45, 16)])
+def test_gamma_gaussian_hmm_on_the_card(cuda, monkeypatch, config, T, hidden):
+    """GammaGaussianHMM on the card goes through the K5 kernels and never
+    reaches their plain versions: log_prob (rtol 1e-4, atol 1e-3) and
+    filter (the Gamma's parameters rtol 1e-4, the MVN's mean and covariance
+    rtol and atol 1e-3) against the port's float64 CPU run."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import gamma_gaussian_hmm as ex
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    arrays = ex.make_arrays(config, 0, T=T, hidden=hidden, batch=3)
+    pyro.set_default_device("cpu")
+    p64 = {k: torch.tensor(v, dtype=torch.float64) for k, v in arrays.items()}
+    data64 = p64.pop("data")
+    hmm64 = ex.make_hmm(p64, T)
+    lp64, (gamma64, mvn64) = hmm64.log_prob(data64), hmm64.filter(data64)
+    pyro.set_default_device("cuda")
+    params = ex.params_from_jax(arrays)
+    data = params.pop("data")
+    hmm = ex.make_hmm(params, T)
+
+    def cpu_only(name):
+        plain = getattr(gl, name)
+
+        def guarded(*args, **kwargs):
+            if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                pytest.fail(f"a CUDA tensor reached {name}")
+            return plain(*args, **kwargs)
+
+        return guarded
+
+    for name in ("gamma_halving_level_plain", "gamma_contract_pairs_plain"):
+        monkeypatch.setattr(gl, name, cpu_only(name))
+    gl.reset_counts()
+    lp = hmm.log_prob(data)
+    torch.cuda.synchronize()
+    levels = {"homogeneous": (T.bit_length() - 1, 0), "heterogeneous": (0, (T - 1).bit_length())}[config]
+    assert (gl.launches["gamma_halving"], gl.launches["gamma_contract"]) == levels
+    gamma, mvn = hmm.filter(data)
+    torch.cuda.synchronize()
+    assert gl.launches["gamma_contract"] == levels[1] + (T - 1).bit_length()
+    torch.testing.assert_close(lp.double().cpu(), lp64, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(gamma.concentration.double().cpu(), gamma64.concentration, rtol=1e-4, atol=0)
+    torch.testing.assert_close(gamma.rate.double().cpu(), gamma64.rate, rtol=1e-4, atol=0)
+    torch.testing.assert_close(mvn.loc.double().cpu(), mvn64.loc, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(mvn.covariance_matrix.double().cpu(), mvn64.covariance_matrix, rtol=1e-3, atol=1e-3)
 
 
 # -- K2g, the time-varying scan (markov_scan_tv) -------------------------------
