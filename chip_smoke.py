@@ -66,7 +66,12 @@ Phases (any failure exits non-zero):
      ``8.10000.32.4`` for K4a, the heterogeneous ``rsample_posterior`` with
      64 draws at ``64.4000.16.4`` for K4b (with its tape) and K4c; each
      kernel's levels timed against the plain version's in turns, beside
-     the bound of the same levels;
+     the bound of the same levels (a stride-0 input's bytes counted once),
+     K4b's with the profiler's device ms beside the CUDA events; K4b over
+     the n-sweep (n 1, 2, 5, 16, 17, 31, 32; t 2, 3, odd, 4000; up to 8
+     rows; P contiguous, sliced or expanded with stride 0) against its
+     plain version and the float64 plain version, two launches bitwise
+     equal;
   9. slice 6 through ``examples/gaussian_hmm.py``'s models at full width
      (numpy, seed 0): the homogeneous ``GaussianHMM.log_prob`` (B=8,
      T=10,000, hidden 32, obs 4), 10 chained calls as ``bench.py`` chains
@@ -131,9 +136,12 @@ Phases (any failure exits non-zero):
      ``GammaGaussianHMM.log_prob`` at ``8.10000.32.4`` (K5a, 13 levels), the
      heterogeneous one at ``8.4000.16.4`` (K5b, 12 levels) and the
      homogeneous ``filter`` (K5b at n=32 over the expanded chain, 14
-     levels); alpha' exactly, every output against the float64 plain
-     version (both distances printed); each kernel's levels timed against
-     the plain version's in turns, beside the bound of the same levels;
+     levels, the chain's precision read in place with stride 0); alpha'
+     exactly, every output against the float64 plain version (both
+     distances printed); each kernel's levels timed against the plain
+     version's in turns, beside the bound of the same levels, K5b's with
+     the profiler's device ms beside the CUDA events; K5b over phase 8's
+     n-sweep as K4b;
   16. slice 9 through ``examples/gamma_gaussian_hmm.py``'s models at full
      width (numpy, seed 0; Student-t noise through a shared Gamma(2, 2)
      scale): ``GammaGaussianHMM.log_prob`` at ``8.10000.32.4`` (13 K5a
@@ -1131,6 +1139,105 @@ def record_levels(gl, name):
         setattr(gl, name, fn)
 
 
+def distinct(x):
+    """The distinct elements of ``x``: a dim of stride 0 holds one."""
+    return math.prod(size for size, stride in zip(x.shape, x.stride()) if stride != 0)
+
+
+# The n-sweep of K4b and K5b (one kernel template): (R, t, n, layout of P)
+# over n of 1, 2, 5, 16, 17, 31 and 32, t of 2, 3, odd and 4000, up to 8
+# rows, P contiguous, each row a slice, or expanded with stride 0.
+CONTRACT_SWEEP = [
+    (8, 3, 1, "sliced"), (3, 9, 2, "stride0_time"), (2, 2, 5, "contiguous"), (8, 4000, 16, "stride0_rows"),
+    (1, 13, 17, "sliced"), (4, 3, 31, "stride0_time"), (8, 9, 32, "contiguous"), (8, 4000, 32, "stride0_both"),
+    (8, 4001, 31, "stride0_both"), (2, 2, 32, "sliced"),
+]
+
+
+def contract_inputs(torch, gen, R, t, n, layout):
+    """P (R, t, 2n, 2n) symmetric positive definite, info and logZ, laid out
+    as ``layout`` (info and logZ sliced with P)."""
+    n2 = 2 * n
+
+    def spd(*batch):
+        M = torch.randn(*batch, n2, n2, generator=gen, device="cuda")
+        return M @ M.transpose(-1, -2) / n2 + torch.eye(n2, device="cuda")
+
+    P = {"stride0_rows": lambda: spd(1, t).expand(R, t, n2, n2),
+         "stride0_time": lambda: spd(R, 1).expand(R, t, n2, n2),
+         "stride0_both": lambda: spd().expand(R, t, n2, n2),
+         "sliced": lambda: spd(R, t + 1)[:, 1:],
+         "contiguous": lambda: spd(R, t)}[layout]()
+    pad = 3 if layout == "sliced" else 0
+    info = torch.randn(R, t + pad, n2, generator=gen, device="cuda")[:, pad:]
+    logZ = torch.randn(R, t + pad, generator=gen, device="cuda")[:, pad:]
+    return P, info, logZ
+
+
+def contract_sweep(torch, gl, gamma):
+    """K4b (K5b with ``gamma``) over CONTRACT_SWEEP against its plain version
+    (``check_k4_level``) and the float64 plain version (each output within
+    1e-4 of its largest entry plus 1e-5), two launches bitwise equal;
+    returns the largest error to float64 over each output's largest entry,
+    the kernel's and the float32 plain version's."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst = {"kernel": 0.0, "plain": 0.0}
+    for R, t, n, layout in CONTRACT_SWEEP:
+        args = contract_inputs(torch, gen, R, t, n, layout)
+        if gamma:
+            args += (2.0 + torch.randint(0, 4, (R, t), generator=gen, device="cuda").float(),
+                     1.0 + torch.rand(R, t, generator=gen, device="cuda"))
+            kernel, plain = gl._gamma_contract_cuda, gl.gamma_contract_pairs_plain
+        else:
+            def kernel(*a):
+                out = gl._contract_cuda(*a, True)
+                return out[:3] + out[3]
+
+            def plain(*a):
+                out = gl.contract_pairs_plain(*a, tape=True)
+                return out[:3] + out[3]
+        label = f"{'gamma_' if gamma else ''}contract sweep R={R} t={t} n={n} {layout}"
+        outs_k, outs_p, again = kernel(*args), plain(*args), kernel(*args)
+        check_k4_level(label, outs_k, outs_p)
+        check(all(torch.equal(a, b) for a, b in zip(outs_k, again)), f"{label}: two launches differ")
+        if gamma:
+            check(torch.equal(outs_k[3], outs_p[3]), f"{label}: alpha' differs from the plain version's")
+        for j, ref in enumerate(plain(*(a.double() for a in args))):
+            scale = float(ref.abs().max())
+            for who, outs in (("kernel", outs_k), ("plain", outs_p)):
+                e = max_err(outs[j].double(), ref)
+                check(who == "plain" or e <= 1e-4 * scale + 1e-5, f"{label} output {j}: {e:.3g} from float64")
+                worst[who] = max(worst[who], e / max(scale, 1e-30))
+    print(f"  {'K5b' if gamma else 'K4b'} n-sweep ({len(CONTRACT_SWEEP)} cases, n 1-32, t 2-4001, strided and "
+          f"stride-0 P): to float64, times each output's max, kernel {worst['kernel']:.2g}, plain float32 "
+          f"{worst['plain']:.2g}; two launches bitwise equal")
+    return worst
+
+
+def contract_device_ms(torch, kernel, calls, passes=3):
+    """The profiler's device ms of the contraction kernel over one pass of
+    the recorded levels ``calls``: the median of the last ``passes`` passes
+    in one profiled window, each pass the sum of its launches' kernel
+    times.  A warm-up pass comes first: late in this script a profiling
+    window loses its first few kernel events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(passes + 1):
+            for args in calls:
+                kernel(*args)
+        torch.cuda.synchronize()
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "gl_contract_kernel" in e.name]
+    m = len(calls)
+    check(len(times) >= passes * m, f"profiler: {len(times)} contraction kernels of {(passes + 1) * m}")
+    times = times[len(times) - passes * m:]
+    sums = sorted(sum(times[i * m:(i + 1) * m]) / 1e3 for i in range(passes))
+    return sums[passes // 2]
+
+
 def k4_bounds(name, args):
     """(flops, bytes) of one K4 launch at ``args`` (a backward: one level's
     call of the wrapper): each input read once, each output written once;
@@ -1143,18 +1250,21 @@ def k4_bounds(name, args):
         flops = (n**3 / 3 + 2 * n**3 + 8 * n**3) + pairs * (5 * n * n + 6 * n)
         floats = 2 * n2 * n2 + n * n + R * two_m * (n2 + 1) + pairs * (n2 + 1 + (n if tape else 0))
     elif name == "contract":
+        # an input read once: its distinct elements (a stride-0 dim counts once)
         P, info, logZ, tape = args
-        R, t, n2, _ = P.shape
+        *lead, t, n2, _ = P.shape
+        R = math.prod(lead)
         n, pairs, t_out = n2 // 2, R * (t // 2), R * (t - t // 2)
         flops = pairs * (n * n + n**3 / 3 + n * n * (n2 + 1) + 4 * n * n2 * n + 4 * n * n + 2 * n)
-        floats = R * t * (n2 * n2 + n2 + 1) + t_out * (n2 * n2 + n2 + 1) + (pairs * 3 * n * n + pairs * n if tape else 0)
+        floats = sum(map(distinct, (P, info, logZ))) + t_out * (n2 * n2 + n2 + 1) + (
+            pairs * 3 * n * n + pairs * n if tape else 0)
     elif name in ("gamma_halving", "gamma_contract"):
         # K4a's or K4b's work without a tape, with alpha and beta read per
         # factor and written per pair
         P, info, logZ, alpha, beta = args
         flops, nbytes = k4_bounds(name[len("gamma_"):], (P, info, logZ, False))
-        R, t = alpha.shape
-        return flops, nbytes + 4 * (2 * R * t + 2 * R * (t - t // 2))
+        R, t = math.prod(alpha.shape[:-1]), alpha.shape[-1]
+        return flops, nbytes + 4 * (distinct(alpha) + distinct(beta) + 2 * R * (t - t // 2))
     elif name == "halving_bwd":
         P, L, ib, g_P, g_info, g_logZ = args
         R, m, n = ib.shape
@@ -1252,11 +1362,13 @@ def phase_k4(torch, gl):
             nbytes = sum(k4_bounds(name, args)[1] for args in calls)
             b = bound(flops, nbytes)
             first = calls[0][1 if name != "mids" else 0]
+            device = f", profiler {contract_device_ms(torch, kernel, calls):.4f} device ms" if name == "contract" else ""
             print(f"  {name} over the {len(calls)} levels of the {where} (first level's input "
-                  f"{tuple(first.shape)}): max abs err {err:.3g}; kernel {t['kernel']:.4f} ms, plain "
+                  f"{tuple(first.shape)}): max abs err {err:.3g}; kernel {t['kernel']:.4f} ms{device}, plain "
                   f"{t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)")
             result[name] = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"], "bound": b,
                             "levels": len(calls)}
+        contract_sweep(torch, gl, gamma=False)
     return result
 
 
@@ -1959,17 +2071,20 @@ def phase_k5(torch, gl):
             nbytes = sum(k4_bounds(name[:14], args)[1] for args in calls)
             b = bound(flops, nbytes)
             first = calls[0][1]
+            device = (f", profiler {contract_device_ms(torch, kernel, calls):.4f} device ms"
+                      if name.startswith("gamma_contract") else "")
             print(f"  {name[:14]} over the {len(calls)} levels of the {where} (first level's input "
                   f"{tuple(first.shape)}): alpha' exact, max abs err {err:.3g} to the plain version; to float64, "
                   f"times each output's max, kernel "
                   + ", ".join(f"{o} {e:.2g}" for o, e in zip(K5_OUTPUTS, to64["kernel"]))
                   + "; plain float32 " + ", ".join(f"{o} {e:.2g}" for o, e in zip(K5_OUTPUTS, to64["plain"]))
-                  + f"; kernel {t['kernel']:.4f} ms, plain {t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: "
+                  + f"; kernel {t['kernel']:.4f} ms{device}, plain {t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: "
                   f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)")
             result[name] = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"], "bound": b,
                             "levels": len(calls)}
     del halving, contract, filt, sets
     torch.cuda.empty_cache()
+    contract_sweep(torch, gl, gamma=True)
     return result
 
 

@@ -26,10 +26,11 @@
 //   level (:501-526).  Per pair of x over (l, m) and y over (m, r): P_mm =
 //   Px[mm] + Py[mm], P_mk = [Px[lm]^T | Py[mr]] (n x 2n), i_m = ix[m] +
 //   iy[m]; L = chol(P_mm), X = L^-1 [P_mk | i_m]; the contracted Gaussian
-//   over (l, r) is P_kk - X' X, i_k - X' X[:, 2n], and its normaliser.  One
-//   CTA takes a pair at a time: the matrices in shared memory, the Cholesky
-//   and the solve with 2n + 1 right-hand sides by the whole block.  For the
-//   sampler it keeps a tape of L, P_mk and i_m (the reference keeps the
+//   over (l, r) is P_kk - X' X, i_k - X' X[:, 2n], and its normaliser.  A
+//   persistent grid walks the pairs with the blocks brought by TMA bulk
+//   copy, warp 0 factorising one pair ahead of the warps that solve and
+//   multiply (the design and what bounds it: the K4b section below).  For
+//   the sampler it keeps a tape of L, P_mk and i_m (the reference keeps the
 //   whole 3n x 3n joint; the descent reads only these).
 // K4c, gl_mids_kernel: a level's midpoint draws, the descent of both
 //   samplers (:623-654 with L and B shared, :790-843 with L per pair).  Per
@@ -51,8 +52,9 @@
 //   from logZ differences would cancel.  The Gaussian instantiations compile
 //   the gamma work away (if constexpr) and do K4's arithmetic unchanged.
 //   What bounds them is K4's (below): a call's levels move some 60 MB
-//   (K5a) or, for the filter's expanded chain at n = 32, 2 GB (K5b), and
-//   the per-level latency of the small factorisations sets the time.
+//   (K5a) or, for the filter's chain at n = 32, 2.7 GB (K5b; its first
+//   level reads the one precision the chain shares in place), and the
+//   latency of the small factorisations sets the time.
 //
 // The backward (training through log_prob) recomputes from the forward's
 // tape (K4a: L and ib; K4b: L, P_mk and i_m) and returns the gradient of
@@ -93,7 +95,8 @@
 
 #define NMAX 32        // the largest state dim n the kernels take
 #define NT_HALVE 256   // threads of K4a's CTA: 8 warps
-#define NT_PAIR 128    // threads of K4b's CTA
+#define NT_PAIR 128    // threads of K4b's backward CTA
+#define NT_CONTRACT 256  // the most threads of K4b's CTA (more warps for larger n)
 #define NT_MIDS 256    // threads of K4c's CTA: 8 warps
 #define FULL 0xffffffffu
 #define HALF_LOG_2PI 0.91893853320467274178f
@@ -296,90 +299,507 @@ __global__ void __launch_bounds__(NT_HALVE) gl_halving_kernel(
 }
 
 // ------------------------------------------------------------------- K4b --
+//
+// The design for Hopper (the K4b and K5b instantiations alike).  A
+// persistent grid (as many CTAs as the SMs run at once, by shared memory:
+// 2 an SM at n = 32) walks the pairs, q += gridDim.x.  A CTA keeps two
+// slots of [Px | Py]: one thread brings a pair's two (2n)^2 blocks by TMA
+// bulk copy (cp.async.bulk, completing on the slot's mbarrier) two pairs
+// ahead, and the pair's info rows and scalars are held in registers until
+// its slot of small rows is free.  Every read of P is from shared memory.
+// Warp 0 factorises each pair one pair ahead of the other warps (the team):
+//   warp 0: P_mm = Px[mm] + Py[mm]; L = chol(P_mm), lane i row i, blocks
+//     of 8 columns, pivots and column entries by __shfl_sync (no block
+//     barrier inside), into one of two L buffers;
+//   team: X = [Px[lm]^T | Py[mr] | i_m] (the transpose through shared
+//     memory) and P_kk into a staging block in the output's layout, after
+//     which the slot takes the load of the pair after next; the solve
+//     X = L^-1 X, a thread a column (2n + 1 of them), blocks of 8 rows in
+//     registers, L's columns read as float4 broadcasts; P' = P_kk - X^T X
+//     in 4 x 4 register tiles over float4 reads of X into the staging
+//     block, stored by one bulk copy (cp.async.bulk, shared to global);
+//     info' and the scalars.
+// A pair takes three barriers of the team (four with the tape) and one of
+// the CTA.  What bounds it, measured on an H100 (examples/contract_timing.py;
+// the filter's 14 levels at n = 32, 2.97 ms): not the bytes (2.7 GB, 0.8 ms
+// at 3.35 TB/s) nor the FLOPs (27.6 GFLOP, 0.4 ms) but latency at 2 CTAs
+// an SM.  The loads, assembly, stores and barriers alone take 1.33 ms; the
+// Cholesky's chain of 32 dependent pivots (a shuffle, a reciprocal square
+// root and two FMAs each; 4.26 ms with an IEEE sqrt and divide) and the
+// team's solve and product add the rest.  More pairs in flight an SM needs
+// less shared memory a pair than two [Px | Py] slots.  The loops over NMAX
+// stay rolled: fully unrolled, the kernel is some 18k instructions, each
+// fetched once a pair, and ran 2.6x slower.  P' stored from registers
+// instead of the staging block took 128 registers and ran slower.
+// Operands are read where they lie: element (r, p) of an operand at
+// (r / R_lo) hi + (r % R_lo) lo + p ts (``RowStrides``), so a precision
+// expanded over rows or time (stride 0) is one block read from L2, never a
+// copy.  Every sum runs in a fixed order (two runs give the same bits), and
+// the GAMMA split compiles the same code for P' and info' in both
+// instantiations (K4's and K5's are equal bit for bit).
 
-// P (R, t, 2n, 2n), info (R, t, 2n), logZ (R, t), contiguous; the t / 2
-// pairs (2p, 2p + 1) of each row go to P_out (R, t_out, 2n, 2n), info_out
-// (R, t_out, 2n), logZ_out (R, t_out) at p; the tape, unless L_tape is
-// null: L_tape (R, t / 2, n, n), Pmk_tape (R, t / 2, n, 2n), im_tape
-// (R, t / 2, n).  GAMMA (K5b): alpha and beta (R, t) in, alpha_out and
-// beta_out (R, t_out) out, and logZ' without |L^-1 i_m|^2 / 2.
-template <bool GAMMA>
-__global__ void __launch_bounds__(NT_PAIR) gl_contract_kernel(
-    const float* __restrict__ P, const float* __restrict__ info, const float* __restrict__ logZ, int R, int t,
-    int n, int t_out, float* __restrict__ P_out, float* __restrict__ info_out, float* __restrict__ logZ_out,
-    float* __restrict__ L_tape, float* __restrict__ Pmk_tape, float* __restrict__ im_tape,
-    const float* __restrict__ alpha, const float* __restrict__ beta, float* __restrict__ alpha_out,
-    float* __restrict__ beta_out) {
-  __shared__ float M[NMAX][NMAX + 1];
-  __shared__ float X[NMAX][2 * NMAX + 2];  // [P_mk | i_m], then L^-1 of it
-  __shared__ float lz_terms;  // sum log diag L - |L^-1 i_m|^2 / 2 (GAMMA: sum log diag L)
-  __shared__ float completion;  // GAMMA: |L^-1 i_m|^2
-  const int tid = threadIdx.x, n2 = 2 * n, nc = n2 + 1;
-  const long long np = t / 2, pairs = (long long)R * np;
-  for (long long q = blockIdx.x; q < pairs; q += gridDim.x) {
-    const long long r = q / np, p = q % np;
-    const float* Px = P + ((r * t + 2 * p) * n2) * n2;
-    const float* Py = Px + n2 * n2;
-    const float* ix = info + (r * t + 2 * p) * n2;
-    const float* iy = ix + n2;
-    for (int x = tid; x < n * n; x += NT_PAIR) {
-      const int i = x / n, j = x % n;
-      M[i][j] = Px[(n + i) * n2 + n + j] + Py[i * n2 + j];
+// Where element (r, p) of a K4b operand lies: (r / R_lo) hi + (r % R_lo) lo
+// + p ts elements from its base (R_lo shared by the operands).
+struct RowStrides {
+  long long hi, lo, ts;
+};
+
+struct ContractArgs {
+  const float* P;  // (R, t, 2n, 2n), (2n, 2n) blocks contiguous, 16-byte aligned
+  const float* info;  // (R, t, 2n), rows contiguous
+  const float* logZ;  // (R, t)
+  const float* alpha;  // GAMMA: (R, t)
+  const float* beta;
+  RowStrides sP, sI, sZ, sA, sB;
+  long long R_lo;
+  int R, t, n, t_out;
+  float *P_out, *info_out, *logZ_out;  // (R, t_out, ...), contiguous
+  float *L_tape, *Pmk_tape, *im_tape;  // the tape, or null
+  float *alpha_out, *beta_out;
+};
+
+// The shared memory of K4b's CTA at state dim n: floats after a header of
+// CONTRACT_HEADER bytes (the two slots' mbarriers and three scalars).
+#define CONTRACT_HEADER 128
+struct ContractSmem {
+  int pb;     // floats of a (2n)^2 block
+  int small;  // floats of a slot's small rows: ix, iy, then logZ, alpha, beta of both factors
+  int sx, lt, ms;  // row strides of X (float4-aligned), Lt (8-float blocks), Ms (odd: no bank conflict)
+  int ring, stage, smallo, X, Lt, Ms, invd, floats;  // offsets and size, in floats
+};
+
+__host__ __device__ inline ContractSmem contract_smem(int n) {
+  ContractSmem s;
+  const int n2 = 2 * n;
+  s.pb = n2 * n2;
+  s.small = (2 * n2 + 6 + 3) & ~3;
+  s.sx = (n2 + 1 + 3) & ~3;
+  s.lt = (n + 7) & ~7;  // blocks of 8 columns read as two float4
+  s.ms = n | 1;
+  s.ring = 0;  // two slots of [Px | Py]
+  s.stage = 4 * s.pb;
+  s.smallo = s.stage + s.pb;  // two slots of small rows
+  s.X = s.smallo + 2 * s.small;
+  s.Lt = s.X + n * s.sx;  // two L buffers: the team's pair's and warp 0's next
+  s.Ms = s.Lt + 2 * n * s.lt;
+  s.invd = s.Ms + ((n * s.ms + 3) & ~3);  // two buffers
+  s.floats = s.invd + 2 * ((n + 3) & ~3);
+  return s;
+}
+
+static size_t contract_smem_bytes(int n) { return CONTRACT_HEADER + 4 * (size_t)contract_smem(n).floats; }
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init1(unsigned bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_parity(unsigned bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred done;\n"
+      "WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      " @!done bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) from global `src` (16-byte aligned) to shared
+// `dst`, counted on the mbarrier `bar`.
+__device__ __forceinline__ void bulk_load(unsigned dst, const void* src, unsigned bytes, unsigned bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+               "l"(src), "r"(bytes), "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_store(void* dst, unsigned src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// The calling thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait_all() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+// This thread's generic writes to shared memory visible to the async proxy
+// (a bulk copy started after the next barrier).
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// A pair's place: row r of the R rows, pair p of the row's t / 2, and the
+// offsets (elements) of its first factor in each operand.
+struct PairAt {
+  long long r, p, P, info, logZ, alpha, beta;
+};
+
+__device__ __forceinline__ PairAt pair_at(const ContractArgs& a, long long q, long long np) {
+  PairAt w;
+  w.r = q / np;
+  w.p = q - w.r * np;
+  const long long hi = w.r / a.R_lo, lo = w.r - hi * a.R_lo, f = 2 * w.p;
+  w.P = hi * a.sP.hi + lo * a.sP.lo + f * a.sP.ts;
+  w.info = hi * a.sI.hi + lo * a.sI.lo + f * a.sI.ts;
+  w.logZ = hi * a.sZ.hi + lo * a.sZ.lo + f * a.sZ.ts;
+  w.alpha = hi * a.sA.hi + lo * a.sA.lo + f * a.sA.ts;
+  w.beta = hi * a.sB.hi + lo * a.sB.lo + f * a.sB.ts;
+  return w;
+}
+
+// Element e of a pair's small rows: ix (2n), iy (2n), then logZ, alpha and
+// beta of the two factors.
+__device__ __forceinline__ float pair_small(const ContractArgs& a, const PairAt& w, int e) {
+  const int n2 = 2 * a.n;
+  if (e < n2) return a.info[w.info + e];
+  if (e < 2 * n2) return a.info[w.info + a.sI.ts + e - n2];
+  const int k = e - 2 * n2;
+  if (k < 2) return a.logZ[w.logZ + k * a.sZ.ts];
+  if (k < 4) return a.alpha[w.alpha + (k - 2) * a.sA.ts];
+  return a.beta[w.beta + (k - 4) * a.sB.ts];
+}
+
+// Thread 0: a pair's [Px | Py] into the ring slot at shared address `ring`
+// by two bulk copies, counted on the slot's mbarrier.
+__device__ __forceinline__ void pair_fetch(const ContractArgs& a, const PairAt& w, unsigned ring, unsigned bar,
+                                           unsigned pbytes) {
+  mbar_expect_tx(bar, 2 * pbytes);
+  bulk_load(ring, a.P + w.P, pbytes, bar);
+  bulk_load(ring + pbytes, a.P + w.P + a.sP.ts, pbytes, bar);
+}
+
+// Warp 0: L = chol(P_mm) of the pair whose [Px | Py] are in shared memory,
+// lane i row i, blocks of 8 columns (left-looking over the blocks before,
+// right-looking within), into Lt (Lt[j][i] = L[i][j], zero above the
+// diagonal), invd (1 / L_jj) and *logdet (sum log L_jj).  The same order of
+// operations for every n: each entry is P_mm[i][j] less L[i][k] L[j][k] for
+// k = 0, 1, ... in turn.
+__device__ __forceinline__ void warp_cholesky(const float* Px, const float* Py, float* Ms, float* Lt, float* invd,
+                                              float* logdet, int n, const ContractSmem& S, int lane) {
+  const int n2 = 2 * n;
+#pragma unroll 4
+  for (int i = 0; i < n; ++i)  // P_mm's lower triangle into Ms
+    if (lane <= i) Ms[i * S.ms + lane] = Px[(n + i) * n2 + n + lane] + Py[i * n2 + lane];
+  __syncwarp();
+  float diag = 1.f, inv = 1.f;
+  for (int j0 = 0; j0 < n; j0 += 8) {
+    float a8[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) a8[r] = (lane < n && j0 + r <= lane) ? Ms[lane * S.ms + j0 + r] : 0.f;
+    // the columns before the block, in order: a8[r] -= L[lane][k] L[j0 + r][k]
+#pragma unroll 4
+    for (int k = 0; k < j0; ++k) {
+      const float lk = Lt[k * S.lt + lane];
+      const float4 u = *reinterpret_cast<const float4*>(Lt + k * S.lt + j0);
+      const float4 v = *reinterpret_cast<const float4*>(Lt + k * S.lt + j0 + 4);
+      const float c[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r) a8[r] = fmaf(-lk, c[r], a8[r]);
     }
-    for (int x = tid; x < n * nc; x += NT_PAIR) {
-      const int i = x / nc, c = x % nc;
-      const float v = c < n ? Px[c * n2 + n + i] : c < n2 ? Py[i * n2 + c] : ix[n + i] + iy[i];
-      X[i][c] = v;
-      if (L_tape) {
-        if (c < n2) Pmk_tape[(q * n + i) * n2 + c] = v;
-        else im_tape[q * n + i] = v;
-      }
-    }
-    block_cholesky(&M[0][0], NMAX + 1, n, NT_PAIR);
-    if (L_tape)
-      for (int x = tid; x < n * n; x += NT_PAIR) L_tape[q * n * n + x] = M[x / n][x % n];
-    block_solve_lower(&M[0][0], NMAX + 1, &X[0][0], 2 * NMAX + 2, n, nc, NT_PAIR);
-    if (tid < 32) {
-      float v = 0.f, w = 0.f;
-      for (int i = tid; i < n; i += 32) {
-        if constexpr (GAMMA) {
-          v += logf(M[i][i]);
-          w += X[i][n2] * X[i][n2];
-        } else {
-          v += logf(M[i][i]) - 0.5f * X[i][n2] * X[i][n2];
+    // the block's own columns, right-looking, entries by shuffle.  The chain
+    // from pivot to pivot is a shuffle, a reciprocal square root (MUFU, one
+    // Newton step) and two FMAs: lane j + 1 takes its next pivot from its
+    // own update (`next`), not from a shuffle of it.
+    float next = 0.f;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) {
+      const int j = j0 + r;
+      if (j < n) {
+        const float piv = __shfl_sync(FULL, r == 0 ? a8[0] : next, j);
+        float rs = rsqrtf(piv);
+        rs *= fmaf(-0.5f * piv * rs, rs, 1.5f);
+        const float l = a8[r] * rs;
+        if (r < 7) next = fmaf(-l, l, a8[r < 7 ? r + 1 : r]);
+        if (lane == j) {
+          diag = piv * rs;
+          inv = rs;
+        }
+        a8[r] = lane == j ? piv * rs : lane > j ? l : 0.f;
+#pragma unroll
+        for (int c = r + 1; c < 8; ++c) {
+          const float lc = __shfl_sync(FULL, l, j0 + c);
+          if (lane >= j0 + c) a8[c] = fmaf(-l, lc, a8[c]);
         }
       }
-      v = warp_sum(v);
-      if constexpr (GAMMA) w = warp_sum(w);
-      if (tid == 0) {
-        lz_terms = v;
-        if constexpr (GAMMA) completion = w;
-      }
     }
-    const long long o = r * t_out + p;
-    for (int x = tid; x < n2 * n2; x += NT_PAIR) {
-      const int i = x / n2, j = x % n2;
-      float acc = 0.f;
-      for (int k = 0; k < n; ++k) acc = fmaf(X[k][i], X[k][j], acc);
-      const float kk = (i < n && j < n) ? Px[i * n2 + j] : (i >= n && j >= n) ? Py[i * n2 + j] : 0.f;
-      P_out[o * n2 * n2 + x] = kk - acc;
+    if (lane < n) {
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+        if (j0 + r < n) Lt[(j0 + r) * S.lt + lane] = j0 + r <= lane ? a8[r] : 0.f;
     }
-    for (int i = tid; i < n2; i += NT_PAIR) {
-      float acc = i < n ? ix[i] : iy[i];
-      for (int k = 0; k < n; ++k) acc = fmaf(-X[k][i], X[k][n2], acc);
-      info_out[o * n2 + i] = acc;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      const long long f = r * t + 2 * p;
-      logZ_out[o] = logZ[f] + logZ[f + 1] + (float)n * HALF_LOG_2PI - lz_terms;
-      if constexpr (GAMMA) {
-        alpha_out[o] = alpha[f] + alpha[f + 1] - 0.5f * (float)n;
-        beta_out[o] = beta[f] + beta[f + 1] - 0.5f * completion;
-      }
-    }
-    __syncthreads();
+    __syncwarp();
   }
+  if (lane < n) invd[lane] = inv;
+  const float v = warp_sum(lane < n ? logf(diag) : 0.f);
+  if (lane == 0) *logdet = v;
+}
+
+// The warps after warp 0 (`team` threads) synchronise among themselves.
+__device__ __forceinline__ void team_sync(int team) { asm volatile("bar.sync 1, %0;\n" ::"r"(team) : "memory"); }
+
+// The t / 2 pairs (2p, 2p + 1) of each row go to P_out, info_out and
+// logZ_out at (r, p); the tape, unless L_tape is null: L_tape (R, t / 2, n,
+// n), Pmk_tape (R, t / 2, n, 2n), im_tape (R, t / 2, n).  GAMMA (K5b):
+// alpha and beta in, alpha_out and beta_out out, and logZ' without
+// |L^-1 i_m|^2 / 2.  An odd level's last factor is the wrapper's to carry.
+// Warp 0 factorises each pair one pair ahead of the other warps (the team),
+// which solve, multiply and store it: pair q's Cholesky runs beside pair q -
+// gridDim.x's solve and product.  Any multiple of 32 threads from 128 up to
+// NT_CONTRACT (the launch takes more for larger n).
+template <bool GAMMA>
+__global__ void __launch_bounds__(NT_CONTRACT, 2) gl_contract_kernel(const ContractArgs a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int n = a.n, n2 = 2 * n, nc = n2 + 1, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, team = nt - 32, tt = tid - 32;
+  const ContractSmem S = contract_smem(n);
+  float* const f = reinterpret_cast<float*>(smem + CONTRACT_HEADER);
+  float* const hdr = reinterpret_cast<float*>(smem + 16);  // sum log diag L of the two L buffers, |L^-1 i_m|^2
+  float* const X = f + S.X;
+  float* const Ms = f + S.Ms;
+  float* const stage = f + S.stage;
+  const int lt_size = n * S.lt, invd_size = (n + 3) & ~3;
+  const unsigned bar0 = smem_u32(smem), ring0 = smem_u32(f + S.ring), pbytes = 4u * S.pb;
+  const long long np = a.t / 2, pairs = (long long)a.R * np;
+  const int nsmall = GAMMA ? 2 * n2 + 6 : 2 * n2 + 2;
+
+  // the first two pairs' blocks into slots 0 and 1, the first's small rows
+  // into slot 0 and its L into buffer 0
+  long long q = blockIdx.x;
+  PairAt w = pair_at(a, q < pairs ? q : 0, np);
+  if (tid == 0) {
+    mbar_init1(bar0);
+    mbar_init1(bar0 + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (q < pairs) pair_fetch(a, w, ring0, bar0, pbytes);
+    if (q + gridDim.x < pairs) pair_fetch(a, pair_at(a, q + gridDim.x, np), ring0 + 2 * pbytes, bar0 + 8, pbytes);
+  }
+  if (q < pairs)
+    for (int e = tid; e < nsmall; e += nt) f[S.smallo + e] = pair_small(a, w, e);
+  __syncthreads();
+  if (warp == 0 && q < pairs) {
+    mbar_wait_parity(bar0, 0);
+    warp_cholesky(f + S.ring, f + S.ring + S.pb, Ms, f + S.Lt, f + S.invd, hdr, n, S, lane);
+  }
+  __syncthreads();
+
+  for (int it = 0; q < pairs; q += gridDim.x, ++it) {
+    const int s = it & 1;
+    const long long qn = q + gridDim.x, o = w.r * a.t_out + w.p;
+    const PairAt wn = pair_at(a, qn < pairs ? qn : q, np);
+    if (warp == 0) {
+      // the next pair, brought into the other slot a pair ago, factorised
+      // into the other L buffer
+      if (qn < pairs) {
+        mbar_wait_parity(bar0 + 8 * (s ^ 1), ((it + 1) >> 1) & 1);
+        const float* Pxn = f + S.ring + (s ^ 1) * 2 * S.pb;
+        warp_cholesky(Pxn, Pxn + S.pb, Ms, f + S.Lt + (s ^ 1) * lt_size, f + S.invd + (s ^ 1) * invd_size,
+                      hdr + (s ^ 1), n, S, lane);
+      }
+    } else {
+      float pre = 0.f;  // the next pair's small rows, held until its slot is free
+      if (qn < pairs && tt < nsmall) pre = pair_small(a, wn, tt);
+      mbar_wait_parity(bar0 + 8 * s, (it >> 1) & 1);  // complete already: warp 0 waited before factorising
+      const float* Px = f + S.ring + s * 2 * S.pb;
+      const float* Py = Px + S.pb;
+      const float* sm = f + S.smallo + s * S.small;
+      const float* Lt = f + S.Lt + s * lt_size;
+      const float* invd = f + S.invd + s * invd_size;
+
+      // 1. X = [Px[lm]^T | Py[mr] | i_m]; P_kk into the staging block (free:
+      //    the previous pair's store has read it); then the slot is free for
+      //    the pair after next
+      for (int i = warp - 1; i < n; i += (team >> 5))
+        for (int j = lane; j < n; j += 32) {
+          X[j * S.sx + i] = Px[i * n2 + n + j];
+          X[i * S.sx + n + j] = Py[i * n2 + n + j];
+        }
+      if (tt < n) X[tt * S.sx + n2] = sm[n + tt] + sm[n2 + tt];
+      if ((n & 1) == 0) {  // rows of 2n floats, a multiple of 4: float4 throughout
+        for (int x = 4 * tt; x < S.pb; x += 4 * team) {
+          const int i = x / n2, j = x % n2;
+          const float4 px = *reinterpret_cast<const float4*>(Px + x), py = *reinterpret_cast<const float4*>(Py + x);
+          const float cx[4] = {px.x, px.y, px.z, px.w}, cy[4] = {py.x, py.y, py.z, py.w};
+          float kk[4];
+#pragma unroll
+          for (int v = 0; v < 4; ++v) kk[v] = (i < n && j + v < n) ? cx[v] : (i >= n && j + v >= n) ? cy[v] : 0.f;
+          *reinterpret_cast<float4*>(stage + x) = make_float4(kk[0], kk[1], kk[2], kk[3]);
+        }
+      } else {
+        for (int x = tt; x < S.pb; x += team) {
+          const int i = x / n2, j = x % n2;
+          stage[x] = (i < n && j < n) ? Px[x] : (i >= n && j >= n) ? Py[x] : 0.f;
+        }
+      }
+      team_sync(team);
+      const long long qnn = qn + gridDim.x;
+      if (tt == 0 && qnn < pairs) pair_fetch(a, pair_at(a, qnn, np), ring0 + s * 2 * pbytes, bar0 + 8 * s, pbytes);
+      if (a.L_tape) {  // the tape: L, and P_mk and i_m before the solve
+        for (int i = warp - 1; i < n; i += (team >> 5)) {
+          for (int j = lane; j < n; j += 32) a.L_tape[(q * n + i) * n + j] = Lt[j * S.lt + i];
+          for (int c = lane; c < nc; c += 32) {
+            const float v = X[i * S.sx + c];
+            if (c < n2) a.Pmk_tape[(q * n + i) * n2 + c] = v;
+            else a.im_tape[q * n + i] = v;
+          }
+        }
+        team_sync(team);
+      }
+
+      // 2. X = L^-1 X, a thread a column, blocks of 8 rows
+      if (tt < nc) {
+        for (int i0 = 0; i0 < n; i0 += 8) {
+          float b[8];
+#pragma unroll
+          for (int r = 0; r < 8; ++r) b[r] = i0 + r < n ? X[(i0 + r) * S.sx + tt] : 0.f;
+          // the solved rows before the block, in order: b[r] -= L[i0 + r][k] x_k
+#pragma unroll 4
+          for (int k = 0; k < i0; ++k) {
+            const float xk = X[k * S.sx + tt];
+            const float4 u = *reinterpret_cast<const float4*>(Lt + k * S.lt + i0);
+            const float4 v = *reinterpret_cast<const float4*>(Lt + k * S.lt + i0 + 4);
+            const float c[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+            for (int r = 0; r < 8; ++r) b[r] = fmaf(-c[r], xk, b[r]);
+          }
+          // the block's own rows
+#pragma unroll
+          for (int r = 0; r < 8; ++r) {
+            if (i0 + r < n) {
+              const float xr = b[r] * invd[i0 + r];
+              b[r] = xr;
+              const float4 u = *reinterpret_cast<const float4*>(Lt + (i0 + r) * S.lt + i0);
+              const float4 v = *reinterpret_cast<const float4*>(Lt + (i0 + r) * S.lt + i0 + 4);
+              const float c[8] = {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w};
+#pragma unroll
+              for (int e = r + 1; e < 8; ++e) b[e] = fmaf(-c[e], xr, b[e]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 8; ++r)
+            if (i0 + r < n) X[(i0 + r) * S.sx + tt] = b[r];
+        }
+        if (tt == n2) {  // |L^-1 i_m|^2, in order
+          float w2 = 0.f;
+          for (int k = 0; k < n; ++k) w2 = fmaf(X[k * S.sx + n2], X[k * S.sx + n2], w2);
+          hdr[2] = w2;
+        }
+      }
+      team_sync(team);
+
+      // 3. P' = P_kk - X^T X in 4 x 4 tiles in the staging block; info'
+      const int cg = (n2 + 3) >> 2;
+      for (int tile = tt; tile < cg * cg; tile += team) {
+        const int i0 = (tile / cg) * 4, j0 = (tile % cg) * 4;
+        float acc[4][4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
+#pragma unroll 4
+        for (int k = 0; k < n; ++k) {
+          const float4 xi = *reinterpret_cast<const float4*>(X + k * S.sx + i0);
+          const float4 xj = *reinterpret_cast<const float4*>(X + k * S.sx + j0);
+          const float ci[4] = {xi.x, xi.y, xi.z, xi.w}, cj[4] = {xj.x, xj.y, xj.z, xj.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+#pragma unroll
+            for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(ci[u], cj[v], acc[u][v]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u;
+          if (i >= n2) continue;
+          float* row = stage + i * n2 + j0;
+          if ((n & 1) == 0) {
+            const float4 kk = *reinterpret_cast<const float4*>(row);
+            *reinterpret_cast<float4*>(row) =
+                make_float4(kk.x - acc[u][0], kk.y - acc[u][1], kk.z - acc[u][2], kk.w - acc[u][3]);
+          } else {
+#pragma unroll
+            for (int v = 0; v < 4; ++v)
+              if (j0 + v < n2) row[v] -= acc[u][v];
+          }
+        }
+      }
+      const int ii = tt - (team - n2);
+      if (ii >= 0) {
+        float acc = ii < n ? sm[ii] : sm[n2 + ii];
+#pragma unroll 4
+        for (int k = 0; k < n; ++k) acc = fmaf(-X[k * S.sx + ii], X[k * S.sx + n2], acc);
+        a.info_out[o * n2 + ii] = acc;
+      }
+      if (tt == 0) {
+        const float* sc = sm + 2 * n2;  // logZ, alpha, beta of the two factors
+        if constexpr (GAMMA) {
+          a.logZ_out[o] = sc[0] + sc[1] + (float)n * HALF_LOG_2PI - hdr[s];
+          a.alpha_out[o] = sc[2] + sc[3] - 0.5f * (float)n;
+          a.beta_out[o] = sc[4] + sc[5] - 0.5f * hdr[2];
+        } else {
+          a.logZ_out[o] = sc[0] + sc[1] + (float)n * HALF_LOG_2PI - (hdr[s] - 0.5f * hdr[2]);
+        }
+      }
+      if (qn < pairs && tt < nsmall) f[S.smallo + (s ^ 1) * S.small + tt] = pre;
+      fence_proxy_async();
+      team_sync(team);
+      if (tt == 0) {
+        bulk_store(a.P_out + o * S.pb, smem_u32(stage), pbytes);
+        bulk_wait_read();  // the staging block free for the next pair (warp 0 is the longer path)
+      }
+    }
+    __syncthreads();
+    w = wn;
+  }
+  if (tt == 0) bulk_wait_all();
+}
+
+// Every launch of K4b or K5b passes its operands' RowStrides in `layout`:
+// R_lo, then hi, lo, ts of P, info and logZ (and, GAMMA, alpha and beta).
+static ContractArgs contract_args(const float* P, const float* info, const float* logZ, const float* alpha,
+                                  const float* beta, const long long* layout, int R, int t, int n, int t_out) {
+  ContractArgs a = {};
+  a.P = P;
+  a.info = info;
+  a.logZ = logZ;
+  a.alpha = alpha;
+  a.beta = beta;
+  a.R_lo = layout[0];
+  RowStrides* s[5] = {&a.sP, &a.sI, &a.sZ, &a.sA, &a.sB};
+  for (int k = 0; k < (alpha ? 5 : 3); ++k) *s[k] = {layout[1 + 3 * k], layout[2 + 3 * k], layout[3 + 3 * k]};
+  a.R = R;
+  a.t = t;
+  a.n = n;
+  a.t_out = t_out;
+  return a;
+}
+
+// The dynamic shared memory K4b's CTA may take, set once an instantiation
+// (its largest, at n = NMAX, is above the default 48 KB).
+template <bool GAMMA>
+static int contract_ready() {
+  static bool ready = false;
+  if (!ready) {
+    const int err = (int)cudaFuncSetAttribute(gl_contract_kernel<GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)contract_smem_bytes(NMAX));
+    if (err) return err;
+    ready = true;
+  }
+  return 0;
+}
+
+// K4b's CTA at state dim n: 4 warps, 8 above n = 16 (P' has 4n^2 entries)
+static int contract_threads(int n) { return n > 16 ? NT_CONTRACT : NT_CONTRACT / 2; }
+
+template <bool GAMMA>
+static int launch_contract(const ContractArgs& a, int blocks, cudaStream_t st) {
+  const int err = contract_ready<GAMMA>();
+  if (err) return err;
+  gl_contract_kernel<GAMMA><<<blocks, contract_threads(a.n), contract_smem_bytes(a.n), st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------- K4c --
@@ -733,21 +1153,38 @@ int gl_gamma_halving(const float* P, const float* info, long long info_rs, const
   return (int)cudaGetLastError();
 }
 
-int gl_contract(const float* P, const float* info, const float* logZ, int R, int t, int n, int t_out, int blocks,
-                float* P_out, float* info_out, float* logZ_out, float* L_tape, float* Pmk_tape, float* im_tape,
-                cudaStream_t st) {
-  gl_contract_kernel<false><<<blocks, NT_PAIR, 0, st>>>(P, info, logZ, R, t, n, t_out, P_out, info_out, logZ_out,
-                                                        L_tape, Pmk_tape, im_tape, nullptr, nullptr, nullptr,
-                                                        nullptr);
-  return (int)cudaGetLastError();
+int gl_contract(const float* P, const float* info, const float* logZ, const long long* layout, int R, int t, int n,
+                int t_out, int blocks, float* P_out, float* info_out, float* logZ_out, float* L_tape, float* Pmk_tape,
+                float* im_tape, cudaStream_t st) {
+  ContractArgs a = contract_args(P, info, logZ, nullptr, nullptr, layout, R, t, n, t_out);
+  a.P_out = P_out;
+  a.info_out = info_out;
+  a.logZ_out = logZ_out;
+  a.L_tape = L_tape;
+  a.Pmk_tape = Pmk_tape;
+  a.im_tape = im_tape;
+  return launch_contract<false>(a, blocks, st);
 }
 
 int gl_gamma_contract(const float* P, const float* info, const float* logZ, const float* alpha, const float* beta,
-                      int R, int t, int n, int t_out, int blocks, float* P_out, float* info_out, float* logZ_out,
-                      float* alpha_out, float* beta_out, cudaStream_t st) {
-  gl_contract_kernel<true><<<blocks, NT_PAIR, 0, st>>>(P, info, logZ, R, t, n, t_out, P_out, info_out, logZ_out,
-                                                       nullptr, nullptr, nullptr, alpha, beta, alpha_out, beta_out);
-  return (int)cudaGetLastError();
+                      const long long* layout, int R, int t, int n, int t_out, int blocks, float* P_out,
+                      float* info_out, float* logZ_out, float* alpha_out, float* beta_out, cudaStream_t st) {
+  ContractArgs a = contract_args(P, info, logZ, alpha, beta, layout, R, t, n, t_out);
+  a.P_out = P_out;
+  a.info_out = info_out;
+  a.logZ_out = logZ_out;
+  a.alpha_out = alpha_out;
+  a.beta_out = beta_out;
+  return launch_contract<true>(a, blocks, st);
+}
+
+// The CTAs of K4b (gamma 0) or K5b (gamma 1) at state dim n that one SM
+// runs at once, by their shared memory, registers and threads.
+int gl_contract_ctas_per_sm(int n, int gamma, int* ctas) {
+  const int err = gamma ? contract_ready<true>() : contract_ready<false>();
+  if (err) return err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, gamma ? gl_contract_kernel<true> : gl_contract_kernel<false>, contract_threads(n), contract_smem_bytes(n));
 }
 
 int gl_mids(const float* cur, int m_cur, const float* L, long long L_stride, const float* Pmk, long long Pmk_stride,

@@ -262,10 +262,9 @@ def sequential_gamma_gaussian_tensordot(gg: GammaGaussian) -> GammaGaussian:
     assert gg.dim % 2 == 0
     two_n = gg.dim
     batch = gg.batch_shape
-    g = gg.expand(batch)
-    P = g.precision.reshape(-1, batch[-1], two_n, two_n)
-    info = g.info_vec.reshape(-1, batch[-1], two_n)
-    logZ, alpha, beta = (x.reshape(-1, batch[-1]) for x in g._scalars())
+    g = gg.expand(batch)  # views: K5b reads a broadcast factor in place
+    P, info = g.precision, g.info_vec
+    logZ, alpha, beta = g._scalars()
     while P.shape[-3] > 1:
         P, info, logZ, alpha, beta = gaussian_levels.gamma_contract_pairs(P, info, logZ, alpha, beta)
-    return _unflatten(GammaGaussian(logZ[:, 0], info[:, 0], P[:, 0], alpha[:, 0], beta[:, 0]), batch[:-1])
+    return GammaGaussian(logZ[..., 0], info[..., 0, :], P[..., 0, :, :], alpha[..., 0], beta[..., 0])

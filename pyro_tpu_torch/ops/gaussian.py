@@ -364,14 +364,11 @@ def sequential_gaussian_tensordot(gaussian: Gaussian) -> Gaussian:
     assert gaussian.dim % 2 == 0
     two_n = gaussian.dim
     batch = gaussian.batch_shape
-    g = gaussian.expand(batch)
-    P = g.precision.reshape(-1, batch[-1], two_n, two_n)
-    info = g.info_vec.reshape(-1, batch[-1], two_n)
-    logZ = g.log_normalizer.reshape(-1, batch[-1])
+    g = gaussian.expand(batch)  # views: K4b reads a broadcast factor in place
+    P, info, logZ = g.precision, g.info_vec, g.log_normalizer
     while P.shape[-3] > 1:
         P, info, logZ, _ = gaussian_levels.contract_pairs(P, info, logZ)
-    return Gaussian(logZ.reshape(batch[:-1]), info.reshape(batch[:-1] + (two_n,)),
-                    P.reshape(batch[:-1] + (two_n, two_n)))
+    return Gaussian(logZ[..., 0], info[..., 0, :], P[..., 0, :, :])
 
 
 class _NoiseSlots:

@@ -14,9 +14,12 @@ the kernel launches or the call raises.
   (R, 2m) become (R, m, 2n) and (R, m), P becomes P', and the level's
   Cholesky factor L (n, n) and ``ib`` (R, m, n) are kept for the sampler.
 - ``contract_pairs`` (K4b): adjacent pairs (2p, 2p + 1) of a chain whose
-  precision varies, P (R, t, 2n, 2n), info (R, t, 2n), logZ (R, t), to
-  (R, ceil(t / 2), ...), an odd level's last factor carried through; with
-  ``tape``, each pair's L (n, n), P_mk (n, 2n) and i_m (n) for the descent.
+  precision varies, P (..., t, 2n, 2n), info (..., t, 2n), logZ (..., t)
+  (any leading batch dims, R rows in all), to (..., ceil(t / 2), ...), an
+  odd level's last factor carried through; with ``tape``, each pair's L
+  (n, n), P_mk (n, 2n) and i_m (n) for the descent.  The kernel reads its
+  operands where they lie, by their strides (``row_layout``): a precision
+  expanded over rows or time (stride 0) is never copied.
 - ``level_mids`` (K4c): a level's midpoint draws, the points (D, R, m, n)
   to (D, R, m + Np, n) with the mids in their interleaved places.
 - ``gamma_halving_level`` (K5a) and ``gamma_contract_pairs`` (K5b): K4a's
@@ -144,11 +147,13 @@ def _contract_core(P, info):
 
 
 def _carry_odd(t, new, old):
-    """An odd level's last factor of each of ``old`` (batch (R, t)) appended
-    to ``new``; ``new`` and ``old`` are lists of (P, info, then (R, t) rows)."""
+    """An odd level's last factor of each of ``old`` (batch (..., t))
+    appended to ``new``; ``new`` and ``old`` are lists of (P, info, then
+    (..., t) rows)."""
     if t % 2 == 0:
         return new
-    return [torch.cat([a, b[:, t - 1:]], dim=1) for a, b in zip(new, old)]
+    k = old[-1].ndim - 1  # the time dim: after the leading batch dims
+    return [torch.cat([a, b.narrow(k, t - 1, 1)], dim=k) for a, b in zip(new, old)]
 
 
 def _log_diag_sum(L):
@@ -280,21 +285,23 @@ def contract_pairs_bwd_plain(t, L, P_mk, i_m, g_P, g_info, g_logZ):
 _P = ctypes.c_void_p
 _c = ctypes.c_int
 _ll = ctypes.c_longlong
+_LAYOUT = ctypes.POINTER(ctypes.c_longlong)
 
 
 @functools.cache
 def _lib():
     lib = cuda_build.load("gaussian_levels")
     lib.gl_halving.argtypes = [_P, _P, _ll, _P, _ll, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
-    lib.gl_contract.argtypes = [_P, _P, _P, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P, _P]
+    lib.gl_contract.argtypes = [_P, _P, _P, _LAYOUT, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P, _P]
     lib.gl_mids.argtypes = [_P, _c, _P, _ll, _P, _ll, _P, _P, _c, _c, _c, _c, _c, _P, _P]
     lib.gl_halving_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _P, _P, _P, _P, _P]
     lib.gl_contract_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _P, _P, _P, _P]
     lib.gl_gamma_halving.argtypes = [_P, _P, _ll, _P, _ll, _P, _ll, _P, _ll, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P,
                                      _P]
-    lib.gl_gamma_contract.argtypes = [_P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
+    lib.gl_gamma_contract.argtypes = [_P, _P, _P, _P, _P, _LAYOUT, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
+    lib.gl_contract_ctas_per_sm.argtypes = [_c, _c, ctypes.POINTER(_c)]
     for fn in (lib.gl_halving, lib.gl_contract, lib.gl_mids, lib.gl_halving_bwd, lib.gl_contract_bwd,
-               lib.gl_gamma_halving, lib.gl_gamma_contract):
+               lib.gl_gamma_halving, lib.gl_gamma_contract, lib.gl_contract_ctas_per_sm):
         fn.restype = ctypes.c_int
     return lib
 
@@ -302,6 +309,17 @@ def _lib():
 @functools.cache
 def _sms(device):
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.cache
+def _contract_ctas_per_sm(n, gamma):
+    """The CTAs of K4b (K5b with ``gamma``) at state dim n that one SM runs
+    at once: the persistent grid's width an SM."""
+    ctas = ctypes.c_int(0)
+    _raise_on(_lib().gl_contract_ctas_per_sm(n, int(gamma), ctypes.byref(ctas)), "contract_pairs occupancy")
+    if ctas.value < 1:
+        raise RuntimeError(f"contract_pairs: no CTA at n={n} fits an SM")
+    return ctas.value
 
 
 def _check_cuda(name, n, *tensors):
@@ -353,27 +371,102 @@ def _halving_cuda(P, info, logZ, tape):
     return P_out, info_out, logZ_out, L_out, ib
 
 
+def _group_stride(sizes, strides):
+    """The one stride that walks dims ``sizes`` (with ``strides``) in
+    row-major order, 0 if they hold one element, None if there is none."""
+    stride = expected = None
+    for size, st in zip(reversed(sizes), reversed(strides)):
+        if size == 1:
+            continue
+        if expected is not None and st != expected:
+            return None
+        if stride is None:
+            stride = st
+        expected = st * size
+    return 0 if stride is None else stride
+
+
+def row_layout(lead, specs):
+    """How K4b and K5b read their operands in place.
+
+    ``lead`` is the shape of the batch dims before time, shared by the
+    operands; ``specs`` has one ``(strides, in_place, align)`` an operand:
+    its strides over ``lead`` and time (elements), whether its inner dims
+    are contiguous (and its base aligned as the kernel needs), and the
+    multiple of elements its strides must be.  The kernel finds element
+    (r, p), r the row-major index over ``lead``, at
+    ``(r // R_lo) * hi + (r % R_lo) * lo + p * ts``; the lead dims split
+    into an outer and an inner group, each walked with one stride (a
+    broadcast dim has stride 0).  Returns ``R_lo`` and one ``(hi, lo, ts)``
+    an operand, None for one that must be copied contiguous first; the
+    split taken is the first that copies fewest operands."""
+    k = len(lead)
+    best = None
+    for j in range(k + 1):
+        plan = []
+        for strides, in_place, align in specs:
+            hi, lo = _group_stride(lead[:j], strides[:j]), _group_stride(lead[j:], strides[j:k])
+            ts = strides[k]
+            ok = in_place and hi is not None and lo is not None and all(x % align == 0 for x in (hi, lo, ts))
+            plan.append((hi, lo, ts) if ok else None)
+        copies = sum(x is None for x in plan)
+        if best is None or copies < best[0]:
+            best = (copies, math.prod(lead[j:]), plan)
+    return best[1], best[2]
+
+
+_P_ALIGN = 4  # P's blocks come by bulk copy: 16-byte aligned (4 floats)
+
+
+def _kernel_operands(lead, operands):
+    """The operands of a K4b or K5b launch, each ``(x, inner dims)`` with
+    ``x`` (*lead, t, *inner): P first, read by bulk copy.  Returns the
+    tensors (copied contiguous where ``row_layout`` asks) and the layout
+    array the kernel takes: R_lo, then hi, lo, ts an operand."""
+    specs = []
+    for i, (x, inner) in enumerate(operands):
+        dense = all(x.stride(d) == math.prod(x.shape[d + 1:]) for d in range(x.ndim - inner, x.ndim))
+        align = _P_ALIGN if i == 0 else 1
+        specs.append((x.stride()[:len(lead) + 1], dense and x.data_ptr() % (4 * align) == 0, align))
+    R_lo, plan = row_layout(tuple(lead), specs)
+    tensors, layout = [], [R_lo]
+    for (x, inner), strides in zip(operands, plan):
+        if strides is None:
+            x = x.clone(memory_format=torch.contiguous_format)  # a copy even of a dense misaligned one
+            m, t = math.prod(x.shape[x.ndim - inner:]), x.shape[len(lead)]
+            strides = (R_lo * t * m, t * m, m)
+        tensors.append(x)
+        layout += strides
+    return tensors, (ctypes.c_longlong * len(layout))(*layout)
+
+
+def _contract_blocks(R, np_, n, gamma, device):
+    """The persistent grid: as many CTAs as the card runs at once, at most
+    one a pair."""
+    return max(1, min(R * np_, _contract_ctas_per_sm(n, gamma) * _sms(device)))
+
+
 def _contract_cuda(P, info, logZ, tape):
-    R, t, n2, _ = P.shape
+    *lead, t, n2, _ = P.shape
     n, np_ = n2 // 2, t // 2
     _check_cuda("contract_pairs", n, P, info, logZ)
-    P, info, logZ = P.contiguous(), info.contiguous(), logZ.contiguous()
-    t_out = t - np_
+    R, t_out = math.prod(lead), t - np_
+    (Pk, infok, logZk), layout = _kernel_operands(lead, [(P, 2), (info, 1), (logZ, 0)])
     new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
-    P_out, info_out, logZ_out = new((R, t_out, n2, n2)), new((R, t_out, n2)), new((R, t_out))
+    P_out, info_out, logZ_out = new((*lead, t_out, n2, n2)), new((*lead, t_out, n2)), new((*lead, t_out))
     L = Pmk = im = None
     if tape:
-        L, Pmk, im = new((R, np_, n, n)), new((R, np_, n, n2)), new((R, np_, n))
-    blocks = max(1, min(R * np_, 16 * _sms(P.device)))
+        L, Pmk, im = new((*lead, np_, n, n)), new((*lead, np_, n, n2)), new((*lead, np_, n))
     err = _lib().gl_contract(
-        P.data_ptr(), info.data_ptr(), logZ.data_ptr(), R, t, n, t_out, blocks,
-        P_out.data_ptr(), info_out.data_ptr(), logZ_out.data_ptr(),
+        Pk.data_ptr(), infok.data_ptr(), logZk.data_ptr(), layout, R, t, n, t_out,
+        _contract_blocks(R, np_, n, False, P.device), P_out.data_ptr(), info_out.data_ptr(), logZ_out.data_ptr(),
         *(None if x is None else x.data_ptr() for x in (L, Pmk, im)), _stream(P),
     )
     _raise_on(err, "contract_pairs")
     launches["contract"] += 1
     if t > 2 * np_:  # the odd level's last factor, carried through
-        P_out[:, -1], info_out[:, -1], logZ_out[:, -1] = P[:, -1], info[:, -1], logZ[:, -1]
+        for out, x in zip((P_out, info_out, logZ_out), (P, info, logZ)):
+            out.select(len(lead), -1).copy_(x.select(len(lead), -1))
     return P_out, info_out, logZ_out, (L, Pmk, im) if tape else None
 
 
@@ -399,26 +492,25 @@ def _gamma_halving_cuda(P, info, logZ, alpha, beta):
 
 
 def _gamma_contract_cuda(P, info, logZ, alpha, beta):
-    R, t, n2, _ = P.shape
+    *lead, t, n2, _ = P.shape
     n, np_ = n2 // 2, t // 2
     _check_cuda("gamma_contract_pairs", n, P, info, logZ, alpha, beta)
-    P, info, logZ, alpha, beta = (x.contiguous() for x in (P, info, logZ, alpha, beta))
-    t_out = t - np_
+    R, t_out = math.prod(lead), t - np_
+    ins = (P, info, logZ, alpha, beta)
+    kin, layout = _kernel_operands(lead, list(zip(ins, (2, 1, 0, 0, 0))))
     new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
-    P_out, info_out = new((R, t_out, n2, n2)), new((R, t_out, n2))
-    logZ_out, alpha_out, beta_out = new((R, t_out)), new((R, t_out)), new((R, t_out))
-    blocks = max(1, min(R * np_, 16 * _sms(P.device)))
+    P_out, info_out = new((*lead, t_out, n2, n2)), new((*lead, t_out, n2))
+    logZ_out, alpha_out, beta_out = new((*lead, t_out)), new((*lead, t_out)), new((*lead, t_out))
+    outs = (P_out, info_out, logZ_out, alpha_out, beta_out)
     err = _lib().gl_gamma_contract(
-        P.data_ptr(), info.data_ptr(), logZ.data_ptr(), alpha.data_ptr(), beta.data_ptr(), R, t, n, t_out, blocks,
-        P_out.data_ptr(), info_out.data_ptr(), logZ_out.data_ptr(), alpha_out.data_ptr(), beta_out.data_ptr(),
-        _stream(P),
+        *(x.data_ptr() for x in kin), layout, R, t, n, t_out, _contract_blocks(R, np_, n, True, P.device),
+        *(x.data_ptr() for x in outs), _stream(P),
     )
     _raise_on(err, "gamma_contract_pairs")
     launches["gamma_contract"] += 1
-    outs = (P_out, info_out, logZ_out, alpha_out, beta_out)
     if t > 2 * np_:  # the odd level's last factor, carried through
-        for out, x in zip(outs, (P, info, logZ, alpha, beta)):
-            out[:, -1] = x[:, -1]
+        for out, x in zip(outs, ins):
+            out.select(len(lead), -1).copy_(x.select(len(lead), -1))
     return outs
 
 
@@ -521,7 +613,7 @@ class _Contract(torch.autograd.Function):
     @staticmethod
     def forward(ctx, P, info, logZ, keep, cuda):
         ctx.set_materialize_grads(False)
-        ctx.cuda, ctx.t = cuda, P.shape[-3]
+        ctx.cuda, ctx.t, ctx.lead = cuda, P.shape[-3], logZ.shape[:-1]
         P_out, info_out, logZ_out, saved = (_contract_cuda if cuda else contract_pairs_plain)(P, info, logZ, keep)
         saved = saved or (None, None, None)
         if keep:
@@ -532,7 +624,13 @@ class _Contract(torch.autograd.Function):
     def backward(ctx, g_P, g_info, g_logZ, g_L, g_Pmk, g_im):
         _taped_not_differentiated("contract_pairs", g_L, g_Pmk, g_im)
         bwd = _contract_bwd_cuda if ctx.cuda else contract_pairs_bwd_plain
-        return *bwd(ctx.t, *ctx.saved_tensors, g_P, g_info, g_logZ), None, None
+        k, R = len(ctx.lead), math.prod(ctx.lead)
+
+        def rows(x):  # the leading batch dims as one
+            return None if x is None else x.reshape(R, *x.shape[k:])
+
+        grads = bwd(ctx.t, *map(rows, ctx.saved_tensors), *map(rows, (g_P, g_info, g_logZ)))
+        return *(g.reshape(*ctx.lead, *g.shape[1:]) for g in grads), None, None
 
 
 class _MidsCUDA(torch.autograd.Function):

@@ -476,20 +476,63 @@ def test_halving_kernel_matches_plain(cuda, R, m, n):
         _assert_near(a, b)
 
 
-@pytest.mark.parametrize("R,t,n", [(1, 4000, 16), (2, 13, 32), (3, 2, 7)])
-def test_contract_kernel_matches_plain(cuda, R, t, n):
+# K4b and K5b (one kernel template) at every state dim class: n of 1, 2, an
+# odd 5, 16, 17, 31 and 32; t of 2, 3, odd and 4000; up to 8 rows; P
+# contiguous, a slice of each row (rows strided), or expanded with stride 0
+# over rows, time or both (read in place, never copied).
+CONTRACT_CASES = [
+    (1, 4000, 16, "contiguous"), (2, 13, 32, "contiguous"), (3, 2, 7, "contiguous"),
+    (8, 3, 1, "sliced"), (3, 9, 2, "stride0_time"), (2, 2, 5, "sliced"), (8, 4000, 16, "stride0_rows"),
+    (1, 9, 17, "contiguous"), (4, 3, 31, "stride0_time"), (8, 9, 32, "stride0_both"),
+    (8, 4000, 32, "stride0_both"), (2, 13, 17, "sliced"),
+]
+
+
+def _contract_inputs(gen, R, t, n, layout, cuda):
+    """P (R, t, 2n, 2n), info and logZ laid out as ``layout``."""
+    n2 = 2 * n
+    if layout == "stride0_rows":
+        P = _spd(gen, (1, t), n2, cuda).expand(R, t, n2, n2)
+    elif layout == "stride0_time":
+        P = _spd(gen, (R, 1), n2, cuda).expand(R, t, n2, n2)
+    elif layout == "stride0_both":
+        P = _spd(gen, (), n2, cuda).expand(R, t, n2, n2)
+    elif layout == "sliced":  # each row a slice of a longer one
+        P = _spd(gen, (R, t + 1), n2, cuda)[:, 1:]
+    else:
+        P = _spd(gen, (R, t), n2, cuda)
+    pad = 3 if layout == "sliced" else 0
+    info = torch.randn(R, t + pad, n2, generator=gen, device=cuda)[:, pad:]
+    logZ = torch.randn(R, t + pad, generator=gen, device=cuda)[:, pad:]
+    return P, info, logZ
+
+
+@pytest.mark.parametrize("R,t,n,layout", CONTRACT_CASES)
+def test_contract_kernel_matches_plain(cuda, R, t, n, layout):
+    """K4b against its plain version, the tape included; a second launch on
+    the same inputs gives the same bits; the backward kernel from the
+    kernel's tape against the plain backward from the plain version's."""
     from pyro_tpu_torch.ops import gaussian_levels as gl
 
-    gen = torch.Generator(device="cuda").manual_seed(t)
-    P = _spd(gen, (R, t), 2 * n, cuda)
-    info = torch.randn(R, t, 2 * n, generator=gen, device=cuda)
-    logZ = torch.randn(R, t, generator=gen, device=cuda)
+    gen = torch.Generator(device="cuda").manual_seed(t + n)
+    P, info, logZ = _contract_inputs(gen, R, t, n, layout, cuda)
     before = gl.launches["contract"]
     *out_k, tape_k = gl.contract_pairs(P, info, logZ, tape=True)
     *out_p, tape_p = gl.contract_pairs_plain(P, info, logZ, tape=True)
+    *again, tape_again = gl.contract_pairs(P, info, logZ, tape=True)
     torch.cuda.synchronize()
-    assert gl.launches["contract"] == before + 1
+    assert gl.launches["contract"] == before + 2
     for a, b in zip(out_k + list(tape_k), out_p + list(tape_p)):
+        _assert_near(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(out_k + list(tape_k), again + list(tape_again)))
+    t_out = t - t // 2
+    grads = (torch.randn(R, t_out, 2 * n, 2 * n, generator=gen, device=cuda),
+             torch.randn(R, t_out, 2 * n, generator=gen, device=cuda), torch.randn(R, t_out, generator=gen, device=cuda))
+    g_k = gl._contract_bwd_cuda(t, *tape_k, *grads)
+    g_p = gl.contract_pairs_bwd_plain(t, *tape_p, *grads)
+    torch.cuda.synchronize()
+    _assert_near(_sym(g_k[0]), _sym(g_p[0]))
+    for a, b in zip(g_k[1:], g_p[1:]):
         _assert_near(a, b)
 
 
@@ -766,24 +809,32 @@ def test_gamma_halving_kernel_matches_plain(cuda, R, m, n):
         _assert_near(a, b)
 
 
-@pytest.mark.parametrize("R,t,n", [(1, 4003, 16), (2, 15, 32), (3, 7, 3)])
-def test_gamma_contract_kernel_matches_plain(cuda, R, t, n):
-    """Odd pair counts, and an odd t whose last factor is carried."""
+GAMMA_CONTRACT_CASES = [
+    (1, 4003, 16, "contiguous"), (2, 15, 32, "contiguous"), (3, 7, 3, "contiguous"),
+    (8, 2, 1, "stride0_rows"), (2, 3, 2, "sliced"), (3, 9, 5, "stride0_time"), (1, 13, 17, "contiguous"),
+    (8, 4001, 31, "stride0_both"), (8, 4000, 32, "stride0_both"), (4, 9, 32, "sliced"),
+]
+
+
+@pytest.mark.parametrize("R,t,n,layout", GAMMA_CONTRACT_CASES)
+def test_gamma_contract_kernel_matches_plain(cuda, R, t, n, layout):
+    """Odd pair counts, an odd t whose last factor is carried, strided and
+    broadcast P; a second launch gives the same bits."""
     from pyro_tpu_torch.ops import gaussian_levels as gl
 
     gen = torch.Generator(device="cuda").manual_seed(t)
-    P = _spd(gen, (R, t), 2 * n, cuda)
-    info = torch.randn(R, t, 2 * n, generator=gen, device=cuda)
-    logZ = torch.randn(R, t, generator=gen, device=cuda)
+    P, info, logZ = _contract_inputs(gen, R, t, n, layout, cuda)
     alpha, beta = _gamma_rows(gen, R, t, cuda)
     before = gl.launches["gamma_contract"]
     out_k = gl.gamma_contract_pairs(P, info, logZ, alpha, beta)
     out_p = gl.gamma_contract_pairs_plain(P, info, logZ, alpha, beta)
+    again = gl.gamma_contract_pairs(P, info, logZ, alpha, beta)
     torch.cuda.synchronize()
-    assert gl.launches["gamma_contract"] == before + 1
+    assert gl.launches["gamma_contract"] == before + 2
     assert torch.equal(out_k[3], out_p[3])
     for a, b in zip(out_k, out_p):
         _assert_near(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
 
 
 @pytest.mark.parametrize("n", [3, 16, 32])

@@ -254,6 +254,7 @@ def test_import_leaves_out_jax():
         "import pyro_tpu_torch.examples.gaussian_hmm, pyro_tpu_torch.ops.gaussian_levels\n"
         "import pyro_tpu_torch.examples.lgssm, pyro_tpu_torch.examples.vectorized_markov\n"
         "import pyro_tpu_torch.examples.gamma_gaussian_hmm, pyro_tpu_torch.ops.gamma_gaussian\n"
+        "import pyro_tpu_torch.examples.contract_timing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax')"
         " or m == 'pyro_tpu' or m.startswith('pyro_tpu.')]\n"
         "print(bad)\n"
