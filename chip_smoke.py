@@ -84,14 +84,16 @@ Phases (any failure exits non-zero):
      ``rsample_posterior`` of 4 draws; the K4 launches of every call
      (each kernel above 0 over the phase) and one profiled call of each
      entry point with its device busy share;
-  10. the K4a and K4b backward kernels (``gaussian_levels.cu``: K4a's pairs
-     and shared passes, K4b's contract backward) against their plain
-     backward versions at every level of one training step's backward at
-     full width (the levels' tapes and upstream gradients recorded from a
-     step of each path of phase 11 through the kernels), P gradients
-     symmetrised; K4a's backward run twice on the same inputs, bitwise
+  10. the K4a and K4b backward kernels (``gaussian_levels.cu``: K4a's
+     ``gl_halving_bwd_kernel``, one launch a level; K4b's contract
+     backward) against their plain backward versions at every level of one
+     training step's backward at full width (the levels' tapes and
+     upstream gradients recorded from a step of each path of phase 11
+     through the kernels, one launch counted a level), P gradients
+     symmetrised; each backward run twice on the same inputs, bitwise
      equal; each kernel's levels timed against the plain version's in
-     turns, beside the bound of the same levels;
+     turns, beside the bound of the same levels, K4a's with the profiler's
+     device ms over the step's levels and level by level;
   11. slice 7, SVI through K4 at full width, 5 steps each through the
      entry points (``make_train_svi``: Trace_ELBO with the empty guide and
      Adam, lr 0.01): ``lgssm`` (``examples/lgssm.py``: GenericLGSSM, obs 4,
@@ -1214,27 +1216,41 @@ def contract_sweep(torch, gl, gamma):
     return worst
 
 
-def contract_device_ms(torch, kernel, calls, passes=3):
-    """The profiler's device ms of the contraction kernel over one pass of
-    the recorded levels ``calls``: the median of the last ``passes`` passes
-    in one profiled window, each pass the sum of its launches' kernel
-    times.  A warm-up pass comes first: late in this script a profiling
-    window loses its first few kernel events."""
+def device_ms_passes(torch, kernel, calls, name, passes=3, warm_up_s=0.2):
+    """The profiler's device ms of the kernels whose name holds ``name``,
+    call by call, over each of the last ``passes`` passes over the recorded
+    levels ``calls`` in one profiled window (one such kernel a call).
+    Warm-up passes come first, for ``warm_up_s`` seconds at least: late in
+    this script a profiling window loses the kernel events of its first few
+    milliseconds."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(passes + 1):
+        warm, start = 0, time.perf_counter()
+        while warm < 1 or time.perf_counter() - start < warm_up_s:
+            for args in calls:
+                kernel(*args)
+            torch.cuda.synchronize()
+            warm += 1
+        for _ in range(passes):
             for args in calls:
                 kernel(*args)
         torch.cuda.synchronize()
-    times = [e.device_time_total for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "gl_contract_kernel" in e.name]
+    times = [e.device_time_total / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name]
     m = len(calls)
-    check(len(times) >= passes * m, f"profiler: {len(times)} contraction kernels of {(passes + 1) * m}")
+    check(len(times) >= passes * m, f"profiler: {len(times)} {name} kernels of {(warm + passes) * m}")
     times = times[len(times) - passes * m:]
-    sums = sorted(sum(times[i * m:(i + 1) * m]) / 1e3 for i in range(passes))
+    return [times[i * m:(i + 1) * m] for i in range(passes)]
+
+
+def contract_device_ms(torch, kernel, calls, passes=3):
+    """The profiler's device ms of the contraction kernel over one pass of
+    the recorded levels ``calls``: the median of the last ``passes`` passes,
+    each pass the sum of its launches' kernel times."""
+    sums = sorted(sum(p) for p in device_ms_passes(torch, kernel, calls, "gl_contract_kernel", passes))
     return sums[passes // 2]
 
 
@@ -1544,10 +1560,13 @@ def phase_k4_backward(torch, gl):
     for path, (name, kernel_name, plain_name) in TRAIN_KERNELS.items():
         pyro.clear_param_store()
         model, data = train_paths(torch)[path]
+        gl.reset_counts()
         with record_levels(gl, kernel_name) as calls:
             Trace_ELBO().differentiable_loss(model, _no_guide, data).backward()
         torch.cuda.synchronize()
         check(calls, f"no {name} backward level was recorded")
+        check(gl.launches[f"{name}_bwd"] == len(calls),
+              f"{name} backward: {gl.launches[f'{name}_bwd']} launches for {len(calls)} levels")
         kernel, plain = getattr(gl, kernel_name), getattr(gl, plain_name)
         err = 0.0
         with torch.no_grad():
@@ -1559,12 +1578,21 @@ def phase_k4_backward(torch, gl):
                 "kernel": lambda: [kernel(*args) for args in calls],
                 "plain": lambda: [plain(*args) for args in calls],
             }, iters=5)
+            if name == "halving":  # K4a backward's device ms, level by level
+                passes = device_ms_passes(torch, kernel, calls, "gl_halving_bwd_kernel")
+                device = sorted(sum(p) for p in passes)[1]
+                by_level = [sorted(p[i] for p in passes)[1] for i in range(len(calls))]
         flops = sum(k4_bounds(f"{name}_bwd", args)[0] for args in calls)
         nbytes = sum(k4_bounds(f"{name}_bwd", args)[1] for args in calls)
         b = bound(flops, nbytes)
         print(f"  {name} backward over the {len(calls)} levels of a {path} training step: max abs err {err:.3g} "
-              f"(P gradients symmetrised), two runs bitwise equal; kernel {t['kernel']:.4f} ms, plain "
-              f"{t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)")
+              f"(P gradients symmetrised), two runs bitwise equal; kernel {t['kernel']:.4f} ms"
+              + (f", profiler {device:.4f} device ms" if name == "halving" else "")
+              + f", plain {t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e9:.4f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB)")
+        if name == "halving":
+            pairs = [args[2].shape[0] * args[2].shape[1] for args in calls]
+            print("    device ms a level (pairs): " + ", ".join(f"{x:.4f} ({q})" for x, q in zip(by_level, pairs)))
         result[f"{name}_bwd"] = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"], "bound": b,
                                  "levels": len(calls)}
     pyro.clear_param_store()

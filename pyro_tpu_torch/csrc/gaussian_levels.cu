@@ -67,16 +67,17 @@
 //   diagonal; the Cholesky adjoint gives gP_mm; all scattered into the
 //   pair's gP, ginfo and glogZ.  An odd level's last factor passes its
 //   gradient through.
-// K4a, gl_halving_bwd_pairs_kernel then gl_halving_bwd_shared_kernel: P is
-//   shared, so the work splits in two launches.  Per pair (a warp, lane i
-//   row i): s = L^-1 ib, gs = gZ' s - Kt gi', g_ib = L^-T gs, written into
-//   the pair's ginfo and glogZ; each lane sums its rows of s gi'^T and
-//   g_ib s^T (the adjoints of the shared Kt and L) over its warp's pairs in
-//   registers, the warps of a CTA add theirs in warp order and the CTA
-//   writes one partial.  Then one CTA sums the partials in block order (no
-//   float atomics: a rerun gives the same bits) and carries the adjoint of
-//   P' = diag(A, D) - Kt^T Kt, Kt = L^-1 [B^T | B], L = chol(D + A) back to
-//   gP.
+// K4a, gl_halving_bwd_kernel: XLA's autodiff of reduce_pow2_block
+//   (pyro_tpu/ops/gaussian.py:448-475), one launch a level.  P is shared:
+//   per pair s = L^-1 ib, gs = gZ' s - Kt gi', g_ib = L^-T gs, written into
+//   the pair's ginfo and glogZ, and the sums over all pairs of s gi'^T and
+//   g_ib s^T (the adjoints of the shared Kt and L) and of gZ'; then once the
+//   adjoint of P' = diag(A, D) - Kt^T Kt, Kt = L^-1 [B^T | B], L = chol(D +
+//   A) back to gP.  L^-1 is formed once a CTA and every solve is a product
+//   with it, over tiles of pairs; the sums run in a fixed order (no float
+//   atomics: a rerun gives the same bits), the last CTA to finish carrying
+//   the shared adjoint (the design and what bounds it: the K4a backward
+//   section below).
 //
 // What bounds them on an H100 (700 W): K4a over a whole log_prob at B=8,
 // T=10,000, n=32 is about 0.4 GFLOP (6 us on the f32 CUDA cores) against
@@ -856,172 +857,525 @@ __global__ void __launch_bounds__(NT_MIDS) gl_mids_kernel(
 
 
 // --------------------------------------------------------- K4a backward --
+//
+// The design for Hopper.  One launch a level; a CTA of 256 threads (8
+// warps), one an SM (95 KB of shared memory, up to 255 registers), walks
+// tiles of 64 pairs, tile += gridDim.x.  Every state-dim array is held zero-padded to 32 rows and
+// columns (the [a | b] halves of a 2n-vector to 32 each), so every product
+// runs at fixed sizes with no test on n, on the tensor cores: mma.sync
+// m16n8k8 tf32 in 3xTF32 (hb_mma, about float32's accuracy), 16 x 8 tiles
+// split over the warps, operands from shared memory:
+//   prologue, every CTA: L^T and C = [B^T | B] read along rows and stored
+//     first; gP' copied into shared memory by cp.async for the end
+//     (whichever CTA runs it) and the first tile's loads, in flight through
+//     the prologue; warp 0 forms L^-1 (lane c column c, the rows in
+//     registers, L's columns read as float4 broadcasts: no block barrier),
+//     then Kt = L^-1 C;
+//   per tile: the tile's ib, gi' and gZ' (brought into registers a tile
+//     ahead while the CTA works on the one before); S = IB L^-T and GS =
+//     gZ' S - GI Kt^T (each warp the same tiles of both); G_ib = GS L^-1;
+//     ginfo and glogZ written; the adjoints of the shared Kt and L summed
+//     in the warps' accumulators, S1 += S^T GI (32 x 64) and S2 += G_ib^T S
+//     (32 x 32) over the tile's pairs, tile after tile.  The warps whose
+//     rows hold no pair skip the products and the sums stop at the last
+//     pair (levels of 8-72 pairs).  Four barriers a tile;
+//   the sum over CTAs, in a fixed order: each CTA writes its partial (its
+//     threads' entries, thread-major), then takes a ticket from its
+//     group's counter (groups of `group` CTAs in block order); the last of
+//     a group to arrive sums the group's partials in block order, and
+//     where there is more than one group writes the group's sum and takes a
+//     ticket from the last counter, whose last sums the groups' in order.
+//     The CTA that ends last, whichever it is, has the same sums: two
+//     launches give the same bits.  The wrapper sizes the grid and the
+//     groups and lays out the partials, the groups' sums and the counters
+//     (ops/gaussian_levels.py::halving_bwd_plan, from gl_halving_bwd_shape);
+//     the C entry zeroes the counters on the stream before the launch;
+//   the shared adjoint, by that CTA: gKt = -(S1 + Kt G), gCt = L^-T gKt, gL
+//     = tril(-(S2 + gCt Kt^T)) - sum gZ' / L_jj, and the Cholesky adjoint
+//     L^-T S L^-1, every solve a product with L^-1: seven barriers.
+// What bounds it on an H100 (700 W): over the 13 levels of a homogeneous
+// training step (B=8, T=10,000, n=32) the pairs move some 73 MB (22 us at
+// 3.35 TB/s) for about 1 GFLOP (15 us on the f32 CUDA cores), most of it at
+// the first three levels.  Eight of the 13 levels have at most 1248 pairs;
+// there the chain of one CTA sets the time (15-21 us a level at 312 pairs
+// and below, chip_smoke.py phase 10): the first loads, L^-1, Kt, one tile,
+// the tickets, the shared adjoint's products and gP's stores in a row, each
+// product a chain of latencies (shared memory, mma, a barrier), not a
+// rate.  The earlier design (two kernels a level: a warp a pair, then one
+// CTA summing the partials) took some 250 barriers a level on one CTA.
 
-// The floats of one CTA's partial: rows of s gi'^T (n x 2n), rows of
-// g_ib s^T (n x n), and the sum of gZ'.
-__host__ __device__ __forceinline__ int halving_partial_size(int n) { return 3 * n * n + 1; }
+#define HB_NT 256        // threads of K4a backward's CTA
+#define HB_TP 64         // pairs a tile
+#define HB_LS 36         // row stride of the 32-wide arrays (floats, float4-aligned)
+#define HB_GS 68         // row stride of the 64-wide arrays
+#define HB_PARTIAL (12 * HB_NT + 1)  // floats of a partial: 12 entries a thread, then sum gZ'
+#define HB_PRE 25        // a thread's share of a tile: 8 of ib, 16 of gi', 1 of gZ'
+// shared memory, in floats
+#define HB_LT 0                       // L^T (32 x 32)
+#define HB_LINV (HB_LT + 32 * HB_LS)  // L^-1, rows
+#define HB_LINVT (HB_LINV + 32 * HB_LS)  // L^-1 transposed
+#define HB_KTT (HB_LINVT + 32 * HB_LS)   // Kt transposed (64 x 32)
+#define HB_INVD (HB_KTT + 64 * HB_LS)    // 1 / L_jj
+#define HB_TILE (HB_INVD + 32)
+#define HB_IB HB_TILE                    // a tile: ib (64 x 32)
+#define HB_GI (HB_IB + HB_TP * HB_LS)    // gi' (64 x 64)
+#define HB_GZ (HB_GI + HB_TP * HB_GS)    // gZ' (64)
+#define HB_S (HB_GZ + HB_TP)             // S = L^-1 ib (64 x 32); C in the prologue
+#define HB_GSB (HB_S + HB_TP * HB_LS)    // GS
+#define HB_GIB (HB_GSB + HB_TP * HB_LS)  // G_ib
+#define HB_G (HB_GIB + HB_TP * HB_LS)   // gP', copied in at the start; then gP' + gP'^T (64 x 64)
+#define HB_FLOATS (HB_G + 64 * HB_GS)
+// the shared adjoint's arrays, over the tile's once the tiles are done
+#define HB_GCT HB_TILE                    // gCt (32 x 64)
+#define HB_GKT (HB_GCT + 32 * HB_GS)      // gKt (32 x 64)
+#define HB_GL (HB_GKT + 32 * HB_GS)      // gL (32 x 32), then W in rows of 33 (read down its columns too)
+#define HB_SM (HB_GL + 32 * HB_LS)       // the Cholesky adjoint's S, Sm
+#define HB_T1 (HB_SM + 32 * HB_LS)       // T1 = Sm L^-1
+#define HB_CTAS 1  // CTAs an SM: the launch bound, and the grid's width an SM (gl_halving_bwd_shape)
 
-// Pass 1, the pairs.  P (2n, 2n), L (n, n) and ib (R, m, n) from the
-// forward's tape; gi_out (R, m, 2n) and gZ_out (R, m) the upstream
-// gradients (null for zero); outputs ginfo (R, 2m, 2n), glogZ (R, 2m) and
-// this CTA's partial at partial + blockIdx.x * halving_partial_size(n).
-__global__ void __launch_bounds__(NT_HALVE) gl_halving_bwd_pairs_kernel(
-    const float* __restrict__ P, const float* __restrict__ Lg, const float* __restrict__ ib,
-    const float* __restrict__ gi_out, const float* __restrict__ gZ_out, int R, int m, int n,
-    float* __restrict__ ginfo, float* __restrict__ glogZ, float* __restrict__ partial) {
-  __shared__ float Ls[NMAX][NMAX + 1];
-  __shared__ float Kt[NMAX][2 * NMAX + 1];
-  __shared__ float red[NMAX][3 * NMAX + 1];
-  __shared__ float redZ[NT_HALVE / 32];
-  __shared__ float inv_diag[NMAX];
-  const int tid = threadIdx.x, n2 = 2 * n, lane = tid & 31, warp = tid >> 5;
-  for (int x = tid; x < n * n; x += NT_HALVE) Ls[x / n][x % n] = Lg[x];
-  for (int x = tid; x < n * n2; x += NT_HALVE) {
-    const int i = x / n2, j = x % n2;
-    Kt[i][j] = j < n ? P[j * n2 + n + i] : P[i * n2 + j];
+// The sums over CTAs go through the wrapper's buffers, laid out by
+// ops/gaussian_levels.py::halving_bwd_plan: a partial of HB_PARTIAL floats
+// a CTA, a sum a group where there is more than one, and groups + 1
+// counters (a group's tickets, then the groups').
+struct HalvingBwdArgs {
+  const float *P, *L, *ib, *gP_out, *gi_out, *gZ_out;  // the upstream gradients null for zero
+  long long pairs;  // R m
+  int n, group, groups;
+  float *parts, *sums;  // the CTAs' partials; the groups' sums (null for one group)
+  int* counters;
+  float *gP, *ginfo, *glogZ;
+};
+
+// 4 bytes from global `src` to shared `dst` without a register (cp.async).
+__device__ __forceinline__ void hb_copy4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void hb_copy_wait() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
+
+// x split for 3xTF32: big = tf32(x), small = tf32(x - big).
+__device__ __forceinline__ void hb_split(float x, unsigned& big, unsigned& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+__device__ __forceinline__ void hb_mma1(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One warp's NB tiles of 16 x 8 of C += A B over k < K (a multiple of 8),
+// on the tensor cores in 3xTF32 (big*big a k-step into c, small*big +
+// big*small into a second chain added at the end: about float32's
+// accuracy): A(m, k) = A[m a_m + k a_k] (m < 16), B(k, n) =
+// B[k b_k + n b_n] (n < 8 NB), both in shared memory, A and B at the
+// tiles' origin.  c[j][e] is the entry (g + 8 (e >> 1), 8 j + 2 t + (e & 1))
+// of the warp's tiles, g = lane / 4, t = lane % 4 (mma.m16n8k8's layout).
+template <int NB>
+__device__ __forceinline__ void hb_mma(float (&c)[NB][4], int K, const float* A, int a_m, int a_k, const float* B,
+                                       int b_k, int b_n) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* pa = A + g * a_m + t * a_k;
+  const float* pb = B + t * b_k + g * b_n;
+  float cs[NB][4];  // the small terms in a chain of their own, added at the end
+#pragma unroll
+  for (int j = 0; j < NB; ++j) cs[j][0] = cs[j][1] = cs[j][2] = cs[j][3] = 0.f;
+#pragma unroll 2
+  for (int k = 0; k < K; k += 8, pa += 8 * a_k, pb += 8 * b_k) {
+    unsigned ab[4], as[4];
+    hb_split(pa[0], ab[0], as[0]);
+    hb_split(pa[8 * a_m], ab[1], as[1]);
+    hb_split(pa[4 * a_k], ab[2], as[2]);
+    hb_split(pa[8 * a_m + 4 * a_k], ab[3], as[3]);
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      unsigned bb[2], bs[2];
+      hb_split(pb[8 * j * b_n], bb[0], bs[0]);
+      hb_split(pb[8 * j * b_n + 4 * b_k], bb[1], bs[1]);
+      hb_mma1(cs[j], as, bb);
+      hb_mma1(cs[j], ab, bs);
+      hb_mma1(c[j], ab, bb);
+    }
   }
-  __syncthreads();
-  block_solve_lower(&Ls[0][0], NMAX + 1, &Kt[0][0], 2 * NMAX + 1, n, n2, NT_HALVE);
-  if (tid < n) inv_diag[tid] = 1.f / Ls[tid][tid];
-  __syncthreads();
-  float a1[2 * NMAX], a2[NMAX], az = 0.f;
 #pragma unroll
-  for (int c = 0; c < 2 * NMAX; ++c) a1[c] = 0.f;
+  for (int j = 0; j < NB; ++j)
 #pragma unroll
-  for (int j = 0; j < NMAX; ++j) a2[j] = 0.f;
-  const long long pairs = (long long)R * m;
-  for (long long q = (long long)blockIdx.x * (NT_HALVE / 32) + warp; q < pairs;
-       q += (long long)gridDim.x * (NT_HALVE / 32)) {
-    const float gz = gZ_out ? gZ_out[q] : 0.f;
-    const float* gi = gi_out ? gi_out + q * n2 : nullptr;
-    const float ga = gi && lane < n2 ? gi[lane] : 0.f;
-    const float gb = gi && lane + 32 < n2 ? gi[lane + 32] : 0.f;
-    // s = L^-1 ib, lane i holding row i
-    float res = lane < n ? ib[q * n + lane] : 0.f, s = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float sj = __shfl_sync(FULL, res, j) * inv_diag[j];
-      if (lane == j) s = sj;
-      if (lane > j && lane < n) res = fmaf(-Ls[lane][j], sj, res);
-    }
-    // gs = gZ' s - Kt gi'
-    float gs = gz * s;
-    for (int c = 0; c < n2; ++c) {
-      const float gc = __shfl_sync(FULL, c < 32 ? ga : gb, c & 31);
-      if (lane < n) gs = fmaf(-Kt[lane][c], gc, gs);
-    }
-    // g_ib = L^-T gs
-    float gib = 0.f;
-    for (int j = n - 1; j >= 0; --j) {
-      const float xj = __shfl_sync(FULL, gs, j) * inv_diag[j];
-      if (lane == j) gib = xj;
-      if (lane < j) gs = fmaf(-Ls[j][lane], xj, gs);
-    }
-    float* g1 = ginfo + 2 * q * n2;
-    if (lane < n) {
-      g1[lane] = gi ? gi[lane] : 0.f;
-      g1[n + lane] = gib;
-      g1[n2 + lane] = gib;
-      g1[n2 + n + lane] = gi ? gi[n + lane] : 0.f;
-    }
-    if (lane == 0) glogZ[2 * q] = glogZ[2 * q + 1] = gz;
-    // this lane's rows of s gi'^T and g_ib s^T
+    for (int e = 0; e < 4; ++e) c[j][e] += cs[j][e];
+}
+
+template <int NB>
+__device__ __forceinline__ void hb_zero(float (&c)[NB][4]) {
 #pragma unroll
-    for (int c = 0; c < 2 * NMAX; ++c) {
-      if (c < n2) a1[c] = fmaf(s, __shfl_sync(FULL, c < 32 ? ga : gb, c & 31), a1[c]);
-    }
+  for (int j = 0; j < NB; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.f;
+}
+
+// Where entry e of tile j of a warp's C fragments lies: row, column.
+__device__ __forceinline__ int hb_row(int e) { return ((threadIdx.x & 31) >> 2) + 8 * (e >> 1); }
+__device__ __forceinline__ int hb_col(int j, int e) { return 8 * j + 2 * (threadIdx.x & 3) + (e & 1); }
+
+// A warp's tiles into the matrix at `out` (row stride rs), at their origin.
+template <int NB>
+__device__ __forceinline__ void hb_put_tiles(float* out, int rs, const float (&c)[NB][4]) {
 #pragma unroll
-    for (int j = 0; j < NMAX; ++j) {
-      if (j < n) a2[j] = fmaf(gib, __shfl_sync(FULL, s, j), a2[j]);
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) out[hb_row(e) * rs + hb_col(j, e)] = c[j][e];
+}
+
+__device__ __forceinline__ void hb_store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Warp 0: 1 / L_jj into invd (1 past n), and L^-1 from L^T (zero-padded)
+// by forward substitution of the unit vectors, lane c column c, right-looking (row k
+// final once scaled by 1 / L_kk, then every later row takes its multiple),
+// straight-line code over NMAX; into Linv (rows) and LinvT (columns), zero
+// outside n x n.
+__device__ __forceinline__ void hb_tri_inverse(const float* Lt, float* invd, int n, int lane, float* Linv,
+                                               float* LinvT) {
+  invd[lane] = lane < n ? 1.f / Lt[lane * HB_LS + lane] : 1.f;
+  __syncwarp();
+  float x[NMAX];
+#pragma unroll
+  for (int i = 0; i < NMAX; ++i) x[i] = i == lane ? 1.f : 0.f;
+#pragma unroll
+  for (int k = 0; k < NMAX; ++k) {
+    x[k] *= invd[k];
+    const float* col = Lt + k * HB_LS;  // L[i][k] over i
+#pragma unroll
+    for (int i4 = (k + 1) & ~3; i4 < NMAX; i4 += 4) {
+      const float4 l = *reinterpret_cast<const float4*>(col + i4);
+      const float lv[4] = {l.x, l.y, l.z, l.w};
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        if (i4 + v > k) x[i4 + v] = fmaf(-lv[v], x[k], x[i4 + v]);
     }
-    az += gz;
   }
-  // the warps' sums added in warp order
-  for (int w = 0; w < NT_HALVE / 32; ++w) {
-    if (warp == w && lane < n) {
+  const bool in = lane < n;  // columns past n are the unit vectors: written as zero
 #pragma unroll
-      for (int c = 0; c < 2 * NMAX; ++c)
-        if (c < n2) red[lane][c] = (w ? red[lane][c] : 0.f) + a1[c];
+  for (int i = 0; i < NMAX; ++i) Linv[i * HB_LS + lane] = in ? x[i] : 0.f;
 #pragma unroll
-      for (int j = 0; j < NMAX; ++j)
-        if (j < n) red[lane][n2 + j] = (w ? red[lane][n2 + j] : 0.f) + a2[j];
-    }
-    if (warp == w && lane == 0) redZ[w] = az;
-    __syncthreads();
-  }
-  float* out = partial + (long long)blockIdx.x * halving_partial_size(n);
-  for (int x = tid; x < n * n2; x += NT_HALVE) out[x] = red[x / n2][x % n2];
-  for (int x = tid; x < n * n; x += NT_HALVE) out[n * n2 + x] = red[x / n][n2 + x % n];
-  if (tid == 0) {
-    float z = 0.f;
-    for (int w = 0; w < NT_HALVE / 32; ++w) z += redZ[w];
-    out[n * n2 + n * n] = z;
+  for (int i = 0; i < NMAX; i += 4) {
+    const float v[4] = {in ? x[i] : 0.f, in ? x[i + 1] : 0.f, in ? x[i + 2] : 0.f, in ? x[i + 3] : 0.f};
+    hb_store4(LinvT + lane * HB_LS + i, v);
   }
 }
 
-// Pass 2, one CTA: the nb partials summed in block order, then the adjoint
-// of the shared factorisation.  gP_out (2n, 2n) the upstream gradient of P'
-// (null for zero); output gP (2n, 2n).
-__global__ void __launch_bounds__(NT_HALVE) gl_halving_bwd_shared_kernel(
-    const float* __restrict__ P, const float* __restrict__ Lg, const float* __restrict__ gP_out,
-    const float* __restrict__ partial, int nb, int n, float* __restrict__ gP) {
-  __shared__ float Ls[NMAX][NMAX + 1];
-  __shared__ float Kt[NMAX][2 * NMAX + 1];
-  __shared__ float gK[NMAX][2 * NMAX + 1];  // gKt, then gCt = L^-T gKt
-  __shared__ float G[2 * NMAX][2 * NMAX + 1];  // gP' + gP'^T
-  __shared__ float W[NMAX][NMAX + 1];  // gL, then the gradient of D + A
-  __shared__ float Y[NMAX][NMAX + 1];
+// This thread's share of tile `tile` (pairs 64 tile ...) into registers,
+// zero past the last pair, past n and for a null gradient.
+__device__ __forceinline__ void hb_fetch(const HalvingBwdArgs& a, long long tile, float (&pre)[HB_PRE]) {
+  const int tid = threadIdx.x, n = a.n;
+  const long long q0 = tile * HB_TP;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int x = tid + r * HB_NT, k = x & 31;
+    const long long q = q0 + (x >> 5);
+    pre[r] = (q < a.pairs && k < n) ? a.ib[q * n + k] : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int x = tid + r * HB_NT, k = x & 31, h = (x >> 5) & 1;
+    const long long q = q0 + (x >> 6);
+    pre[8 + r] = (a.gi_out && q < a.pairs && k < n) ? a.gi_out[q * 2 * n + h * n + k] : 0.f;
+  }
+  pre[24] = (a.gZ_out && tid < HB_TP && q0 + tid < a.pairs) ? a.gZ_out[q0 + tid] : 0.f;
+}
+
+__device__ __forceinline__ void hb_stage(const float (&pre)[HB_PRE], float* hs) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int x = tid + r * HB_NT;
+    hs[HB_IB + (x >> 5) * HB_LS + (x & 31)] = pre[r];
+  }
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int x = tid + r * HB_NT;
+    hs[HB_GI + (x >> 6) * HB_GS + (x & 63)] = pre[8 + r];
+  }
+  if (tid < HB_TP) hs[HB_GZ + tid] = pre[24];
+}
+
+// All threads: whether this CTA is the last of `expected` to take a ticket
+// from `counter`, its writes before it visible to the one that is.
+__device__ __forceinline__ bool hb_last(int* counter, int expected) {
+  __shared__ int flag;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) flag = atomicAdd(counter, 1) == expected - 1;
+  __syncthreads();
+  const bool last = flag;
+  if (last) __threadfence();
+  return last;
+}
+
+// The partials b0 .. b1 - 1 at `parts` summed in that order into this
+// thread's entries v (and z, thread 0's sum gZ'); read past L1.
+__device__ __forceinline__ void hb_sum(const float* parts, int b0, int b1, float (&v)[12], float& z) {
+  const int tid = threadIdx.x;
+  const float* p = parts + (long long)b0 * HB_PARTIAL + tid;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) v[j] = __ldcg(p + j * HB_NT);
+  if (tid == 0) z = __ldcg(p + 12 * HB_NT);
+#pragma unroll 8
+  for (int b = b0 + 1; b < b1; ++b) {  // eight partials' loads in flight at once
+    p += HB_PARTIAL;
+#pragma unroll
+    for (int j = 0; j < 12; ++j) v[j] += __ldcg(p + j * HB_NT);
+    if (tid == 0) z += __ldcg(p + 12 * HB_NT);
+  }
+}
+
+__device__ __forceinline__ void hb_put(float* part, const float (&v)[12], float z) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int j = 0; j < 12; ++j) part[j * HB_NT + tid] = v[j];
+  if (tid == 0) part[12 * HB_NT] = z;
+}
+
+// One halving level's backward.  P (2n, 2n), L (n, n) and ib (R, m, n)
+// from the forward; gP_out (2n, 2n), gi_out (R, m, 2n), gZ_out (R, m)
+// upstream; outputs gP (2n, 2n) symmetrised, ginfo (R, 2m, 2n), glogZ (R,
+// 2m).  Any grid; HB_FLOATS floats of dynamic shared memory.  Each product
+// is split over the 8 warps in tiles of 16 x 8 (hb_mma): a 64 x 32 product
+// (the tile's) as 16 rows and 16 columns a warp, a 32 x 64 (S1, Kt and the
+// adjoint's n x 2n) as 16 and 16, a 32 x 32 as 16 and 8.
+__global__ void __launch_bounds__(HB_NT, HB_CTAS) gl_halving_bwd_kernel(const HalvingBwdArgs a) {
+  extern __shared__ __align__(16) float hs[];
   __shared__ float zsum;
-  const int tid = threadIdx.x, n2 = 2 * n, ps = halving_partial_size(n);
-  for (int x = tid; x < ps; x += NT_HALVE) {
-    float acc = 0.f;
-    for (int b = 0; b < nb; ++b) acc += partial[(long long)b * ps + x];
-    if (x < n * n2) gK[x / n2][x % n2] = -acc;
-    else if (x < n * n2 + n * n) W[(x - n * n2) / n][(x - n * n2) % n] = -acc;
-    else zsum = acc;
-  }
-  for (int x = tid; x < n * n; x += NT_HALVE) Ls[x / n][x % n] = Lg[x];
-  for (int x = tid; x < n * n2; x += NT_HALVE) {
-    const int i = x / n2, j = x % n2;
-    Kt[i][j] = j < n ? P[j * n2 + n + i] : P[i * n2 + j];
-  }
-  for (int x = tid; x < n2 * n2; x += NT_HALVE) {
-    const int i = x / n2, j = x % n2;
-    G[i][j] = gP_out ? gP_out[x] + gP_out[j * n2 + i] : 0.f;
-  }
-  __syncthreads();
-  block_solve_lower(&Ls[0][0], NMAX + 1, &Kt[0][0], 2 * NMAX + 1, n, n2, NT_HALVE);
-  // gKt = -sum s gi'^T - Kt (gP' + gP'^T)
-  for (int x = tid; x < n * n2; x += NT_HALVE) {
-    const int k = x / n2, c = x % n2;
-    float acc = gK[k][c];
-    for (int j = 0; j < n2; ++j) acc = fmaf(-Kt[k][j], G[j][c], acc);
-    gK[k][c] = acc;
-  }
-  __syncthreads();
-  block_solve_lower_t(&Ls[0][0], NMAX + 1, &gK[0][0], 2 * NMAX + 1, n, n2, NT_HALVE);
-  // gL = tril(-sum g_ib s^T - gCt Kt^T) - sum gZ' / L_jj on the diagonal
-  for (int x = tid; x < n * n; x += NT_HALVE) {
-    const int i = x / n, j = x % n;
-    float acc = 0.f;
-    if (j <= i) {
-      acc = W[i][j];
-      for (int c = 0; c < n2; ++c) acc = fmaf(-gK[i][c], Kt[j][c], acc);
-      if (i == j) acc -= zsum / Ls[i][i];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, n = a.n, n2 = 2 * n;
+  const long long tiles = (a.pairs + HB_TP - 1) / HB_TP;
+  float* const Lt = hs + HB_LT;
+  float* const Linv = hs + HB_LINV;
+  float* const LinvT = hs + HB_LINVT;
+  float* const KtT = hs + HB_KTT;
+  float* const invd = hs + HB_INVD;
+  float* const G = hs + HB_G;
+  const int tm = 16 * (warp >> 1), tn = 16 * (warp & 1);  // a warp's tiles of a 64 x 32 product
+  const int wm = 16 * (warp >> 2), wn = 16 * (warp & 3);  // of a 32 x 64 product
+  const int vn = 8 * (warp & 3);                          // of a 32 x 32 product (rows wm)
+
+  // prologue: L^T and C = [B^T | B] (into the S buffer), read along rows
+  // of L and P (the transposes are made in shared memory) and stored
+  // before any other memory operation is queued; then gP' copied in
+  // (cp.async, zero-padded) for the shared adjoint, whichever CTA runs it,
+  // and the first tile's loads, both in flight through the prologue; L^-1
+  // by warp 0; Kt = L^-1 C, stored transposed
+  {
+    float lt[4], b[4];
+    const int u = tid >> 5, w = tid & 31;  // row u + 8 r, column w
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = u + 8 * r;
+      const bool in = i < n && w < n;
+      lt[r] = in ? a.L[i * n + w] : 0.f;      // L[i][w]
+      b[r] = in ? a.P[i * n2 + n + w] : 0.f;  // B[i][w]
     }
-    W[i][j] = acc;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = u + 8 * r;
+      Lt[w * HB_LS + i] = lt[r];
+      hs[HB_S + w * HB_GS + i] = b[r];       // C[:, :n] = B^T
+      hs[HB_S + i * HB_GS + 32 + w] = b[r];  // C[:, n:] = B
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int x = tid + e * HB_NT, r = x >> 6, c = x & 63, i = r & 31, j = c & 31;
+    if (a.gP_out && i < n && j < n) hb_copy4(G + r * HB_GS + c, a.gP_out + ((r >> 5) * n + i) * n2 + (c >> 5) * n + j);
+    else G[r * HB_GS + c] = 0.f;
+  }
+  float pre[HB_PRE];
+  long long tile = blockIdx.x;
+  if (tile < tiles) hb_fetch(a, tile, pre);
+  __syncthreads();
+  if (warp == 0) hb_tri_inverse(Lt, invd, n, lane, Linv, LinvT);
+  __syncthreads();
+  {
+    float kt[2][4];
+    hb_zero(kt);
+    hb_mma<2>(kt, 32, Linv + wm * HB_LS, HB_LS, 1, hs + HB_S + wn, HB_GS, 1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) KtT[(wn + hb_col(j, e)) * HB_LS + wm + hb_row(e)] = kt[j][e];
+  }
+
+  // the tiles
+  float s1[2][4], s2[1][4], zacc = 0.f;
+  hb_zero(s1);
+  hb_zero(s2);
+  for (; tile < tiles; tile += gridDim.x) {
+    hb_stage(pre, hs);
+    if (tile + gridDim.x < tiles) hb_fetch(a, tile + gridDim.x, pre);
+    const long long q0 = tile * HB_TP;
+    // the tile's rows that hold pairs, rounded up to 8 (the rest are zero):
+    // the warps past them skip the products, the sums stop at them
+    const int kv = (int)min((long long)HB_TP, (a.pairs - q0 + 7) & ~7LL);
+    __syncthreads();
+    if (tm < kv) {  // S = IB L^-T, GS = gZ' S - GI Kt^T
+      float sv[2][4], x[2][4];
+      hb_zero(sv);
+      hb_mma<2>(sv, 32, hs + HB_IB + tm * HB_LS, HB_LS, 1, LinvT + tn, HB_LS, 1);
+      hb_zero(x);
+      hb_mma<2>(x, 64, hs + HB_GI + tm * HB_GS, HB_GS, 1, KtT + tn, HB_LS, 1);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = tm + hb_row(e), i = tn + hb_col(j, e);
+          hs[HB_S + p * HB_LS + i] = sv[j][e];
+          hs[HB_GSB + p * HB_LS + i] = fmaf(hs[HB_GZ + p], sv[j][e], -x[j][e]);
+        }
+    }
+    __syncthreads();
+    if (tm < kv) {  // G_ib = GS L^-1
+      float gib[2][4];
+      hb_zero(gib);
+      hb_mma<2>(gib, 32, hs + HB_GSB + tm * HB_LS, HB_LS, 1, Linv + tn, HB_LS, 1);
+      hb_put_tiles(hs + HB_GIB + tm * HB_LS + tn, HB_LS, gib);
+    }
+    __syncthreads();
+    // S1 += S^T GI, S2 += G_ib^T S over the tile's pairs, and its outputs
+    hb_mma<2>(s1, kv, hs + HB_S + wm, 1, HB_LS, hs + HB_GI + wn, HB_GS, 1);
+    hb_mma<1>(s2, kv, hs + HB_GIB + wm, 1, HB_LS, hs + HB_S + vn, HB_LS, 1);
+    if (warp == 0) zacc += hs[HB_GZ + lane] + hs[HB_GZ + 32 + lane];
+    for (int x = tid; x < kv * 32; x += HB_NT) {  // a pair's rows 2q, 2q + 1: [gi'_a | g_ib | g_ib | gi'_b]
+      const int p = x >> 5, quarter = (x >> 3) & 3, k = (x & 7) << 2;
+      const long long q = q0 + p;
+      if (q < a.pairs && k < n) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            hs + (quarter == 0 ? HB_GI + p * HB_GS + k : quarter == 3 ? HB_GI + p * HB_GS + 32 + k
+                                                                      : HB_GIB + p * HB_LS + k));
+        float* out = a.ginfo + q * 2 * n2 + quarter * n + k;
+        if ((n & 3) == 0) {
+          *reinterpret_cast<float4*>(out) = v;
+        } else {
+          const float w[4] = {v.x, v.y, v.z, v.w};
+          for (int e = 0; e < 4 && k + e < n; ++e) out[e] = w[e];
+        }
+      }
+    }
+    if (tid < 2 * HB_TP && q0 + (tid >> 1) < a.pairs) a.glogZ[2 * q0 + tid] = hs[HB_GZ + (tid >> 1)];
+    __syncthreads();
+  }
+
+  // the sums over the CTAs, in block order
+  hb_copy_wait();
+  float v[12];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[e] = s1[0][e];
+    v[4 + e] = s1[1][e];
+    v[8 + e] = s2[0][e];
+  }
+  float z = warp == 0 ? warp_sum(zacc) : 0.f;
+  if (gridDim.x > 1) {
+    const int g = blockIdx.x / a.group, b0 = g * a.group, b1 = min(b0 + a.group, (int)gridDim.x);
+    hb_put(a.parts + (long long)blockIdx.x * HB_PARTIAL, v, z);
+    if (!hb_last(a.counters + g, b1 - b0)) return;
+    hb_sum(a.parts, b0, b1, v, z);
+    if (a.groups > 1) {
+      hb_put(a.sums + (long long)g * HB_PARTIAL, v, z);
+      if (!hb_last(a.counters + a.groups, a.groups)) return;
+      hb_sum(a.sums, 0, a.groups, v, z);
+    }
+  }
+
+  // the shared adjoint, by the CTA that ended last; S1 and S2 stay in the
+  // registers of the warps whose tiles of gKt and gL they start
+  float* const gCt = hs + HB_GCT;
+  float* const gKt = hs + HB_GKT;
+  float* const gL = hs + HB_GL;  // then W
+  float* const Sm = hs + HB_SM;
+  float* const T1 = hs + HB_T1;
+  __syncthreads();  // every thread's copies of gP' in place
+  if (tid == 0) zsum = z;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {  // G = gP' + gP'^T, each pair of entries by one thread
+    const int x = tid + e * HB_NT, r = x >> 6, c = x & 63;
+    if (r <= c) G[r * HB_GS + c] = G[c * HB_GS + r] = G[r * HB_GS + c] + G[c * HB_GS + r];
   }
   __syncthreads();
-  block_cholesky_adjoint(&Ls[0][0], NMAX + 1, &W[0][0], &Y[0][0], NMAX + 1, n, NT_HALVE);
-  // gB = (gCt[:, :n]^T + gCt[:, n:]) / 2 into both off-diagonal blocks
-  for (int x = tid; x < n2 * n2; x += NT_HALVE) {
-    const int i = x / n2, j = x % n2;
-    float v;
-    if (i < n && j < n) v = 0.5f * G[i][j] + W[i][j];
-    else if (i >= n && j >= n) v = 0.5f * G[i][j] + W[i - n][j - n];
-    else if (i < n) v = 0.5f * (gK[j - n][i] + gK[i][j]);
-    else v = 0.5f * (gK[i - n][j] + gK[j][i]);
-    gP[x] = v;
+  {  // gKt = -(S1 + Kt G)
+    float f[2][4] = {{v[0], v[1], v[2], v[3]}, {v[4], v[5], v[6], v[7]}};
+    hb_mma<2>(f, 64, KtT + wm, 1, HB_LS, G + wn, HB_GS, 1);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) gKt[(wm + hb_row(e)) * HB_GS + wn + hb_col(j, e)] = -f[j][e];
   }
+  __syncthreads();
+  {  // gCt = L^-T gKt
+    float f[2][4];
+    hb_zero(f);
+    hb_mma<2>(f, 32, Linv + wm, 1, HB_LS, gKt + wn, HB_GS, 1);
+    hb_put_tiles(gCt + wm * HB_GS + wn, HB_GS, f);
+  }
+  __syncthreads();
+  {  // gL = tril(-(S2 + gCt Kt^T)) - sum gZ' / L_jj on the diagonal
+    float f[1][4] = {{v[8], v[9], v[10], v[11]}};
+    hb_mma<1>(f, 64, gCt + wm * HB_GS, HB_GS, 1, KtT + vn, HB_LS, 1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = wm + hb_row(e), j = vn + hb_col(0, e);
+      gL[i * HB_LS + j] = (j <= i && i < n) ? -f[0][e] - (i == j ? zsum * invd[i] : 0.f) : 0.f;
+    }
+  }
+  __syncthreads();
+  {  // the Cholesky adjoint: Sm = the symmetric matrix of tril(L^T gL), halved
+    float f[1][4];
+    hb_zero(f);
+    hb_mma<1>(f, 32, Lt + wm * HB_LS, HB_LS, 1, gL + vn, HB_LS, 1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = wm + hb_row(e), j = vn + hb_col(0, e);
+      if (j <= i) Sm[i * HB_LS + j] = Sm[j * HB_LS + i] = 0.5f * f[0][e];
+    }
+  }
+  __syncthreads();
+  {  // T1 = Sm L^-1
+    float f[1][4];
+    hb_zero(f);
+    hb_mma<1>(f, 32, Sm + wm * HB_LS, HB_LS, 1, Linv + vn, HB_LS, 1);
+    hb_put_tiles(T1 + wm * HB_LS + vn, HB_LS, f);
+  }
+  __syncthreads();
+  {  // W = L^-T T1, over gL in rows of 33 floats (its transpose is read too)
+    float f[1][4];
+    hb_zero(f);
+    hb_mma<1>(f, 32, Linv + wm, 1, HB_LS, T1 + vn, HB_LS, 1);
+    hb_put_tiles(gL + wm * 33 + vn, 33, f);
+  }
+  __syncthreads();
+  // gP: the diagonal blocks sym(gP') + (W + W^T) / 2, the off-diagonal
+  // (gCt[:, :n]^T + gCt[:, n:]) / 2 and its transpose
+  const float* W = gL;
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int x = tid + e * HB_NT, r = x >> 6, c = x & 63, i = r & 31, j = c & 31, hi = r >> 5, hj = c >> 5;
+    if (i < n && j < n) {
+      float val;
+      if (hi == hj) val = 0.5f * G[r * HB_GS + c] + 0.5f * (W[i * 33 + j] + W[j * 33 + i]);
+      else if (!hi) val = 0.5f * (gCt[j * HB_GS + i] + gCt[i * HB_GS + 32 + j]);
+      else val = 0.5f * (gCt[i * HB_GS + j] + gCt[j * HB_GS + 32 + i]);
+      a.gP[(hi * n + i) * n2 + hj * n + j] = val;
+    }
+  }
+}
+
+static int halving_bwd_ready() {
+  static bool ready = false;
+  if (!ready) {
+    const int err = (int)cudaFuncSetAttribute(gl_halving_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              HB_FLOATS * (int)sizeof(float));
+    if (err) return err;
+    ready = true;
+  }
+  return 0;
 }
 
 // --------------------------------------------------------- K4b backward --
@@ -1194,13 +1548,27 @@ int gl_mids(const float* cur, int m_cur, const float* L, long long L_stride, con
 }
 
 int gl_halving_bwd(const float* P, const float* L, const float* ib, const float* gP_out, const float* gi_out,
-                   const float* gZ_out, int R, int m, int n, int blocks, float* partial, float* gP, float* ginfo,
-                   float* glogZ, cudaStream_t st) {
-  gl_halving_bwd_pairs_kernel<<<blocks, NT_HALVE, 0, st>>>(P, L, ib, gi_out, gZ_out, R, m, n, ginfo, glogZ, partial);
-  const int err = (int)cudaGetLastError();
+                   const float* gZ_out, int R, int m, int n, int blocks, int group, int groups, float* parts,
+                   float* sums, int* counters, float* gP, float* ginfo, float* glogZ, cudaStream_t st) {
+  int err = halving_bwd_ready();
   if (err) return err;
-  gl_halving_bwd_shared_kernel<<<1, NT_HALVE, 0, st>>>(P, L, gP_out, partial, blocks, n, gP);
+  if (blocks > 1) {  // the tickets' counters
+    err = (int)cudaMemsetAsync(counters, 0, sizeof(int) * (groups + 1), st);
+    if (err) return err;
+  }
+  const HalvingBwdArgs a = {P, L, ib, gP_out, gi_out, gZ_out, (long long)R * m, n, group, groups,
+                            parts, sums, counters, gP, ginfo, glogZ};
+  gl_halving_bwd_kernel<<<blocks, HB_NT, HB_FLOATS * sizeof(float), st>>>(a);
   return (int)cudaGetLastError();
+}
+
+// K4a backward's pairs a tile, floats a partial and CTAs an SM, for the
+// wrapper's plan.
+int gl_halving_bwd_shape(int* tile, int* partial, int* ctas) {
+  *tile = HB_TP;
+  *partial = HB_PARTIAL;
+  *ctas = HB_CTAS;
+  return 0;
 }
 
 int gl_contract_bwd(const float* L_tape, const float* Pmk_tape, const float* im_tape, const float* gP_out,

@@ -33,14 +33,16 @@ the kernel launches or the call raises.
 Training: ``halving_level`` and ``contract_pairs`` each run through one
 ``torch.autograd.Function`` on every device, whose backward is the plain
 adjoint (``halving_level_bwd_plain``, ``contract_pairs_bwd_plain``, written
-out, not autograd) on the CPU and the backward kernels on the card: K4a's
-in two launches a level (the pairs, with block partial sums of the
-adjoints of the shared Kt and L in a fixed order, then one CTA that sums
-them and carries the shared factorisation back to P), K4b's in one.  The
-forward keeps the tape (K4a's L and ib, K4b's L, P_mk and i_m) when a
-gradient is wanted and the backward recomputes the rest from it.  The
-taped outputs are not differentiated: a gradient that reaches one of them
-raises (their adjoint runs through K4c's backward, ROADMAP.md Queue 2).
+out, not autograd) on the CPU and the backward kernels on the card, one
+launch a level each.  K4a's CTAs walk tiles of pairs and write partial
+sums of the adjoints of the shared Kt and L; the last CTA to finish adds
+them in a fixed order and carries the shared factorisation back to P
+(``halving_bwd_plan`` sizes the grid, the order of the sums and their
+buffer).  The forward keeps the tape (K4a's L and ib, K4b's L, P_mk and
+i_m) when a gradient is wanted and the backward recomputes the rest from
+it.  The taped outputs are not differentiated: a gradient that reaches one
+of them raises (their adjoint runs through K4c's backward, ROADMAP.md
+Queue 2).
 K4c's backward raises on the card, as does K5a's and K5b's (no path of the
 JAX package trains a gamma-Gaussian model yet: ROADMAP.md Queue 2); on the
 CPU the K5 plain versions differentiate through autograd.
@@ -58,13 +60,13 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from . import cuda_build, linalg_small
 
-# Launches of the K4 and K5 kernels, counted by the wrappers (``halving_bwd``
-# once a level for its two kernels).
+# Launches of the K4 and K5 kernels, counted by the wrappers.
 launches = {"halving": 0, "contract": 0, "mids": 0, "halving_bwd": 0, "contract_bwd": 0, "gamma_halving": 0,
             "gamma_contract": 0}
 MAX_DIM = 32  # the largest state dim n the kernels take (NMAX of the source)
@@ -294,14 +296,16 @@ def _lib():
     lib.gl_halving.argtypes = [_P, _P, _ll, _P, _ll, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
     lib.gl_contract.argtypes = [_P, _P, _P, _LAYOUT, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P, _P]
     lib.gl_mids.argtypes = [_P, _c, _P, _ll, _P, _ll, _P, _P, _c, _c, _c, _c, _c, _P, _P]
-    lib.gl_halving_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _P, _P, _P, _P, _P]
+    lib.gl_halving_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P, _P]
+    lib.gl_halving_bwd_shape.argtypes = [ctypes.POINTER(_c)] * 3
     lib.gl_contract_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _P, _P, _P, _P]
     lib.gl_gamma_halving.argtypes = [_P, _P, _ll, _P, _ll, _P, _ll, _P, _ll, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P,
                                      _P]
     lib.gl_gamma_contract.argtypes = [_P, _P, _P, _P, _P, _LAYOUT, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
     lib.gl_contract_ctas_per_sm.argtypes = [_c, _c, ctypes.POINTER(_c)]
     for fn in (lib.gl_halving, lib.gl_contract, lib.gl_mids, lib.gl_halving_bwd, lib.gl_contract_bwd,
-               lib.gl_gamma_halving, lib.gl_gamma_contract, lib.gl_contract_ctas_per_sm):
+               lib.gl_gamma_halving, lib.gl_gamma_contract, lib.gl_contract_ctas_per_sm,
+               lib.gl_halving_bwd_shape):
         fn.restype = ctypes.c_int
     return lib
 
@@ -546,19 +550,78 @@ def _grads(*grads):
     return [None if g is None else g.contiguous() for g in grads]
 
 
+class HalvingBwdShape(NamedTuple):
+    """What K4a's backward kernel fixes when it is compiled: the pairs of a
+    ``tile``, the floats of a CTA's ``partial`` sum, and the ``ctas_per_sm``
+    of its launch bound."""
+
+    tile: int
+    partial: int
+    ctas_per_sm: int
+
+
+@functools.cache
+def _halving_bwd_shape():
+    tile, partial, ctas = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(_lib().gl_halving_bwd_shape(ctypes.byref(tile), ctypes.byref(partial), ctypes.byref(ctas)),
+              "halving_level backward shape")
+    return HalvingBwdShape(tile.value, partial.value, ctas.value)
+
+
+class HalvingBwdPlan(NamedTuple):
+    """How K4a's backward launches at one level: ``tiles`` of pairs walked
+    by ``blocks`` CTAs; the CTAs' partial sums added by groups of ``group``
+    CTAs in block order (``groups`` of them), then the groups' in order.
+    One buffer of ``scratch`` floats holds the partials from 0, the groups'
+    sums (where there is more than one group) from ``sums_at`` and the
+    ``groups + 1`` int counters of the tickets from ``counters_at``; one
+    CTA needs none of them (all three 0)."""
+
+    tiles: int
+    blocks: int
+    group: int
+    groups: int
+    sums_at: int
+    counters_at: int
+    scratch: int
+
+
+def halving_bwd_plan(pairs, sms, shape):
+    """K4a backward's launch at a level of ``pairs`` pairs on a card of
+    ``sms`` SMs, for a kernel of ``shape`` (a ``HalvingBwdShape``): at most
+    one CTA a tile and ``shape.ctas_per_sm`` an SM; groups of about
+    sqrt(blocks) CTAs, at least 16, so that the CTA that sums a group's
+    partials and the one that sums the groups' each read few."""
+    tiles = -(-pairs // shape.tile)
+    blocks = max(1, min(tiles, shape.ctas_per_sm * sms))
+    group = max(16, math.isqrt(blocks - 1) + 1)
+    groups = -(-blocks // group)
+    if blocks == 1:
+        return HalvingBwdPlan(tiles, blocks, group, groups, 0, 0, 0)
+    sums_at = blocks * shape.partial
+    counters_at = sums_at + (groups * shape.partial if groups > 1 else 0)
+    return HalvingBwdPlan(tiles, blocks, group, groups, sums_at, counters_at, counters_at + groups + 1)
+
+
 def _halving_bwd_cuda(P, L, ib, g_P, g_info, g_logZ):
     R, m, n = ib.shape
     n2 = 2 * n
     g_P, g_info, g_logZ = _grads(g_P, g_info, g_logZ)
     _check_cuda("halving_level backward", n, P, L, ib, *(g for g in (g_P, g_info, g_logZ) if g is not None))
-    P = P.contiguous()
+    P, L, ib = P.contiguous(), L.contiguous(), ib.contiguous()
     new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
-    blocks = max(1, min(-(-R * m // 32), 2 * _sms(P.device)))
-    partial = new((blocks, 3 * n * n + 1))
+    plan = halving_bwd_plan(R * m, _sms(P.device), _halving_bwd_shape())
+    parts = sums = counters = None
+    if plan.scratch:  # this call's own buffer: no two launches share partials or counters
+        scratch = new((plan.scratch,))
+        parts, counters = scratch.data_ptr(), scratch[plan.counters_at:].data_ptr()
+        if plan.groups > 1:
+            sums = scratch[plan.sums_at:].data_ptr()
     gP, g_info_in, g_logZ_in = new((n2, n2)), new((R, 2 * m, n2)), new((R, 2 * m))
     err = _lib().gl_halving_bwd(
-        P.data_ptr(), L.data_ptr(), ib.data_ptr(), _ptr(g_P), _ptr(g_info), _ptr(g_logZ), R, m, n, blocks,
-        partial.data_ptr(), gP.data_ptr(), g_info_in.data_ptr(), g_logZ_in.data_ptr(), _stream(P),
+        P.data_ptr(), L.data_ptr(), ib.data_ptr(), _ptr(g_P), _ptr(g_info), _ptr(g_logZ), R, m, n, plan.blocks,
+        plan.group, plan.groups, parts, sums, counters, gP.data_ptr(), g_info_in.data_ptr(), g_logZ_in.data_ptr(),
+        _stream(P),
     )
     _raise_on(err, "halving_level backward")
     launches["halving_bwd"] += 1

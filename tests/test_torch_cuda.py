@@ -20,7 +20,9 @@ against each other as each against the plain version.  K2's cases run on
 the route the wrapper chooses, which they check, unless a test names one.
 K4, the Gaussian halving levels: each kernel within rtol 1e-4 plus atol
 1e-4 times the largest entry of its plain version's output, forward and
-backward (the P gradients symmetrised); GaussianHMM on the card against
+backward (the P gradients symmetrised), and K4a's backward also against
+the float64 plain version within 1e-4 times the largest entry of each
+output; GaussianHMM on the card against
 the port's float64 CPU run, log_prob rtol 1e-4 with atol 1e-3, the
 filter's mean and the posterior mean rtol and atol 1e-3; a training step's
 loss rtol 1e-5 and gradients within 1e-3 times their largest entry.  K5,
@@ -592,10 +594,22 @@ def _sym(g):
     return 0.5 * (g + g.transpose(-1, -2))
 
 
-@pytest.mark.parametrize("R,m,n", [(8, 5000, 32), (1, 7, 16), (8, 3, 1), (1, 1, 32), (8, 9, 16)])
+# K4a backward's cases: (R, m, n).  The first five date from its first
+# kernels; the rest cover n in {1, 2, 5, 16, 17, 31, 32} and pair counts
+# across its tiles of 64 pairs, its grid of one CTA an SM (132 on an H100)
+# and its groups of 16 or more CTAs: 1, 8, 64, 65, 72, 1088 (17 CTAs, two
+# groups), 2496, 16897 (265 tiles: the first CTA takes three, the last of
+# them one pair) and 40000 pairs.
+HALVING_BWD_CASES = [(8, 5000, 32), (1, 7, 16), (8, 3, 1), (1, 1, 32), (8, 9, 16),
+                     (1, 1, 2), (1, 8, 5), (1, 64, 32), (1, 65, 2), (8, 9, 17), (1, 1088, 32), (8, 312, 31),
+                     (1, 16897, 5), (4, 10000, 16), (8, 5000, 1)]
+
+
+@pytest.mark.parametrize("R,m,n", HALVING_BWD_CASES)
 def test_halving_backward_kernel_matches_plain(cuda, R, m, n):
-    """K4a's backward kernels against the plain backward at the same tape and
-    upstream gradients, with and without each upstream gradient."""
+    """K4a's backward kernel against the plain backward at the same tape and
+    upstream gradients: all three, then each of them None in turn, then only
+    gP'."""
     from pyro_tpu_torch.ops import gaussian_levels as gl
 
     gen = torch.Generator(device="cuda").manual_seed(m + n)
@@ -606,7 +620,8 @@ def test_halving_backward_kernel_matches_plain(cuda, R, m, n):
     g_P = torch.randn(2 * n, 2 * n, generator=gen, device=cuda)
     g_info = torch.randn(R, m, 2 * n, generator=gen, device=cuda)
     g_logZ = torch.randn(R, m, generator=gen, device=cuda)
-    for grads in ((g_P, g_info, g_logZ), (None, g_info, g_logZ), (g_P, None, None)):
+    for grads in ((g_P, g_info, g_logZ), (None, g_info, g_logZ), (g_P, None, g_logZ), (g_P, g_info, None),
+                  (g_P, None, None)):
         before = gl.launches["halving_bwd"]
         out_k = gl._halving_bwd_cuda(P, L, ib, *grads)
         out_p = gl.halving_level_bwd_plain(P, L, ib, *grads)
@@ -615,6 +630,28 @@ def test_halving_backward_kernel_matches_plain(cuda, R, m, n):
         _assert_near(_sym(out_k[0]), _sym(out_p[0]))
         for a, b in zip(out_k[1:], out_p[1:]):
             _assert_near(a, b)
+
+
+def test_halving_backward_against_float64(cuda):
+    """K4a's backward in float32 against the plain backward in float64 on the
+    same inputs, at the main path's first level (R=8, 5000 pairs a row,
+    n=32): within 1e-4 times the largest entry of each float64 output, the
+    float32 bar the kernel is held to against its plain version (its L^-1
+    and its sums over 40000 pairs round like float32, about 1e-6 here)."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    R, m, n = 8, 5000, 32
+    gen = torch.Generator(device="cuda").manual_seed(64)
+    P = _spd(gen, (), 2 * n, cuda)
+    _, _, _, L, ib = gl.halving_level(P, torch.randn(R, 2 * m, 2 * n, generator=gen, device=cuda),
+                                      torch.randn(R, 2 * m, generator=gen, device=cuda), tape=True)
+    grads = (torch.randn(2 * n, 2 * n, generator=gen, device=cuda),
+             torch.randn(R, m, 2 * n, generator=gen, device=cuda), torch.randn(R, m, generator=gen, device=cuda))
+    out_k = gl._halving_bwd_cuda(P, L, ib, *grads)
+    out_64 = gl.halving_level_bwd_plain(P.double(), L.double(), ib.double(), *(g.double() for g in grads))
+    for a, b in zip((_sym(out_k[0]), *out_k[1:]), (_sym(out_64[0]), *out_64[1:])):
+        assert bool(a.isfinite().all())
+        assert float((a.double() - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("R,t,n", [(1, 4001, 16), (8, 13, 32), (1, 7, 1), (8, 9, 16), (1, 2, 32)])
@@ -659,7 +696,8 @@ def test_backward_kernels_reject_a_state_dim_above_32(cuda):
 
 def test_halving_backward_is_deterministic(cuda):
     """The reductions over pairs run in a fixed order: two runs give the
-    same bits."""
+    same bits, back to back on one stream and at once on two streams (each
+    call has its own partials and counters)."""
     from pyro_tpu_torch.ops import gaussian_levels as gl
 
     R, m, n = 8, 5000, 32
@@ -673,6 +711,17 @@ def test_halving_backward_is_deterministic(cuda):
     second = gl._halving_bwd_cuda(P, L, ib, *grads)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    for _ in range(3):  # launches on the two streams interleaved
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(gl._halving_bwd_cuda(P, L, ib, *grads))
+    torch.cuda.synchronize()
+    for out in outs:
+        assert all(torch.equal(a, b) for a, b in zip(first, out))
 
 
 @pytest.mark.parametrize("path", ["lgssm", "homogeneous"])
