@@ -104,23 +104,28 @@ Phases (any failure exits non-zero):
      losses; the K4 forward and backward kernels launched in every step;
      the set-up (first step) and steady step times, and one profiled step
      with its device busy share and top device operations;
-  12. K2g, the time-varying Markov scan (``markov_scan.cu``'s ``mstv_*``
-     kernels), forward and the gradients of all its inputs against its
-     plain version in float64 on the card (and in float32, printed): at
+  12. K2g, the time-varying Markov scan (``markov_scan.cu``: the cluster
+     route's ``mstvc_*`` kernels and the streaming route's ``mstv_*``),
+     forward and the gradients of all its inputs against its plain version
+     in float64 on the card (and in float32, printed), on both routes: at
      model_1vt's shape (B=32, T'=127, S=256, A_t shared, emissions about
-     -35 a step), one A_t per row (B=8, T'=63, S=64), odd S (7 with L,
-     257 with one A_t per row), T'=1 with L, and on five seeds of data with
-     -inf entries, columns no state reaches and -inf states of alpha0 (-inf
-     values exactly where float64 has them, no NaN); the backward twice,
-     bitwise equal; forward and backward timed in turns with the plain
-     version beside the bound;
+     -35 a step; the cluster route the wrapper's choice there), one A_t
+     per row (B=8, T'=63, S=64), odd S (7 with L, 257 with one A_t per
+     row), T'=1 with L, on five seeds of data with -inf entries, columns no
+     state reaches and -inf states of alpha0 (-inf values exactly where
+     float64 has them, no NaN), and on data where hs and A_t peak at
+     different l (the cluster route's factored sum 0 at half of the
+     columns, recomputed exactly); the backward twice on each route,
+     bitwise equal; forward and backward of both routes and the plain
+     version timed in turns beside the bound;
   13. slice 8 at full width: model_1vt of ``examples/hmm.py`` (model_1v
      with a transition matrix per step, ``probs_x`` (128, 256, 256)) at
      ``32.128.51.256`` with AutoDelta, ``TraceEnum_ELBO(max_plate_nesting=3)``
      and Adam: the first step's loss and gradients through K2g against the
      plain loop in float64 on the card; 5 SVI steps, each with exactly one
-     K2g launch each way and no K2 or K1 launch, finite falling losses,
-     set-up and steady ms, one profiled step;
+     K2g launch each way, on the cluster route, and no K2 or K1 launch,
+     finite falling losses, set-up and steady ms, one profiled step with
+     K2g's device ms;
   14. the ten chain cases of ``tests/test_vectorized_markov.py``
      (``examples/vectorized_markov.py``) on the card through the route each
      takes (K2, K2g, or the pairwise fallback's K1 rounds), loss and
@@ -160,8 +165,8 @@ Phases (any failure exits non-zero):
      t=8000 (the chain rule in float64);
   17. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
      backward on each route, K4a-c, K4a and K4b backward, K2g forward and
-     backward, K5a and K5b), the card's name and power limit, then the
-     result line.
+     backward on each route, K5a and K5b), the card's name and power
+     limit, then the result line.
 
 Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
 atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS, and its
@@ -1707,20 +1712,55 @@ def tv_inputs(torch, gen, B, T, S, per_row=False, with_L=False, unreachable=Fals
     return [alpha0, A, R, L], randn(B, S)
 
 
-def check_k2g(torch, ms, inputs, g, label):
+def underflow_inputs(torch, gen, B, T, S, per_row=False):
+    """alpha0, A_t and R on which K2g's factored sum is 0 at the even columns
+    of every step while the true value is finite: hs peaks at l = 0 (R keeps
+    state 0 about 200 above the others) and A_t[0, r] is about -200 at the
+    even columns, where the other l have log-weights of order 1."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    A = randn(*((T, B, S, S) if per_row else (T, S, S))) * 2.0
+    A[..., 0, 0::2] = randn(*A[..., 0, 0::2].shape) - 200.0
+    R = randn(T, B, S)
+    R[..., 1::2] -= 400.0
+    R[..., 2::2] -= 200.0
+    alpha0 = randn(B, S) - 200.0
+    alpha0[:, 0] = 0.0
+    return [alpha0, A, R, None], randn(B, S)
+
+
+def tv_plan(ms, inputs, route):
+    """The plan that runs K2g on ``route``: None where the wrapper chooses
+    that route, else the streaming route forced (the cluster route is never
+    forced: a shape it cannot take fails the check)."""
+    alpha0, A = inputs[0], inputs[1]
+    B, S = alpha0.shape
+    chosen = ms._device_plan_tv(B, S, 1 if A.ndim == 3 else B, alpha0.device)
+    if chosen.route == route:
+        return None
+    check(route == "stream", f"K2g at B={B}, S={S}: the wrapper chose {chosen}, not the {route} route")
+    return ms.ScanPlan("stream")
+
+
+def check_k2g(torch, ms, inputs, g, label, route):
     """K2g forward and the gradients of all its inputs against the plain
     version in float64 on the card (-inf exactly where it is -inf, finite
     values within atol 1e-4 + rtol 1e-6, each gradient finite and within
     K2G_TOL * max|grad|), and against the plain version in float32 (printed);
-    one launch each way.  Returns the largest forward and gradient
-    distances to the float32 plain version."""
-    n = dict(ms.tv_launches)
+    one launch each way, on ``route``.  Returns the largest forward and
+    gradient distances to the float32 plain version."""
+    plan = tv_plan(ms, inputs, route)
+    label = f"{label} [{route}]"
+    n, on_route = dict(ms.tv_launches), dict(ms.tv_route_launches[route])
     leaves = [None if t is None else t.detach().clone().requires_grad_() for t in inputs]
-    out = ms.markov_scan_tv(*leaves)
+    out = ms.markov_scan_tv(*leaves, plan=plan)
     (out * g).sum().backward()
     torch.cuda.synchronize()
     check(ms.tv_launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1},
           f"{label}: expected one K2g launch each way, got {ms.tv_launches} after {n}")
+    check(ms.tv_route_launches[route] == {"forward": on_route["forward"] + 1, "backward": on_route["backward"] + 1},
+          f"{label}: expected one launch each way on the {route} route, got {ms.tv_route_launches}")
     runs = {}
     for dtype in (torch.float32, torch.float64):
         lv = [None if t is None else t.detach().to(dtype).requires_grad_() for t in inputs]
@@ -1767,44 +1807,62 @@ def k2g_bounds(steps, B, S, nA):
 
 
 def phase_k2g(torch, ms):
-    print("phase 12: K2g, the time-varying Markov scan, against its plain version (float64 and float32) on the card")
+    print("phase 12: K2g, the time-varying Markov scan, against its plain version (float64 and float32) on the card, "
+          "both routes")
     gen = torch.Generator(device="cuda").manual_seed(12)
     steps = T - 1
     main, g = tv_inputs(torch, gen, B, steps, S, emission=EMISSION)
-    fwd_err, bwd_err = check_k2g(torch, ms, main, g, f"model_1vt's shape B={B}, T'={steps}, S={S}, A_t shared")
-    for args, label in (
+    shape = f"model_1vt's shape B={B}, T'={steps}, S={S}, A_t shared"
+    errs = {route: check_k2g(torch, ms, main, g, shape, route) for route in ("cluster", "stream")}
+    cases = [(tv_inputs(torch, gen, *args), label) for args, label in (
         ((8, 63, 64, True), "one A_t per row, B=8, T'=63, S=64"),
         ((4, 9, 7, False, True), "odd S=7 with L, B=4, T'=9"),
         ((2, 5, 257, True), "odd S=257, one A_t per row, B=2, T'=5"),
         ((5, 1, 33, False, True), "T'=1 with L, B=5, S=33"),
-    ):
-        check_k2g(torch, ms, *tv_inputs(torch, gen, *args), label)
+    )]
     for seed in range(K2G_SEEDS):
         gs = torch.Generator(device="cuda").manual_seed(1200 + seed)
-        check_k2g(torch, ms, *tv_inputs(torch, gs, B, steps, S, unreachable=True, emission=EMISSION),
-                  f"seed {1200 + seed}: B={B}, T'={steps}, S={S}, unreachable states and -inf columns")
-    # the backward twice on the same inputs: bitwise equal
+        cases.append((tv_inputs(torch, gs, B, steps, S, unreachable=True, emission=EMISSION),
+                      f"seed {1200 + seed}: B={B}, T'={steps}, S={S}, unreachable states and -inf columns"))
+    for per_row, (b_, t_, s_) in ((False, (B, 31, S)), (True, (4, 9, 64))):
+        cases.append((underflow_inputs(torch, gen, b_, t_, s_, per_row),
+                      f"underflow: hs and A_t peak at different l, B={b_}, T'={t_}, S={s_}"
+                      f"{', one A_t per row' if per_row else ''}"))
+    for (inputs, g_), label in cases:
+        for route in ("cluster", "stream"):
+            check_k2g(torch, ms, inputs, g_, label, route)
+    # the backward twice on the same inputs, on each route: bitwise equal
     alpha0, A, R, _ = main
+    saved = {}
     with torch.no_grad():
-        _, hs, os = ms._tv_forward_cuda(alpha0, A, R)
-    again = [ms._tv_backward_cuda(A, None, hs, os, g), ms._tv_backward_cuda(A, None, hs, os, g)]
-    check(all(torch.equal(a, b) for a, b in zip(*again) if a is not None), "K2g backward: two runs differ")
-    # timing at model_1vt's shape, kernel and plain in turns
+        for route in ("cluster", "stream"):
+            saved[route] = ms._tv_forward_cuda(alpha0, A, R, plan=tv_plan(ms, main, route))[1]
+            check(saved[route][0].route == route, f"K2g: {saved[route][0]} is not the {route} route")
+    for route, sv in saved.items():
+        again = [ms._tv_backward_cuda(A, None, sv, g), ms._tv_backward_cuda(A, None, sv, g)]
+        check(all(torch.equal(a, b) for a, b in zip(*again) if a is not None),
+              f"K2g backward [{route}]: two runs differ")
+    # timing at model_1vt's shape: both routes and the plain version in turns
+    stream = ms.ScanPlan("stream")
     with torch.no_grad():
-        fwd = alternate({"kernel": lambda: ms._tv_forward_cuda(alpha0, A, R),
+        fwd = alternate({"cluster": lambda: ms._tv_forward_cuda(alpha0, A, R),
+                         "stream": lambda: ms._tv_forward_cuda(alpha0, A, R, plan=stream),
                          "plain": lambda: ms.markov_scan_tv_plain(alpha0, A, R)}, iters=5)
     leaves = [t.detach().clone().requires_grad_() for t in (alpha0, A, R)]
     out_p = ms.markov_scan_tv_plain(*leaves)
-    bwd = alternate({"kernel": lambda: ms._tv_backward_cuda(A, None, hs, os, g),
+    bwd = alternate({"cluster": lambda: ms._tv_backward_cuda(A, None, saved["cluster"], g),
+                     "stream": lambda: ms._tv_backward_cuda(A, None, saved["stream"], g),
                      "plain": lambda: torch.autograd.grad(out_p, leaves, g, retain_graph=True)}, iters=5)
     fb, bb = k2g_bounds(steps, B, S, 1)
-    print(f"  two runs of the backward bitwise equal; timing at B={B}, T'={steps}, S={S} f32, A_t shared "
-          f"({4 * steps * S * S / 1e6:.1f} MB):")
+    print(f"  two runs of the backward bitwise equal on each route; timing at B={B}, T'={steps}, S={S} f32, "
+          f"A_t shared ({4 * steps * S * S / 1e6:.1f} MB), plan {saved['cluster'][0]}:")
     for name, t, b in (("forward ", fwd, fb), ("backward", bwd, bb)):
-        print(f"    {name} kernel {t['kernel']:.4f} ms ({1e3 * t['kernel'] / steps:.2f} us/step)  "
-              f"plain {t['plain']:.4f} ms  bound {b[0]:.4f} ms ({b[1]})")
-    return {"forward": {"max_abs_err": fwd_err, "ms": fwd["kernel"], "plain_ms": fwd["plain"], "bound": fb},
-            "backward": {"max_abs_err": bwd_err, "ms": bwd["kernel"], "plain_ms": bwd["plain"], "bound": bb}}
+        print(f"    {name} cluster {t['cluster']:.4f} ms ({1e3 * t['cluster'] / steps:.2f} us/step)  "
+              f"stream {t['stream']:.4f} ms ({1e3 * t['stream'] / steps:.2f} us/step)  plain {t['plain']:.4f} ms  "
+              f"bound {b[0]:.4f} ms ({b[1]})")
+    return {f"{route}_{way}": {"max_abs_err": errs[route][i], "ms": t[route], "plain_ms": t["plain"], "bound": b}
+            for route in ("cluster", "stream") for i, (way, t, b) in enumerate((("forward", fwd, fb),
+                                                                                 ("backward", bwd, bb)))}
 
 
 @contextlib.contextmanager
@@ -1885,22 +1943,29 @@ def phase_tv_slice(torch, lm, ms):
         losses.append(svi.step(sequences, lengths))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        per_step.append((dict(ms.tv_launches), dict(ms.launches), dict(lm.launches)))
+        per_step.append((dict(ms.tv_route_launches["cluster"]), dict(ms.tv_launches), dict(ms.launches),
+                         dict(lm.launches)))
     steady = sum(step_ms[1:]) / (TV_STEPS - 1)
     print(f"  losses {losses}")
     print(f"  set-up (first step) {step_ms[0]:.3f} ms, steady {steady:.3f} ms a step ({[round(t, 3) for t in step_ms[1:]]})")
-    print(f"  launches a step: K2g {per_step[0][0]}, K2 {per_step[0][1]}, K1 {per_step[0][2]}")
+    print(f"  launches a step: K2g {per_step[0][1]} (cluster route {per_step[0][0]}), K2 {per_step[0][2]}, "
+          f"K1 {per_step[0][3]}")
     check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0], f"model_1vt: losses {losses}")
-    for tv, k2, k1 in per_step:
-        check(tv == {"forward": 1, "backward": 1}, f"model_1vt: expected one K2g launch each way a step, got {tv}")
+    for cluster, tv, k2, k1 in per_step:
+        check(tv == {"forward": 1, "backward": 1} and cluster == tv,
+              f"model_1vt: expected one K2g launch each way a step on the cluster route, got {tv} ({cluster})")
         check(k2 == {"forward": 0, "backward": 0} and k1 == {"forward": 0, "backward": 0},
               f"model_1vt: expected no K2 or K1 launch, got K2 {k2}, K1 {k1}")
     print("  one more step:")
     wall, busy, ops, kernels = profile_run(torch, lambda: svi.step(sequences, lengths), top=6)
-    k2g_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith("mstv_")) / 1e3
-    print(f"    K2g kernels {k2g_ms:.3f} ms of the busy time")
+    k2g = [e for e in kernels if kernel_name(e).startswith(("mstv_", "mstvc_"))]
+    k2g_ms = sum(e.self_device_time_total for e in k2g) / 1e3
+    print(f"    K2g kernels {k2g_ms:.3f} ms of the busy time: "
+          + ", ".join(f"{kernel_name(e)} {e.self_device_time_total / 1e3:.3f}" for e in k2g))
     pyro.clear_param_store()
-    launches = {k: sum(tv[k] for tv, _, _ in per_step) for k in ("forward", "backward")}
+    launches = {route: {k: sum(tv[k] for tv in counts) for k in ("forward", "backward")}
+                for route, counts in (("cluster", [p[0] for p in per_step]),
+                                      ("stream", [{k: p[1][k] - p[0][k] for k in p[1]} for p in per_step]))}
     return {"launches": launches, "setup_ms": step_ms[0], "step_ms": steady, "busy_share": busy / wall}
 
 
@@ -2354,9 +2419,15 @@ def profile_step(torch, svi, sequences, lengths):
     the device's busy share of the step's wall time."""
     _, busy_ms, _, kernels = profile_run(torch, lambda: svi.step(sequences, lengths))
     k1_ms = sum(e.self_device_time_total for e in kernels if "lme_" in e.key) / 1e3
-    k2_ms = sum(e.self_device_time_total for e in kernels if e.key.startswith(("ms_", "msc_"))) / 1e3
+    k2_ms = sum(e.self_device_time_total for e in kernels if kernel_name(e).startswith(("ms_", "msc_"))) / 1e3
     print(f"    K1 kernels {k1_ms:.3f} ms, K2 kernels {k2_ms:.3f} ms")
     return k1_ms
+
+
+def kernel_name(event):
+    """A profiled kernel's name without its return type and arguments (a
+    template kernel's key reads ``void name<...>(...)``)."""
+    return event.key.removeprefix("void ").split("(")[0]
 
 
 def profile_run(torch, fn, top=8):
@@ -2457,10 +2528,14 @@ def main():
          k4_launches["halving_bwd"]),
         ("gaussian_contract_bwd", "gaussian_levels.cu", "pyro_tpu/ops/gaussian.py:501", k4["contract_bwd"],
          k4_launches["contract_bwd"]),
-        ("markov_scan_tv_fwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:436", k2g["forward"],
-         tv_launches["forward"]),
-        ("markov_scan_tv_bwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:436", k2g["backward"],
-         tv_launches["backward"]),
+        ("markov_scan_tv_fwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:436", k2g["cluster_forward"],
+         tv_launches["cluster"]["forward"]),
+        ("markov_scan_tv_bwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:436", k2g["cluster_backward"],
+         tv_launches["cluster"]["backward"]),
+        ("markov_scan_tv_stream_fwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:436",
+         k2g["stream_forward"], tv_launches["stream"]["forward"]),
+        ("markov_scan_tv_stream_bwd", "markov_scan.cu", "pyro_tpu/ops/markov_product.py:436",
+         k2g["stream_backward"], tv_launches["stream"]["backward"]),
         ("gamma_gaussian_halving", "gaussian_levels.cu", "pyro_tpu/ops/gamma_gaussian.py:401", k5["gamma_halving"],
          k5_launches["gamma_halving"]),
         ("gamma_gaussian_contract", "gaussian_levels.cu", "pyro_tpu/ops/gamma_gaussian.py:464",

@@ -103,9 +103,11 @@
 // large a cluster or too much shared memory, among them).
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its encoder's types; the encoder itself comes from the runtime
 #include <cuda_runtime.h>
 #include <float.h>
 #include <math.h>
+#include <string.h>
 
 #define NT 256    // threads of the prologue, the fold and its epilogue
 #define NTS 1024  // threads of the forward and backward scan blocks
@@ -1204,14 +1206,20 @@ static int fold_dA(const float* A, const float* craw, const float* dR, int B, in
 // As K2's, each step is a chain of dependent block phases, so latency, and
 // the SFU's 16 exponentials a clock per SM, set the time at 32 SMs.
 //
-// Forward (mstv_forward_kernel): one block of NTS threads per row b, as K2's
+// Two routes, chosen by shape in the wrapper before the launch
+// (ops/markov_scan.py::plan_scan_tv), as K2's: the cluster route (mstvc_*,
+// below), wherever a CTA's staged slice of A_t and its E fit in shared
+// memory, and the streaming route (mstv_*, here) for larger S.  Both read
+// A_t by its strides (TvStrides).
+//
+// Streaming forward (mstv_forward_kernel): one block of NTS threads per row b, as K2's
 // streaming route; thread (part, c) runs the online logsumexp of column c
 // over the part-th quarter of l, A_t read from L2/HBM each step (A_t does
 // not fit one block's shared memory at S=256), the quarters merged in a
 // fixed order.  It writes hs_t and o_t = logsumexp_l(hs_t + A_t) (T, B, S)
 // for the backward.
 //
-// Backward: the reverse scan (mstv_backward_kernel, a block per row) with
+// Streaming backward: the reverse scan (mstv_backward_kernel, a block per row) with
 // w_t[l, r] = exp(hs_t[l] + A_t[l, r] - o_t[r]) recomputed from the stacks
 // (0 where o_t[r] is -inf): dR_t = g, dh[l] = sum_r g[r] w[l, r] by a warp
 // per l (lanes over r, a shuffle tree), dL_t = dh, g = dh.  Then the fold
@@ -1221,14 +1229,24 @@ static int fold_dA(const float* A, const float* craw, const float* dR, int B, in
 
 #define FOLD_L 16  // rows l of dA_t a thread of the fold takes
 
-// Ask L2 for the S*S floats at `next`, the transition of the step after
-// this one, which does not depend on the carry: block `part` of `parts`
-// blocks reading the same matrix asks for every parts-th 128-byte line.
-__device__ __forceinline__ void prefetch_next(const float* next, int S, int part, int parts) {
-  const long long lines = ((long long)S * S * 4 + 127) / 128;
-  const char* p = reinterpret_cast<const char*>(next);
-  for (long long i = part + (long long)threadIdx.x * parts; i < lines; i += (long long)NTS * parts)
-    asm volatile("prefetch.global.L2 [%0];" ::"l"(p + i * 128));
+// A_t's strides in elements: A_t[l, r] of row b is A[t sa.t + b sa.b + l sa.l + r]
+// (sa.b unused where A_t is shared), so a transition constant in time
+// (sa.t = 0) is read in place.
+struct TvStrides {
+  long long t, b;
+  int l;  // below 2^31 (the wrapper copies A otherwise)
+};
+
+// Ask L2 for the S rows (l stride sl) of S floats at `next`, the transition
+// of the step after this one, which does not depend on the carry: block
+// `part` of `parts` blocks reading the same matrix asks for every
+// parts-th line of 32 floats.
+__device__ __forceinline__ void prefetch_next(const float* next, int S, int sl, int part, int parts) {
+  const int per_row = (S + 31) / 32, lines = S * per_row;
+  for (int i = part + threadIdx.x * parts; i < lines; i += NTS * parts) {
+    const int l = i / per_row, j = i - l * per_row;
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(next + (long long)l * sl + min(32 * j, S - 1)));
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -1257,8 +1275,10 @@ __device__ __forceinline__ void lse_add1(float& mx, float& s, float x) {
 
 // One block per row b.  Shared memory: alpha, hs (S each), the quarters'
 // maxima and sums (NTS each), red (NTS/32).
+template <bool CONTIG>
 __global__ void __launch_bounds__(NTS) mstv_forward_kernel(const float* __restrict__ alpha0,
-                                                           const float* __restrict__ A, const float* __restrict__ R,
+                                                           const float* __restrict__ A, TvStrides sa,
+                                                           const float* __restrict__ R,
                                                            const float* __restrict__ L, int B, int T, int S,
                                                            int per_row_A, float* __restrict__ hs_out,
                                                            float* __restrict__ o_out, float* __restrict__ out) {
@@ -1270,6 +1290,7 @@ __global__ void __launch_bounds__(NTS) mstv_forward_kernel(const float* __restri
   float* red = ps + NTS;
   const int b = blockIdx.x, tid = threadIdx.x;
   const int c = tid & 255, part = tid >> 8;
+  const int sl = CONTIG ? S : sa.l;  // a compile-time alias of S where the rows are contiguous
   const int per = (S + NPART - 1) / NPART;
   const int l_begin = min(S, part * per), l_end = min(S, l_begin + per);
   for (int l = tid; l < S; l += NTS) alpha[l] = alpha0[(long long)b * S + l];
@@ -1277,8 +1298,8 @@ __global__ void __launch_bounds__(NTS) mstv_forward_kernel(const float* __restri
   double norm = 0.0;  // the row's shifts so far (the same in every thread)
   for (int t = 0; t < T; ++t) {
     const long long row = ((long long)t * B + b) * S;
-    const float* At = A + ((long long)t * (per_row_A ? B : 1) + (per_row_A ? b : 0)) * S * S;
-    if (t + 1 < T) prefetch_next(At + (long long)(per_row_A ? B : 1) * S * S, S, per_row_A ? 0 : b, per_row_A ? 1 : B);
+    const float* At = A + t * sa.t + (per_row_A ? b * sa.b : 0);
+    if (t + 1 < T && sa.t) prefetch_next(At + sa.t, S, sl, per_row_A ? 0 : b, per_row_A ? 1 : B);
     float m = -INFINITY;
     for (int l = tid; l < S; l += NTS) {
       const float h = L ? alpha[l] + L[row + l] : alpha[l];
@@ -1301,9 +1322,9 @@ __global__ void __launch_bounds__(NTS) mstv_forward_kernel(const float* __restri
         int l = l_begin;
 #pragma unroll 2
         for (; l + 4 <= l_end; l += 4)
-          lse_add4(mx, s, hs[l] + Ar[(long long)l * S], hs[l + 1] + Ar[(long long)(l + 1) * S],
-                   hs[l + 2] + Ar[(long long)(l + 2) * S], hs[l + 3] + Ar[(long long)(l + 3) * S]);
-        for (; l < l_end; ++l) lse_add1(mx, s, hs[l] + Ar[(long long)l * S]);
+          lse_add4(mx, s, hs[l] + Ar[(long long)l * sl], hs[l + 1] + Ar[(long long)(l + 1) * sl],
+                   hs[l + 2] + Ar[(long long)(l + 2) * sl], hs[l + 3] + Ar[(long long)(l + 3) * sl]);
+        for (; l < l_end; ++l) lse_add1(mx, s, hs[l] + Ar[(long long)l * sl]);
       }
       pmx[tid] = mx;
       ps[tid] = s;
@@ -1328,7 +1349,7 @@ __global__ void __launch_bounds__(NTS) mstv_forward_kernel(const float* __restri
 // One block per row b, t from T-1 down to 0.  Shared memory: g and the next
 // g (S each), hs (S) and o with -inf read as +inf (S).  Writes dR, dL (if
 // L) and dalpha0.
-__global__ void __launch_bounds__(NTS) mstv_backward_kernel(const float* __restrict__ A,
+__global__ void __launch_bounds__(NTS) mstv_backward_kernel(const float* __restrict__ A, TvStrides sa,
                                                             const float* __restrict__ hs_in,
                                                             const float* __restrict__ o_in,
                                                             const float* __restrict__ gout, int B, int T, int S,
@@ -1344,8 +1365,8 @@ __global__ void __launch_bounds__(NTS) mstv_backward_kernel(const float* __restr
   __syncthreads();
   for (int t = T - 1; t >= 0; --t) {
     const long long row = ((long long)t * B + b) * S;
-    const float* At = A + ((long long)t * (per_row_A ? B : 1) + (per_row_A ? b : 0)) * S * S;
-    if (t > 0) prefetch_next(At - (long long)(per_row_A ? B : 1) * S * S, S, per_row_A ? 0 : b, per_row_A ? 1 : B);
+    const float* At = A + t * sa.t + (per_row_A ? b * sa.b : 0);
+    if (t > 0 && sa.t) prefetch_next(At - sa.t, S, sa.l, per_row_A ? 0 : b, per_row_A ? 1 : B);
     for (int l = tid; l < S; l += NTS) {
       dR[row + l] = g[l];
       hs[l] = hs_in[row + l];
@@ -1357,7 +1378,7 @@ __global__ void __launch_bounds__(NTS) mstv_backward_kernel(const float* __restr
       const float hl = hs[l];
       float acc = 0.f;
       if (hl > -INFINITY) {  // warp-uniform
-        const float* Al = At + (long long)l * S;
+        const float* Al = At + (long long)l * sa.l;
 #pragma unroll 4
         for (int r = lane; r < S; r += 32) acc = fmaf(g[r], expf(hl + Al[r] - og[r]), acc);
       }
@@ -1380,7 +1401,8 @@ __global__ void __launch_bounds__(NTS) mstv_backward_kernel(const float* __restr
 // G[t, b, r] * exp(hs[t, b, l] + A[t, a, l, r] - o[t, b, r]), in row order.
 // Grid: x over (t, a), y over tiles of 256 columns r and FOLD_L rows l; a
 // thread takes one r and FOLD_L l.
-__global__ void __launch_bounds__(256) mstv_fold_kernel(const float* __restrict__ A, const float* __restrict__ hs,
+__global__ void __launch_bounds__(256) mstv_fold_kernel(const float* __restrict__ A, TvStrides sa,
+                                                        const float* __restrict__ hs,
                                                         const float* __restrict__ os, const float* __restrict__ G,
                                                         int B, int T, int S, int nA, float* __restrict__ dA) {
   const int col_tiles = (S + 255) / 256;
@@ -1389,10 +1411,11 @@ __global__ void __launch_bounds__(256) mstv_fold_kernel(const float* __restrict_
   if (r >= S) return;
   const int nl = min(FOLD_L, S - l0);
   const long long base = ((long long)t * nA + a) * S * S + (long long)l0 * S + r;
+  const float* Aa = A + t * sa.t + a * sa.b + (long long)l0 * sa.l + r;
   float av[FOLD_L], acc[FOLD_L];
 #pragma unroll
   for (int i = 0; i < FOLD_L; ++i) {
-    av[i] = i < nl ? A[base + (long long)i * S] : 0.f;
+    av[i] = i < nl ? Aa[(long long)i * sa.l] : 0.f;
     acc[i] = 0.f;
   }
   const int b_begin = nA > 1 ? a : 0, b_end = nA > 1 ? a + 1 : B;
@@ -1408,6 +1431,831 @@ __global__ void __launch_bounds__(256) mstv_fold_kernel(const float* __restrict_
 #pragma unroll
   for (int i = 0; i < FOLD_L; ++i)
     if (i < nl) dA[base + (long long)i * S] = acc[i];
+}
+
+// ------------------------------ time-varying scan (K2g), the cluster route --
+//
+// K2g on K2's cluster layout (mstvc_*): a cluster of C CTAs takes a group of
+// `rows` rows (all of them share A_t, or one row with its own A_t), and CTA
+// k owns the columns r in [k W, (k+1) W), W = ceil(S / C).  K2's cluster
+// kernels hold one slice exp(A - c) for all T steps; here A_t changes every
+// step, so each step's slice is streamed one step ahead, off the carry's
+// chain:
+// - A_t[:, own columns] is copied into a staging buffer in shared memory
+//   while the step before runs, completing on the buffer's mbarrier: by
+//   tensor copies (TMA) of the S x W tile where the rows are 16-byte
+//   aligned (one a step on the main path; 256 one-row bulk copies a step
+//   were 3.6x slower, and issuing cp.async in every thread sits on the
+//   carry's chain), else by cp.async of 4 bytes (TvCopy).  A is read by its strides,
+//   so a transition constant in time is not copied.
+// - After a step has sent its carry, the CTA turns the staged slice into
+//   the next step's column maxima c[r] = max_l A_t+1[l, r] (local to the
+//   slice, as K2's) and E = exp(A_t+1 - c), and starts the copy of the
+//   slice after it.  The transition's loads and exponentials thus leave the
+//   step's product, and with A_t shared they are taken once a cluster, not
+//   once a row; but at 8 warps an SM this prep (S W exponentials) is still
+//   on the carry's chain, about a third of a step.
+// Forward step, as K2's: h = alpha + L, m its row max (the carry kept
+// shifted, the shifts summed in double), hs = h - m, p = exp(hs),
+// z[r] = sum_l p[l] E[l, r] over the own columns on the f32 CUDA cores
+// (register-blocked, p read as 16-byte vectors), o = log z + c, and the own
+// columns of alpha_t+1 = o + R sent to every peer with st.async on its
+// mbarrier: one wait a step and no cluster barrier.
+// Exactness: the general body's logsumexp is exact, not K1's clip at
+// FLT_MIN, and the factored sum loses the terms p[l] E[l, r] below the
+// float32 range.  A column whose c is -inf gives o = -inf; a column with
+// z < TV_TAU = 2^-60 is recomputed by the online logsumexp of the streaming
+// kernel (lse_add4) over hs + A_t, A_t read from global memory (L2): the
+// at most S lost terms, each below 2^-126, cannot move a z >= 2^-60 by
+// 2^-24 relative.  So o is -inf exactly where no term is finite.
+// Backward: the per-step statistics come from the forward's stacks (hs, o
+// and c), so one parallel kernel (mstvc_stats_kernel, a warp a row) sorts
+// the columns first.  Class 0, the columns with finite c and o and
+// e = c - o <= 60 ln 2 (z >= 2^-60, the factored weights exact to float32),
+// with cr = max over them of e:
+//   F0[r] = exp(e - cr),  P0[l] = exp(hs[l] + cr),
+//   w[l, r] = exp(hs[l] + A[l, r] - o[r]) = P0[l] E[l, r] F0[r].
+// Class 1, the other columns with a finite o (those the forward may have
+// recomputed): exact per-term weights exp(hs + A - o), as K2's clipped
+// class.  Columns with o = -inf have weight 0.  The reverse scan
+// (mstvc_backward_kernel) then computes dR_t = g and
+//   dh[l] = P0[l] sum_r E[l, r] (g F0)[r] + sum_{r in class 1} g[r] w[l, r]
+// for the own columns r, reduce-scatters both partials to the owner of l
+// through distributed shared memory as K2's (added in rank order), with
+// the slices of A_t streamed in reverse order one step ahead and E formed
+// from the forward's c.  Class 1's sum runs only at a step whose group of
+// rows holds such a column.  dL_t = dh, and g becomes dh.  The fold
+// (mstvc_fold_kernel), parallel over t and tiles of dA_t, is a (S x B) by
+// (B x S) product a step with no exponential a term:
+//   dA_t[l, r] = E[l, r] sum_b P0_b[l] (G_b F0_b)[r]
+//              + sum_{b: r in class 1} G_b[r] exp(hs_b[l] + A[l, r] - o_b[r]),
+// rows in order, no atomics, so two runs give the same bits.
+//
+// Bound at model_1vt's shape: as the streaming route's above.  What the
+// design does about latency: 88 SMs (11 clusters of 8 CTAs, 3 rows each)
+// in place of 32, the transition's exponentials once a cluster and S / C a
+// column, the slices' copies off the chain.  Measured on an H100 (PERF.md):
+// a step takes some 7300 cycles forward and 6400 backward, of which the
+// slice's c and E about 2350 and 2100.
+
+#define TV_TAU 8.67361737988403547e-19f  // 2^-60: below it, the forward recomputes a column exactly
+#define TV_LOG_TAU 41.5888308335967186f  // 60 ln 2
+
+// Dynamic shared memory, in floats, of a CTA of the cluster route's kernels;
+// the kernels cut it in this order, every part a multiple of 16 bytes.
+__host__ __device__ __forceinline__ long long tvc_forward_floats(int S, int C, int rows) {
+  const long long W4 = round4(cl_width(S, C)), S4 = round4(S), R = rows;
+  return S4 * W4                    // the staged slice of A_t+1
+         + 8                        // the mbarriers: two carry buffers, the staged slice
+         + round4(S4 * (W4 + 1))    // E = exp(A_t - c)
+         + 4 * R * S4               // carry rows (two buffers), p, hs
+         + R * NTC                  // the product's partial sums (and the column maxima's)
+         + R * W4                   // the new carry's own columns
+         + 8 * R + round4(2 * R)    // segment maxima, the rows' summed shifts (double)
+         + NTC + W4;                // the column maxima of the product's parts, and c
+}
+__host__ __device__ __forceinline__ long long tvc_backward_floats(int S, int C, int rows) {
+  const long long W4 = round4(cl_width(S, C)), S4 = round4(S), R = rows;
+  return S4 * W4                    // the staged slice of A_t-1
+         + 8                        // the mbarriers: two receive buffers, the staged slice
+         + round4(S4 * (W4 + 1))    // E
+         + 4 * C * R * W4           // received partials: two buffers, two classes, C sources
+         + 2 * R * S4               // the product's partials of both classes, before they are sent
+         + 3 * R * W4;              // u of both classes, class 1's o
+}
+
+__device__ __forceinline__ void mbar_init_count(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// How a launch copies A's slices: by tensor copies (TMA) of the S x W
+// tile, one a step for S <= 256 (the main path) and 2 or 4 of S/2 or S/4
+// rows above, where every row of every slice is 16-byte aligned; else by
+// cp.async of 4 bytes an element.
+struct TvCopy {
+  CUtensorMap map;   // A as (r, l[, row][, t]): the row and time dims only where their strides are not 0
+  int tma;           // whether the slices go by tensor copies (the map is set)
+  int box_rows;      // rows l of a tensor copy: S, S / 2 or S / 4
+  int has_b, has_t;  // whether the map has the row dim, the time dim
+};
+
+// Start the copy of A_t's S x wn slice of row b (columns from r0; `src` its
+// first element, row stride sl) into `stage` (S4 x W4), completing a phase
+// of the mbarrier `bar`: by thread 0's tensor copies (the mbarrier
+// initialised with one arrival: its own, with the bytes), or by every
+// thread's cp.async, each thread arriving when its copies have landed
+// (initialised with NTC).  A tensor copy fills the columns past S with 0;
+// the preps mask them.  Called by every thread after a barrier that follows
+// the last read of `stage`.
+__device__ __forceinline__ void tv_stage_slice(const TvCopy& cp, const float* src, int sl, int S, int wn, int W4,
+                                               float* stage, unsigned bar, int r0, int b, int t) {
+  const int tid = threadIdx.x;
+  if (cp.tma) {
+    if (tid == 0) {  // no proxy fence: every read of `stage` retired before the barrier before this call
+      mbar_expect(bar, 4u * S * W4);
+      const unsigned long long map = reinterpret_cast<unsigned long long>(&cp.map);
+      for (int l0 = 0; l0 < S; l0 += cp.box_rows) {
+        const unsigned dst = smem_addr(stage + l0 * W4);
+        if (cp.has_b && cp.has_t)
+          asm volatile(
+              "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, "
+              "%4, %5}], [%6];\n" ::"r"(dst),
+              "l"(map), "r"(r0), "r"(l0), "r"(b), "r"(t), "r"(bar)
+              : "memory");
+        else if (cp.has_b || cp.has_t)
+          asm volatile(
+              "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, "
+              "%4}], [%5];\n" ::"r"(dst),
+              "l"(map), "r"(r0), "r"(l0), "r"(cp.has_b ? b : t), "r"(bar)
+              : "memory");
+        else
+          asm volatile(
+              "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+              "%3}], [%4];\n" ::"r"(dst),
+              "l"(map), "r"(r0), "r"(l0), "r"(bar)
+              : "memory");
+      }
+    }
+    return;
+  }
+  const int per = NTC / wn;
+  if (tid < per * wn) {
+    const int w = tid % wn;
+    for (int l = tid / wn; l < S; l += per) cp_async4(stage + l * W4 + w, src + (long long)l * sl + w);
+  }
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
+// The forward's c and E of the staged slice, by the parts of its product:
+// thread (part, w), part < nparts, takes the l of its part's chunk
+// [l_begin, l_end) of column w (both multiples of 4), their maximum into
+// pm[part * W4 + w]; after a barrier the column's maximum c over the parts
+// (-inf for a column of -inf) into cs[w] and E[l * (W4 + 1) + w] =
+// exp(stage[l * W4 + w] - c), c made finite (the padding rows are -inf in
+// `stage`, so 0 in E; the columns past S, w >= wn, are 0 in E).  With 8 warps an SM the latency of dependent loads
+// sets the time, so each thread keeps 16 loads, maxima and exponentials in
+// flight (the pointers restrict: no store to E aliases a load of `stage`).
+// Ends synchronised.
+__device__ __forceinline__ void tv_prep_forward(const float* __restrict__ stage, int W4, int wn, int nparts, int part,
+                                                int w, int l_begin, int l_end, float* __restrict__ pm,
+                                                float* __restrict__ cs, float* __restrict__ E) {
+  if (part < nparts && w >= wn) {  // a column past S
+    pm[part * W4 + w] = -INFINITY;
+    for (int l = l_begin; l < l_end; ++l) E[l * (W4 + 1) + w] = 0.f;
+  } else if (part < nparts) {
+    float m0 = -INFINITY, m1 = -INFINITY, m2 = -INFINITY, m3 = -INFINITY;
+#pragma unroll 4
+    for (int l = l_begin; l < l_end; l += 4) {
+      m0 = fmaxf(m0, stage[l * W4 + w]);
+      m1 = fmaxf(m1, stage[(l + 1) * W4 + w]);
+      m2 = fmaxf(m2, stage[(l + 2) * W4 + w]);
+      m3 = fmaxf(m3, stage[(l + 3) * W4 + w]);
+    }
+    pm[part * W4 + w] = fmaxf(fmaxf(m0, m1), fmaxf(m2, m3));
+  }
+  __syncthreads();
+  if (part < nparts && w < wn) {
+    float c = pm[w];
+    for (int q = 1; q < nparts; ++q) c = fmaxf(c, pm[q * W4 + w]);
+    if (part == 0) cs[w] = c;
+    c = finite_or_zero(c);
+    float* __restrict__ Ew = E + w;
+#pragma unroll 4
+    for (int l = l_begin; l < l_end; l += 4) {
+      const float v0 = stage[l * W4 + w], v1 = stage[(l + 1) * W4 + w], v2 = stage[(l + 2) * W4 + w],
+                  v3 = stage[(l + 3) * W4 + w];
+      Ew[l * (W4 + 1)] = expf(v0 - c);
+      Ew[(l + 1) * (W4 + 1)] = expf(v1 - c);
+      Ew[(l + 2) * (W4 + 1)] = expf(v2 - c);
+      Ew[(l + 3) * (W4 + 1)] = expf(v3 - c);
+    }
+  }
+  __syncthreads();
+}
+
+// The backward's E = exp(stage - c) from the forward's maxima c (craw, the
+// own columns' wn), made finite: thread (l0, w) takes the rows l0 + k per.
+// Four rows a time without a guard, so that their exponentials interleave
+// (a guard a row makes each a branch of its own, run one after another).
+// Ends synchronised.
+__device__ __forceinline__ void tv_prep_backward(const float* __restrict__ stage, int S4, int W4, int wn,
+                                                 const float* __restrict__ craw, float* __restrict__ E) {
+  const int tid = threadIdx.x, per = NTC / W4, QP = W4 + 1;
+  if (tid < per * W4 && tid % W4 >= wn) {  // a column past S
+    for (int l = tid / W4; l < S4; l += per) E[l * QP + tid % W4] = 0.f;
+  } else if (tid < per * W4) {
+    const int w = tid % W4;
+    const float c = finite_or_zero(craw[w]);
+    int l = tid / W4;
+#pragma unroll 2
+    for (; l + 3 * per < S4; l += 4 * per) {
+      const float v0 = stage[l * W4 + w], v1 = stage[(l + per) * W4 + w], v2 = stage[(l + 2 * per) * W4 + w],
+                  v3 = stage[(l + 3 * per) * W4 + w];
+      E[l * QP + w] = expf(v0 - c);
+      E[(l + per) * QP + w] = expf(v1 - c);
+      E[(l + 2 * per) * QP + w] = expf(v2 - c);
+      E[(l + 3 * per) * QP + w] = expf(v3 - c);
+    }
+    for (; l < S4; l += per) E[l * QP + w] = expf(stage[l * W4 + w] - c);
+  }
+  __syncthreads();
+}
+
+// Grid: clusters of C CTAs along x; cluster i takes rows [i rows, (i+1)
+// rows) of a shared A_t, or row i and its own A_t (per_row_A, rows == 1).
+// Writes, for each CTA's own columns, hs and o (T, B, S), out (B, S) and c
+// (T, nA, S), the raw column maxima of each A_t, for the backward.
+template <int ME>
+__global__ void __launch_bounds__(NTC, 1) mstvc_forward_kernel(
+    const float* __restrict__ alpha0, const float* __restrict__ A, TvStrides sa, const float* __restrict__ R,
+    const float* __restrict__ L, int B, int T, int S, int per_row_A, int rows, const __grid_constant__ TvCopy cp,
+    float* __restrict__ hs_out,
+    float* __restrict__ o_out, float* __restrict__ c_out, float* __restrict__ out) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C;
+  const int W = cl_width(S, C), W4 = round4(W), QP = W4 + 1, S4 = round4(S);
+  const int r0 = k * W, wn = max(0, min(W, S - r0));
+  const int b0 = cid * rows, nr = min(rows, B - b0);
+  const long long a = per_row_A ? cid : 0, nA = per_row_A ? B : 1;
+  // A_t[l, r0 + w] = As[t sa.t + l sa.l + w]
+  const float* As = A + a * sa.b + r0;
+  const int tid = threadIdx.x;
+  const bool vec = W % 4 == 0 && S % 4 == 0;
+  extern __shared__ __align__(128) float tv_smem[];
+  float* stage = tv_smem;                          // [S4][W4], 128-byte aligned for the tensor copy
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(stage + S4 * W4);  // [2] carry, [2] the slice
+  float* E = stage + S4 * W4 + 8;                  // [S4][QP]
+  float* hbuf = E + round4(S4 * QP);               // [2][rows][S4]
+  float* p = hbuf + 2 * rows * S4;                 // [rows][S4]
+  float* hsb = p + rows * S4;                      // [rows][S4]
+  float* red = hsb + rows * S4;                    // [parts][rows][W4]
+  float* vbuf = red + rows * NTC;                  // [rows][W4]
+  float* seg_max = vbuf + rows * W4;               // [rows][8]
+  double* nrm = reinterpret_cast<double*>(seg_max + 8 * rows);  // [rows], 16-byte aligned
+  float* pm = seg_max + 8 * rows + round4(2 * rows);  // [parts][W4]
+  float* cs = pm + NTC;                                // [W4]
+  const unsigned sbar = smem_addr(&bars[2]);
+  const RowSlots<ME> e(S, nr);
+  const OwnOutputs own(nr, W, wn);
+  // the sends of a step, as K2's: item x = (peer j, row, column or vector
+  // of 4 columns q) into the peer's carry row at r0 + q (4 q), from vbuf
+  const int nq = vec ? (wn + 3) / 4 : wn, nsend = C * nr * nq;
+  int send_j[MAXS], send_dst[MAXS], send_src[MAXS];
+#pragma unroll
+  for (int i = 0; i < MAXS; ++i) {
+    const int x = tid + i * NTC, j = x % C, row = (x / C) / max(nq, 1), q = (x / C) % max(nq, 1);
+    send_j[i] = x < nsend ? j : -1;
+    send_dst[i] = row * S4 + r0 + (vec ? 4 * q : q);
+    send_src[i] = row * W4 + (vec ? 4 * q : q);
+  }
+
+  // the product's parts: thread (part, pw) sums l over its part's chunk of
+  // S4 for column pw, and forms c and E there
+  const int nparts = NTC / W4, chunk = round4((S4 + nparts - 1) / nparts);
+  const int pw = tid % W4, part = tid / W4;
+  const int l_begin = min(S4, part * chunk), l_end = min(S4, l_begin + chunk);
+
+  // prologue: the staging buffer's padding, the mbarriers, A_0's slice and
+  // its E, the copy of A_1's started
+  for (int x = tid; x < S4 * W4; x += NTC)
+    if (x / W4 >= S || x % W4 >= wn) stage[x] = -INFINITY;
+  for (int x = tid; x < rows * S4; x += NTC) p[x] = 0.f;  // the padding columns stay 0
+  if (tid == 0) {
+    mbar_init(smem_addr(&bars[0]));
+    mbar_init(smem_addr(&bars[1]));
+    mbar_init_count(sbar, cp.tma ? 1 : NTC);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  tv_stage_slice(cp, As, sa.l, S, wn, W4, stage, sbar, r0, (int)a, 0);
+  for (int x = tid; x < nr * S; x += NTC) hbuf[(x / S) * S4 + x % S] = alpha0[(long long)b0 * S + x];
+  for (int x = tid; x < rows; x += NTC) nrm[x] = 0.0;
+  float lv[ME];
+#pragma unroll
+  for (int i = 0; i < ME; ++i)
+    lv[i] = (L && e.ls[i] >= 0) ? L[(long long)b0 * S + e.rows_[i] * S + e.ls[i]] : 0.f;
+  unsigned carry_bytes = 0;
+  for (int j = 0; j < C; ++j) {
+    const int wj = max(0, min(W, S - j * W));
+    carry_bytes += 4u * nr * (vec ? round4(wj) : wj);
+  }
+  if (tid == 0 && T > 1) mbar_expect(smem_addr(&bars[1]), carry_bytes);
+  mbar_wait(sbar, 0);
+  tv_prep_forward(stage, W4, wn, nparts, part, pw, l_begin, l_end, pm, cs, E);
+  if (T > 1) tv_stage_slice(cp, As + sa.t, sa.l, S, wn, W4, stage, sbar, r0, (int)a, 1);
+  cluster.sync();  // every peer runs, its mbarriers initialised, before the first remote store
+
+  const bool writes_c = per_row_A || cid == 0;
+  for (int t = 0; t < T; ++t) {
+    const float* cur = hbuf + (t & 1) * rows * S4;
+    const unsigned nxt = smem_addr(hbuf + ((t + 1) & 1) * rows * S4);
+    const unsigned nxt_bar = smem_addr(&bars[(t + 1) & 1]);
+    const long long step = ((long long)t * B + b0) * S;
+    float rv[MAXO];
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) rv[i] = own.w[i] >= 0 ? R[step + (long long)own.row[i] * S + r0 + own.w[i]] : 0.f;
+    if (t > 0) mbar_wait(smem_addr(&bars[t & 1]), ((t - 1) >> 1) & 1);
+    if (tid == 0 && t + 2 < T) mbar_expect(smem_addr(&bars[t & 1]), carry_bytes);
+    // h = alpha + L, its row max m, hs = h - m and p = exp(hs); hs of the
+    // own columns into the stack
+    float h[ME];
+#pragma unroll
+    for (int i = 0; i < ME; ++i) h[i] = e.ls[i] >= 0 ? cur[e.rows_[i] * S4 + e.ls[i]] + lv[i] : -INFINITY;
+    if (L && t + 1 < T) {
+#pragma unroll
+      for (int i = 0; i < ME; ++i)
+        if (e.ls[i] >= 0) lv[i] = L[step + (long long)B * S + e.rows_[i] * S + e.ls[i]];
+    }
+    segment_max(e, h, nr, seg_max);
+    float m[ME];
+#pragma unroll
+    for (int i = 0; i < ME; ++i) {
+      if (i < e.n) {
+        m[i] = (e.starts >> i & 1 && e.rows_[i] < nr) ? finite_or_zero(row_max(seg_max, e.rows_[i], e.wpr))
+                                                   : m[i > 0 ? i - 1 : 0];
+        h[i] -= m[i];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < ME; ++i) {
+      if (e.ls[i] >= 0) {
+        const int x = e.rows_[i] * S4 + e.ls[i];
+        hsb[x] = h[i];
+        p[x] = expf(h[i]);
+        if ((unsigned)(e.ls[i] - r0) < (unsigned)wn) hs_out[step + e.rows_[i] * S + e.ls[i]] = h[i];
+        if (e.ls[i] == 0) nrm[e.rows_[i]] += (double)m[i];
+      }
+    }
+    __syncthreads();
+    if (part < nparts) {
+      for (int rc = 0; rc < nr; rc += 4) {
+        float* dst = red + (part * rows + rc) * W4 + pw;
+        const float* pr = p + rc * S4;
+        switch (min(4, nr - rc)) {
+          case 1: chunk_product<1>(E + pw, QP, pr, S4, l_begin, l_end, dst, W4); break;
+          case 2: chunk_product<2>(E + pw, QP, pr, S4, l_begin, l_end, dst, W4); break;
+          case 3: chunk_product<3>(E + pw, QP, pr, S4, l_begin, l_end, dst, W4); break;
+          default: chunk_product<4>(E + pw, QP, pr, S4, l_begin, l_end, dst, W4); break;
+        }
+      }
+    }
+    __syncthreads();
+    // o of the own columns (exact where z < TV_TAU), alpha_t+1 into vbuf
+    // (into out at the last step)
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) {
+      const int row = own.row[i], w = own.w[i];
+      if (w < 0) continue;
+      const float c = cs[w];
+      if (row == 0 && writes_c) c_out[((long long)t * nA + a) * S + r0 + w] = c;
+      float o;
+      if (c == -INFINITY) {
+        o = -INFINITY;
+      } else {
+        float z = red[row * W4 + w];
+        for (int q = 1; q < nparts; ++q) z += red[(q * rows + row) * W4 + w];
+        if (z >= TV_TAU) {
+          o = logf(z) + c;
+        } else {
+          const float* Ac = As + t * sa.t + w;
+          const float* hr = hsb + row * S4;
+          float mx = -INFINITY, s = 0.f;
+          int l = 0;
+          for (; l + 4 <= S; l += 4)
+            lse_add4(mx, s, hr[l] + Ac[(long long)l * sa.l], hr[l + 1] + Ac[(long long)(l + 1) * sa.l],
+                     hr[l + 2] + Ac[(long long)(l + 2) * sa.l], hr[l + 3] + Ac[(long long)(l + 3) * sa.l]);
+          for (; l < S; ++l) lse_add1(mx, s, hr[l] + Ac[(long long)l * sa.l]);
+          o = mx > -INFINITY ? logf(s) + mx : -INFINITY;
+        }
+      }
+      const int r = r0 + w;
+      o_out[step + (long long)row * S + r] = o;
+      const float v = o + rv[i];
+      if (t == T - 1) out[(long long)(b0 + row) * S + r] = (float)((double)v + nrm[row]);
+      else vbuf[row * W4 + w] = v;
+    }
+    if (t + 1 < T) {
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < MAXS; ++i) {
+        const int j = send_j[i];
+        if (j < 0) continue;
+        if (vec)
+          st_async4(peer_addr(nxt + 4u * send_dst[i], j), *reinterpret_cast<const float4*>(vbuf + send_src[i]),
+                    peer_addr(nxt_bar, j));
+        else
+          st_async(peer_addr(nxt + 4u * send_dst[i], j), vbuf[send_src[i]], peer_addr(nxt_bar, j));
+      }
+      for (int x = tid + MAXS * NTC; x < nsend; x += NTC) {
+        const int j = x % C, row = (x / C) / nq, q = (x / C) % nq;
+        if (vec)
+          st_async4(peer_addr(nxt + 4u * (row * S4 + r0 + 4 * q), j),
+                    *reinterpret_cast<const float4*>(vbuf + row * W4 + 4 * q), peer_addr(nxt_bar, j));
+        else
+          st_async(peer_addr(nxt + 4u * (row * S4 + r0 + q), j), vbuf[row * W4 + q], peer_addr(nxt_bar, j));
+      }
+      // while the carry is in flight: the next step's c and E, and the
+      // copy of the slice after it
+      mbar_wait(sbar, (t + 1) & 1);
+      tv_prep_forward(stage, W4, wn, nparts, part, pw, l_begin, l_end, pm, cs, E);
+      if (t + 2 < T) tv_stage_slice(cp, As + (t + 2) * sa.t, sa.l, S, wn, W4, stage, sbar, r0, (int)a, t + 2);
+    }
+    __syncthreads();
+  }
+}
+
+// The classes of the reverse scan's columns and their factors, from the
+// forward's stacks: one warp per row (t, b) writes F0 (0 outside class 0),
+// X1 (o in class 1, +inf elsewhere) and P0 = exp(hs + cr), and sets
+// two[t, group] where a row of the cluster's group of `rows` rows has a
+// column in class 1.
+__global__ void __launch_bounds__(NT) mstvc_stats_kernel(const float* __restrict__ hs, const float* __restrict__ os,
+                                                         const float* __restrict__ c_in, int B, int T, int S,
+                                                         int per_row_A, int rows, int* __restrict__ two,
+                                                         float* __restrict__ P0, float* __restrict__ F0,
+                                                         float* __restrict__ X1) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * (NT / 32) + warp;
+  if (i >= (long long)T * B) return;
+  const int b = (int)(i % B);
+  const long long t = i / B;
+  const float* ca = c_in + (t * (per_row_A ? B : 1) + (per_row_A ? b : 0)) * S;
+  const long long base = i * S;
+  float cr = -INFINITY;
+  for (int r = lane; r < S; r += 32) {
+    const float c = ca[r], o = os[base + r], e = c - o;
+    if (c > -INFINITY && o > -INFINITY && e <= TV_LOG_TAU) cr = fmaxf(cr, e);
+  }
+  cr = finite_or_zero(warp_max(cr));
+  bool any1 = false;
+  for (int r = lane; r < S; r += 32) {
+    const float c = ca[r], o = os[base + r], e = c - o;
+    const bool class0 = c > -INFINITY && o > -INFINITY && e <= TV_LOG_TAU, class1 = !class0 && o > -INFINITY;
+    F0[base + r] = class0 ? expf(e - cr) : 0.f;
+    X1[base + r] = class1 ? o : INFINITY;
+    any1 |= class1;
+  }
+  for (int l = lane; l < S; l += 32) P0[base + l] = expf(hs[base + l] + cr);
+  if (__any_sync(0xffffffffu, any1) && lane == 0) atomicOr(&two[t * ((B + rows - 1) / rows) + b / rows], 1);
+}
+
+// The reverse scan on the forward's cluster layout, after mstvc_stats_kernel.
+// Writes dR, dL (if L) and dalpha0 for each CTA's own columns.
+__global__ void __launch_bounds__(NTC, 1) mstvc_backward_kernel(
+    const float* __restrict__ A, TvStrides sa, const float* __restrict__ c_in, const float* __restrict__ hs,
+    const float* __restrict__ P0, const float* __restrict__ F0, const float* __restrict__ X1,
+    const int* __restrict__ two_of, const float* __restrict__ gout, int B, int T, int S, int per_row_A, int rows,
+    const __grid_constant__ TvCopy cp, float* __restrict__ dR, float* __restrict__ dL, float* __restrict__ dalpha0) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), k = (int)cluster.block_rank();
+  const int cid = blockIdx.x / C, groups = gridDim.x / C;
+  const int W = cl_width(S, C), W4 = round4(W), QP = W4 + 1, S4 = round4(S);
+  const int r0 = k * W, wn = max(0, min(W, S - r0));
+  const int b0 = cid * rows, nr = min(rows, B - b0);
+  const long long a = per_row_A ? cid : 0, nA = per_row_A ? B : 1;
+  const float* As = A + a * sa.b + r0;
+  const int tid = threadIdx.x, RW = rows * W4;
+  const bool vec = W % 4 == 0;
+  extern __shared__ __align__(128) float tv_smem[];
+  float* stage = tv_smem;                      // [S4][W4], 128-byte aligned for the tensor copy
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(stage + S4 * W4);  // [2] receive, [2] the slice
+  float* E = stage + S4 * W4 + 8;              // [S4][QP]
+  float* recv = E + round4(S4 * QP);           // [2 buffers][2 classes][C sources][rows][W4]
+  float* part = recv + 4 * C * RW;             // [2 classes][rows][S4]
+  float* u0 = part + 2 * rows * S4;            // [rows][W4]
+  float* u1 = u0 + RW;
+  float* x1s = u1 + RW;
+  const unsigned sbar = smem_addr(&bars[2]);
+  const OwnOutputs own(nr, W, wn);
+  // the sends of a step, per class, as K2's: item x = (row, l or vector of
+  // 4 l) to the owner j of l, into the source's place of its receive buffer
+  const int nq = vec ? (S + 3) / 4 : S, nsend = nr * nq;
+  int send_j[MAXS], send_dst[MAXS], send_src[MAXS];
+#pragma unroll
+  for (int i = 0; i < MAXS; ++i) {
+    const int x = tid + i * NTC, row = x / nq, l = vec ? 4 * (x % nq) : x % nq, j = l / W;
+    send_j[i] = x < nsend ? j : -1;
+    send_dst[i] = row * W4 + l - j * W;
+    send_src[i] = row * S4 + l;
+  }
+  // the factors of the own outputs at step t, in registers
+  float f0[MAXO], x1[MAXO], p0[MAXO];
+  auto load_factors = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) {
+      if (own.w[i] >= 0) {
+        const long long x = ((long long)t * B + b0 + own.row[i]) * S + r0 + own.w[i];
+        f0[i] = F0[x];
+        x1[i] = X1[x];
+        p0[i] = P0[x];
+      }
+    }
+  };
+
+  // prologue: the staging buffer's padding, the mbarriers, A_T-1's slice
+  // and its E (with the forward's c), the copy of A_T-2's started, u of
+  // step T-1
+  for (int x = tid; x < S4 * W4; x += NTC)
+    if (x / W4 >= S || x % W4 >= wn) stage[x] = -INFINITY;
+  for (int o = tid; o < RW; o += NTC) {
+    u0[o] = u1[o] = 0.f;
+    x1s[o] = INFINITY;
+  }
+  if (tid == 0) {
+    mbar_init(smem_addr(&bars[0]));
+    mbar_init(smem_addr(&bars[1]));
+    mbar_init_count(sbar, cp.tma ? 1 : NTC);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  tv_stage_slice(cp, As + (T - 1) * sa.t, sa.l, S, wn, W4, stage, sbar, r0, (int)a, T - 1);
+  load_factors(T - 1);
+#pragma unroll
+  for (int i = 0; i < MAXO; ++i) {
+    const int row = own.row[i], w = own.w[i];
+    if (w < 0) continue;
+    const float g = gout[(long long)(b0 + row) * S + r0 + w];
+    dR[((long long)(T - 1) * B + b0 + row) * S + r0 + w] = g;
+    u0[row * W4 + w] = g * f0[i];
+    u1[row * W4 + w] = x1[i] < INFINITY ? g : 0.f;
+    x1s[row * W4 + w] = x1[i];
+  }
+  mbar_wait(sbar, 0);
+  tv_prep_backward(stage, S4, W4, wn, c_in + ((T - 1) * nA + a) * S + r0, E);
+  if (T > 1) tv_stage_slice(cp, As + (T - 2) * sa.t, sa.l, S, wn, W4, stage, sbar, r0, (int)a, T - 2);
+  const unsigned part_bytes = 4u * C * nr * (vec ? round4(wn) : wn);
+  int two = two_of[(long long)(T - 1) * groups + cid];
+  int two_next = T > 1 ? two_of[(long long)(T - 2) * groups + cid] : 0;
+  if (tid == 0) mbar_expect(smem_addr(&bars[(T - 1) & 1]), part_bytes * (two ? 2 : 1));
+  cluster.sync();  // every peer runs, its mbarriers initialised, before the first remote store
+
+  for (int t = T - 1; t >= 0; --t) {
+    const int par = t & 1;
+    const unsigned bar = smem_addr(&bars[par]);
+    if (tid == 0 && t > 0) mbar_expect(smem_addr(&bars[par ^ 1]), part_bytes * (two_next ? 2 : 1));
+    const int two_after = t > 1 ? two_of[(long long)(t - 2) * groups + cid] : 0;
+    float gain[MAXO];
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) gain[i] = p0[i];
+    if (t > 0) load_factors(t - 1);  // in flight during the product
+    // partial rx of both classes over the own columns, for every l
+    const float* hst = hs + ((long long)t * B + b0) * S;
+    const float* At = As + t * sa.t;
+    for (int l = tid; l < S; l += NTC) {
+      const float* q = E + l * QP;
+      for (int rc = 0; rc < nr; rc += 4) {
+        float a0[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int w = 0; w < W4; w += 4) {
+          const float q0 = q[w], q1 = q[w + 1], q2 = q[w + 2], q3 = q[w + 3];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            if (rc + r < nr) {
+              const float4 v = *reinterpret_cast<const float4*>(u0 + (rc + r) * W4 + w);
+              a0[r] = fmaf(v.x, q0, a0[r]);
+              a0[r] = fmaf(v.y, q1, a0[r]);
+              a0[r] = fmaf(v.z, q2, a0[r]);
+              a0[r] = fmaf(v.w, q3, a0[r]);
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          if (rc + r < nr) part[(rc + r) * S4 + l] = a0[r];
+      }
+      if (two) {
+        for (int row = 0; row < nr; ++row) {
+          const float hl = hst[(long long)row * S + l];
+          float a1 = 0.f;
+          for (int w = 0; w < wn; ++w) {
+            const float xo = x1s[row * W4 + w];
+            if (xo < INFINITY) a1 = fmaf(u1[row * W4 + w], expf(hl + At[(long long)l * sa.l + w] - xo), a1);
+          }
+          part[(rows + row) * S4 + l] = a1;
+        }
+      }
+    }
+    __syncthreads();
+    const unsigned rbase = smem_addr(recv + par * 2 * C * RW + k * RW);
+    for (int cls = 0; cls < (two ? 2 : 1); ++cls) {
+      const unsigned dst = rbase + 4u * cls * C * RW;
+      const float* src = part + cls * rows * S4;
+#pragma unroll
+      for (int i = 0; i < MAXS; ++i) {
+        const int j = send_j[i];
+        if (j < 0) continue;
+        if (vec)
+          st_async4(peer_addr(dst + 4u * send_dst[i], j), *reinterpret_cast<const float4*>(src + send_src[i]),
+                    peer_addr(bar, j));
+        else
+          st_async(peer_addr(dst + 4u * send_dst[i], j), src[send_src[i]], peer_addr(bar, j));
+      }
+      for (int x = tid + MAXS * NTC; x < nsend; x += NTC) {
+        const int row = x / nq, l = vec ? 4 * (x % nq) : x % nq, j = l / W;
+        if (vec)
+          st_async4(peer_addr(dst + 4u * (row * W4 + l - j * W), j),
+                    *reinterpret_cast<const float4*>(src + row * S4 + l), peer_addr(bar, j));
+        else
+          st_async(peer_addr(dst + 4u * (row * W4 + l - j * W), j), src[row * S4 + l], peer_addr(bar, j));
+      }
+    }
+    // while the partials are in flight: E of the step before, and the
+    // copy of the slice before that
+    if (t > 0) {
+      mbar_wait(sbar, (T - t) & 1);
+      tv_prep_backward(stage, S4, W4, wn, c_in + ((t - 1) * nA + a) * S + r0, E);
+      if (t > 1) tv_stage_slice(cp, As + (t - 2) * sa.t, sa.l, S, wn, W4, stage, sbar, r0, (int)a, t - 2);
+    }
+    mbar_wait(bar, ((T - 1 - t) >> 1) & 1);
+    // rx of the own rows l: the C sources in rank order; dh, then u of the
+    // step before
+    const float* rb = recv + par * 2 * C * RW;
+#pragma unroll
+    for (int i = 0; i < MAXO; ++i) {
+      const int row = own.row[i], w = own.w[i], x = row * W4 + w;
+      if (w < 0) continue;
+      float rx = 0.f;
+      for (int j = 0; j < C; ++j) rx += rb[j * RW + x];
+      float dh = gain[i] * rx;
+      if (two) {
+        float rc = 0.f;
+        for (int j = 0; j < C; ++j) rc += rb[(C + j) * RW + x];
+        dh += rc;
+      }
+      const int r = r0 + w;
+      if (dL) dL[((long long)t * B + b0 + row) * S + r] = dh;
+      if (t > 0) {
+        dR[((long long)(t - 1) * B + b0 + row) * S + r] = dh;
+        u0[x] = dh * f0[i];
+        u1[x] = x1[i] < INFINITY ? dh : 0.f;
+        x1s[x] = x1[i];
+      } else {
+        dalpha0[(long long)(b0 + row) * S + r] = dh;
+      }
+    }
+    two = two_next;
+    two_next = two_after;
+    __syncthreads();
+  }
+}
+
+// dA[t, a, l, r] = E[l, r] sum_b P0[t, b, l] G[t, b, r] F0[t, b, r] plus
+// the class-1 terms G[t, b, r] exp(hs[t, b, l] + A[l, r] - X1[t, b, r]),
+// over the rows b that use A[t, a] (all B when A_t is shared, b = a when
+// each row has its own), in row order.  A block computes one 64x64 (l, r)
+// tile of one dA_t with 16-row steps staged in shared memory, 4x4 outputs
+// per thread; grid (T nA, tiles).
+__global__ void __launch_bounds__(NT) mstvc_fold_kernel(const float* __restrict__ A, TvStrides sa,
+                                                        const float* __restrict__ c_in, const float* __restrict__ hs,
+                                                        const float* __restrict__ P0, const float* __restrict__ F0,
+                                                        const float* __restrict__ X1, const float* __restrict__ G,
+                                                        int B, int T, int S, int nA, float* __restrict__ dA) {
+  __shared__ __align__(16) float Ps[TK][TM + 4];
+  __shared__ __align__(16) float Us[TK][TN + 4];
+  const int tid = threadIdx.x;
+  const int col_tiles = (S + TN - 1) / TN;
+  const int l0 = (blockIdx.y / col_tiles) * TM, r0 = (blockIdx.y % col_tiles) * TN;
+  const long long ta = blockIdx.x, t = ta / nA, a = ta % nA;
+  const int b_begin = nA > 1 ? (int)a : 0, nb = nA > 1 ? 1 : B;
+  const int tl = (tid / 16) * 4, tr = (tid % 16) * 4;
+  float acc[4][4] = {};
+  bool any1 = false;
+  for (int i0 = 0; i0 < nb; i0 += TK) {
+    for (int x = tid; x < TK * TM; x += NT) {
+      const int i = x / TM, l = x % TM;
+      Ps[i][l] = (i0 + i < nb && l0 + l < S) ? P0[(t * B + b_begin + i0 + i) * S + l0 + l] : 0.f;
+    }
+    for (int x = tid; x < TK * TN; x += NT) {
+      const int i = x / TN, r = x % TN;
+      float v = 0.f;
+      if (i0 + i < nb && r0 + r < S) {
+        const long long o = (t * B + b_begin + i0 + i) * S + r0 + r;
+        v = G[o] * F0[o];
+        any1 |= X1[o] < INFINITY;
+      }
+      Us[i][r] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < TK; ++i) {
+      const float4 pv = *reinterpret_cast<const float4*>(&Ps[i][tl]);
+      const float4 uv = *reinterpret_cast<const float4*>(&Us[i][tr]);
+      const float pa[4] = {pv.x, pv.y, pv.z, pv.w};
+      const float ua[4] = {uv.x, uv.y, uv.z, uv.w};
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+#pragma unroll
+        for (int y = 0; y < 4; ++y) acc[x][y] = fmaf(pa[x], ua[y], acc[x][y]);
+    }
+    __syncthreads();
+  }
+  const bool class1 = __syncthreads_or(any1) != 0;
+  const float* At = A + t * sa.t + a * sa.b;
+  const float* ca = c_in + ta * S;
+  float* out = dA + ta * S * S;
+#pragma unroll
+  for (int x = 0; x < 4; ++x)
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int l = l0 + tl + x, r = r0 + tr + y;
+      if (l >= S || r >= S) continue;
+      const float av = At[(long long)l * sa.l + r];
+      float d = expf(av - finite_or_zero(ca[r])) * acc[x][y];
+      if (class1) {
+        for (int i = 0; i < nb; ++i) {
+          const long long o = (t * B + b_begin + i) * S;
+          const float xo = X1[o + r];
+          if (xo < INFINITY) d = fmaf(G[o + r], expf(hs[o + l] + av - xo), d);
+        }
+      }
+      out[(long long)l * S + r] = d;
+    }
+}
+
+// Each cluster kernel's attributes, set once per device and process, as
+// set_attributes does for K2's.
+static int set_tv_attributes(void) {
+  static bool done[64] = {};
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev < 64 && done[dev]) return 0;
+  int optin = 0;
+  err = (int)cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err) return err;
+  const void* kernels[] = {(const void*)mstvc_forward_kernel<4>, (const void*)mstvc_forward_kernel<8>,
+                           (const void*)mstvc_backward_kernel};
+  for (const void* f : kernels) {
+    err = (int)cudaFuncSetAttribute(f, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (err) return err;
+    err = (int)cudaFuncSetAttribute(f, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err) return err;
+  }
+  if (dev < 64) done[dev] = true;
+  return 0;
+}
+
+typedef CUresult (*TvEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of the CUDA library, got through the runtime (no
+// link to libcuda), or null.
+static TvEncodeTiled tv_encoder(void) {
+  static TvEncodeTiled fn = nullptr;
+  static bool tried = false;
+  if (!tried) {
+    tried = true;
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = (TvEncodeTiled)p;
+  }
+  return fn;
+}
+
+// The copy of A's slices for a launch (TvCopy): a tensor map of tiles of W
+// columns and S, S / 2 or S / 4 rows (a box dim is at most 256) where every
+// row of every CTA's slice is 16-byte aligned and a multiple of 16 bytes
+// (S a multiple of 4, so S / 4 divides it: up to 1024) and every box lands
+// 128-byte aligned, else cp.async of 4 bytes (or where the encoder is
+// missing or refuses the map).
+static TvCopy tv_copy(const float* A, TvStrides sa, int S, int C, int per_row_A, int B, int T) {
+  TvCopy cp;
+  memset(&cp, 0, sizeof cp);
+  const int W = cl_width(S, C);
+  const bool vec = W % 4 == 0 && S % 4 == 0 && sa.t % 4 == 0 && sa.b % 4 == 0 && sa.l % 4 == 0 &&
+                   (unsigned long long)A % 16 == 0;
+  const TvEncodeTiled encode = tv_encoder();
+  const int box_rows = S <= 256 ? S : S <= 512 ? S / 2 : S / 4;
+  // every box's destination 128-byte aligned, as a tensor copy needs
+  if (!vec || S > 1024 || (box_rows < S && box_rows * W % 32) || !encode) return cp;
+  cp.box_rows = box_rows;
+  cp.has_b = per_row_A && sa.b != 0;
+  cp.has_t = sa.t != 0;
+  cuuint64_t dims[4] = {(cuuint64_t)S, (cuuint64_t)S, 1, 1}, strides[3] = {4ull * sa.l, 0, 0};
+  cuuint32_t box[4] = {(cuuint32_t)W, (cuuint32_t)cp.box_rows, 1, 1}, unit[4] = {1, 1, 1, 1};
+  int rank = 2;
+  if (cp.has_b) {
+    dims[rank] = B;
+    strides[rank - 1] = 4ull * sa.b;
+    ++rank;
+  }
+  if (cp.has_t) {
+    dims[rank] = T;
+    strides[rank - 1] = 4ull * sa.t;
+    ++rank;
+  }
+  if (encode(&cp.map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank, (void*)A, dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS)
+    cp.tma = 1;
+  return cp;
 }
 
 extern "C" {
@@ -1531,26 +2379,110 @@ int msc_backward(const float* A, const float* alphas, const float* zs, const flo
 // Time-varying scan (K2g).  alpha0 (B, S); A (T, nA, S, S), nA 1 or B; R and
 // L (T, B, S), L may be null; outputs: hs and o (T, B, S), kept for the
 // backward, and out (B, S).
-int mstv_forward(const float* alpha0, const float* A, const float* R, const float* L, int B, int T, int S, int nA,
-                 float* hs, float* o, float* out, void* stream) {
+// Streaming route.  A_t[l, r] of row b at A[t sAt + b sAb + l sAl + r].
+int mstv_forward(const float* alpha0, const float* A, long long sAt, long long sAb, long long sAl, const float* R,
+                 const float* L, int B, int T, int S, int nA, float* hs, float* o, float* out, void* stream) {
   clear_last_error();
   const size_t smem = (2 * (size_t)S + 2 * NTS + NTS / 32) * sizeof(float);
-  mstv_forward_kernel<<<B, NTS, smem, (cudaStream_t)stream>>>(alpha0, A, R, L, B, T, S, nA > 1, hs, o, out);
+  const TvStrides sa = {sAt, sAb, (int)sAl};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (sAl == S)
+    mstv_forward_kernel<true><<<B, NTS, smem, st>>>(alpha0, A, sa, R, L, B, T, S, nA > 1, hs, o, out);
+  else
+    mstv_forward_kernel<false><<<B, NTS, smem, st>>>(alpha0, A, sa, R, L, B, T, S, nA > 1, hs, o, out);
   return (int)cudaGetLastError();
 }
 
 // gout (B, S) is dloss/dalpha_T; hs and o are the forward's.  Outputs
-// dalpha0 (B, S), dR (T, B, S), dL (T, B, S) or null, dA (T, nA, S, S).
-int mstv_backward(const float* A, const float* hs, const float* o, const float* gout, float* dL, int B, int T,
-                  int S, int nA, float* dalpha0, float* dR, float* dA, void* stream) {
+// dalpha0 (B, S), dR (T, B, S), dL (T, B, S) or null, dA (T, nA, S, S)
+// (contiguous, whatever A's strides).
+int mstv_backward(const float* A, long long sAt, long long sAb, long long sAl, const float* hs, const float* o,
+                  const float* gout, float* dL, int B, int T, int S, int nA, float* dalpha0, float* dR, float* dA,
+                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   clear_last_error();
   const size_t smem = 4 * (size_t)S * sizeof(float);
-  mstv_backward_kernel<<<B, NTS, smem, st>>>(A, hs, o, gout, B, T, S, nA > 1, dR, dL, dalpha0);
+  const TvStrides sa = {sAt, sAb, (int)sAl};
+  mstv_backward_kernel<<<B, NTS, smem, st>>>(A, sa, hs, o, gout, B, T, S, nA > 1, dR, dL, dalpha0);
   int err = (int)cudaGetLastError();
   if (err) return err;
   dim3 grid((unsigned)T * nA, ((S + 255) / 256) * ((S + FOLD_L - 1) / FOLD_L));
-  mstv_fold_kernel<<<grid, 256, 0, st>>>(A, hs, o, dR, B, T, S, nA, dA);
+  mstv_fold_kernel<<<grid, 256, 0, st>>>(A, sa, hs, o, dR, B, T, S, nA, dA);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory in bytes of a CTA of K2g's cluster route, forward
+// (backward = 0) or backward.
+long long mstvc_smem_bytes(int S, int C, int rows, int backward) {
+  return 4 * (backward ? tvc_backward_floats(S, C, rows) : tvc_forward_floats(S, C, rows));
+}
+
+// How many clusters of C CTAs the device runs at once, for both of K2g's
+// cluster kernels at their shared memory for (S, rows): the smaller count.
+int mstvc_active_clusters(int S, int C, int rows, int* count) {
+  int err = set_tv_attributes();
+  if (err) return err;
+  int n[2] = {0, 0};
+  const void* kernels[2] = {cl_slots(S, rows) <= 4 ? (const void*)mstvc_forward_kernel<4>
+                                                   : (const void*)mstvc_forward_kernel<8>,
+                            (const void*)mstvc_backward_kernel};
+  for (int i = 0; i < 2; ++i) {
+    ClusterLaunch launch(C, 1, (size_t)mstvc_smem_bytes(S, C, rows, i), 0);
+    err = (int)cudaOccupancyMaxActiveClusters(&n[i], kernels[i], &launch.cfg);
+    if (err) return err;
+  }
+  *count = n[0] < n[1] ? n[0] : n[1];
+  return 0;
+}
+
+// Cluster route, clusters of C CTAs, each taking `rows` rows (1 when
+// nA = B).  Arguments as mstv_forward's; c (T, nA, S), the raw column
+// maxima of each A_t, is an output kept for the backward.
+int mstvc_forward(const float* alpha0, const float* A, long long sAt, long long sAb, long long sAl, const float* R,
+                  const float* L, int B, int T, int S, int nA, int C, int rows, float* hs, float* o, float* c,
+                  float* out, void* stream) {
+  if (!cl_takes(S, C, rows)) return (int)cudaErrorInvalidValue;
+  clear_last_error();
+  int err = set_tv_attributes();
+  if (err) return err;
+  const TvStrides sa = {sAt, sAb, (int)sAl};
+  ClusterLaunch launch(C, (B + rows - 1) / rows, (size_t)mstvc_smem_bytes(S, C, rows, 0), (cudaStream_t)stream);
+  err = (int)cudaLaunchKernelEx(&launch.cfg,
+                                cl_slots(S, rows) <= 4 ? mstvc_forward_kernel<4> : mstvc_forward_kernel<8>, alpha0,
+                                A, sa, R, L, B, T, S, (int)(nA > 1), rows, tv_copy(A, sa, S, C, nA > 1, B, T), hs, o,
+                                c, out);
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// Arguments as mstv_backward's, with the forward's c; C and rows as the
+// forward's.  Scratch: P0, F0, X1 (T, B, S) and two (T, ceil(B / rows)) ints.
+int mstvc_backward(const float* A, long long sAt, long long sAb, long long sAl, const float* hs, const float* o,
+                   const float* c, const float* gout, float* dL, int B, int T, int S, int nA, int C, int rows,
+                   float* dalpha0, float* dR, float* dA, float* P0, float* F0, float* X1, int* two, void* stream) {
+  if (!cl_takes(S, C, rows)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  clear_last_error();
+  int err = set_tv_attributes();
+  if (err) return err;
+  const TvStrides sa = {sAt, sAb, (int)sAl};
+  const int groups = (B + rows - 1) / rows;
+  err = (int)cudaMemsetAsync(two, 0, sizeof(int) * (size_t)T * groups, st);
+  if (err) return err;
+  const long long nrows = (long long)T * B;
+  mstvc_stats_kernel<<<(unsigned)((nrows + NT / 32 - 1) / (NT / 32)), NT, 0, st>>>(hs, o, c, B, T, S, nA > 1, rows,
+                                                                                   two, P0, F0, X1);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  ClusterLaunch launch(C, groups, (size_t)mstvc_smem_bytes(S, C, rows, 1), st);
+  err = (int)cudaLaunchKernelEx(&launch.cfg, mstvc_backward_kernel, A, sa, c, hs, (const float*)P0,
+                                (const float*)F0, (const float*)X1, (const int*)two, gout, B, T, S, (int)(nA > 1),
+                                rows, tv_copy(A, sa, S, C, nA > 1, B, T), dR, dL, dalpha0);
+  if (err) return err;
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  dim3 grid((unsigned)T * nA, ((S + TM - 1) / TM) * ((S + TN - 1) / TN));
+  mstvc_fold_kernel<<<grid, NT, 0, st>>>(A, sa, c, hs, P0, F0, X1, dR, B, T, S, nA, dA);
   return (int)cudaGetLastError();
 }
 

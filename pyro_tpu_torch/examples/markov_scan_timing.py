@@ -1,18 +1,19 @@
 """Time K2, the Markov-chain scan, forward and backward on both routes at
 model_1v's shape (B=32 sequences, T'=127 steps, S=256 states, emissions
 about -35 a step), and K2g, the time-varying scan, at model_1vt's (the
-same with a transition per step, shared by the sequences), on the card,
-for the checkout whose root is given.
+same with a transition per step, shared by the sequences) on both of its
+routes, on the card, for the checkout whose root is given.
 
 Two versions of the kernels compare only within one machine's run: call
-this once per checkout, in turns (parent, change, change, parent), from
-one command::
+each checkout's own copy of this script, in turns (parent, change, change,
+parent), from one command::
 
-    python pyro_tpu_torch/examples/markov_scan_timing.py <checkout root>
+    python <checkout root>/pyro_tpu_torch/examples/markov_scan_timing.py <checkout root>
 
 It prints one JSON line: the root, and the mean ms of each route's forward
-and backward over 10 launches ("tv" for K2g), timed in turns a, b, c, c,
-b, a after a warm-up launch.
+and backward over 10 launches ("tv" for K2g on the route the wrapper
+chooses, "tv_stream" on the streaming route), timed in turns a, b, c, d,
+d, c, b, a after a warm-up launch.
 """
 
 import json
@@ -54,16 +55,18 @@ def main(root):
     g = torch.randn((B, S), generator=gen, device="cuda")
     At = torch.log_softmax(torch.randn((steps, S, S), generator=gen, device="cuda") * 2.0, dim=-1)
     plans = {"cluster": None, "stream": ms.ScanPlan("stream")}
+    tv_plans = {"tv": None, "tv_stream": ms.ScanPlan("stream")}
     with torch.no_grad():
         saved = {route: ms._forward_cuda(alpha0, A, R, plan=plan)[1] for route, plan in plans.items()}
-        _, hs, os = ms._tv_forward_cuda(alpha0, At, R)
+        saved.update({route: ms._tv_forward_cuda(alpha0, At, R, plan=plan)[1] for route, plan in tv_plans.items()})
         forward = in_turns(torch, {
             **{route: (lambda plan=plan: ms._forward_cuda(alpha0, A, R, plan=plan)) for route, plan in plans.items()},
-            "tv": lambda: ms._tv_forward_cuda(alpha0, At, R),
+            **{route: (lambda plan=plan: ms._tv_forward_cuda(alpha0, At, R, plan=plan))
+               for route, plan in tv_plans.items()},
         })
     backward = in_turns(torch, {
-        **{route: (lambda s=s: ms._backward_cuda(A, None, s, g)) for route, s in saved.items()},
-        "tv": lambda: ms._tv_backward_cuda(At, None, hs, os, g),
+        **{route: (lambda s=saved[route]: ms._backward_cuda(A, None, s, g)) for route in plans},
+        **{route: (lambda s=saved[route]: ms._tv_backward_cuda(At, None, s, g)) for route in tv_plans},
     })
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0), "forward": forward,
                       "backward": backward}))

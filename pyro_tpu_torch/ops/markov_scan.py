@@ -28,10 +28,15 @@ other.
 the general body of the JAX package's ``_try_scan_elimination``.  Its
 values are that body's (-inf for a state no path reaches), its gradients
 finite and 0 through every -inf entry.  On CUDA tensors it is one launch of
-the ``mstv_*`` kernels of ``csrc/markov_scan.cu`` (its backward one more),
-behind a ``torch.autograd.Function``; on CPU tensors
-``markov_scan_tv_plain`` runs, the plain loop under autograd that the
-kernels are held against.
+K2g's kernels in ``csrc/markov_scan.cu`` (its backward one more), behind a
+``torch.autograd.Function``; on CPU tensors ``markov_scan_tv_plain`` runs,
+the plain loop under autograd that the kernels are held against.  K2g has
+two routes too, which ``plan_scan_tv`` chooses by shape: the cluster route
+(``mstvc_*``), which streams each step's column slices of A_t into the
+shared memory of a cluster's CTAs one step ahead, wherever a slice fits,
+and the streaming route (``mstv_*``), a block a row reading A_t from L2,
+for larger S.  Both read A_t by its strides, so a transition constant in
+time (an ``expand`` with time stride 0) is not copied.
 """
 
 from __future__ import annotations
@@ -159,13 +164,16 @@ CLUSTER_SIZES = (8, 16)
 CLUSTER_THREADS = 256  # NTC of csrc/markov_scan.cu
 
 
-# Launches of the time-varying scan's kernels (K2g), counted by the wrapper:
-# a forward launch runs one kernel, a backward launch two (the reverse scan,
-# then the dA_t fold).
+# Launches of the time-varying scan's kernels (K2g), counted by the wrapper,
+# on either route: a forward launch runs one kernel; a backward launch runs,
+# on the cluster route, the statistics kernel, the reverse scan and the
+# dA_t fold, on the streaming route the reverse scan and the fold.
 tv_launches = {"forward": 0, "backward": 0}
-# K2g's backward block keeps 4 rows of S floats in dynamic shared memory,
-# under the 48 KB a launch gets without opting in to more (the forward's
-# 2 S + 2080 floats allow a larger S)
+# the same launches by route
+tv_route_launches = {"cluster": {"forward": 0, "backward": 0}, "stream": {"forward": 0, "backward": 0}}
+# K2g's streaming backward block keeps 4 rows of S floats in dynamic shared
+# memory, under the 48 KB a launch gets without opting in to more (the
+# forward's 2 S + 2080 floats allow a larger S)
 MAX_STATES_TV = 48 * 1024 // (4 * 4)
 
 
@@ -173,7 +181,7 @@ def reset_counts():
     """Set every launch count to 0."""
     launches.update(forward=0, backward=0)
     tv_launches.update(forward=0, backward=0)
-    for counts in route_launches.values():
+    for counts in (*route_launches.values(), *tv_route_launches.values()):
         counts.update(forward=0, backward=0)
 
 
@@ -224,9 +232,23 @@ def cluster_takes(S, C, rows):
     return slots <= 8 and rows * W <= 4 * CLUSTER_THREADS and _round4(W) <= CLUSTER_THREADS
 
 
+def tv_cluster_smem_bytes(S, C, rows, backward=False):
+    """Dynamic shared memory of a CTA of K2g's cluster route, forward or
+    backward; the layout of ``tvc_forward_floats`` and
+    ``tvc_backward_floats`` in ``csrc/markov_scan.cu``: the staged slice of
+    A_t and E = exp(A_t - c) beside K2's carry and exchange buffers."""
+    W4, S4, R = _round4(-(-S // C)), _round4(S), rows
+    slices = 8 + S4 * W4 + _round4(S4 * (W4 + 1))
+    if backward:
+        floats = slices + 4 * C * R * W4 + 2 * R * S4 + 3 * R * W4
+    else:
+        floats = slices + 4 * R * S4 + R * CLUSTER_THREADS + R * W4 + 8 * R + _round4(2 * R) + CLUSTER_THREADS + W4
+    return 4 * floats
+
+
 def plan_scan(B, S, nA, smem_limit, active_clusters):
-    """The route for B rows of S states with nA transition matrices (1 or
-    B), given a block's shared-memory limit in bytes and
+    """The route of K2 for B rows of S states with nA transition matrices
+    (1 or B), given a block's shared-memory limit in bytes and
     ``active_clusters(C, rows)``, how many clusters of C CTAs taking
     ``rows`` rows each the device runs at once.
 
@@ -237,8 +259,20 @@ def plan_scan(B, S, nA, smem_limit, active_clusters):
     has its own A, else the fewest rows a cluster that let all
     ceil(B / rows) clusters run at once (the most that fit, if none do).
     The streaming route takes what no cluster holds."""
+    return _plan(B, S, nA, smem_limit, active_clusters, cluster_smem_bytes)
+
+
+def plan_scan_tv(B, S, nA, smem_limit, active_clusters):
+    """The route of K2g for B rows of S states with A_t shared (nA = 1) or
+    one per row (nA = B), chosen as ``plan_scan`` chooses K2's, with the
+    shared memory of K2g's cluster kernels (``tv_cluster_smem_bytes``) and
+    ``active_clusters`` counting their clusters."""
+    return _plan(B, S, nA, smem_limit, active_clusters, tv_cluster_smem_bytes)
+
+
+def _plan(B, S, nA, smem_limit, active_clusters, smem_bytes):
     def fits(C, rows):
-        smem = max(cluster_smem_bytes(S, C, rows), cluster_smem_bytes(S, C, rows, True))
+        smem = max(smem_bytes(S, C, rows), smem_bytes(S, C, rows, True))
         return cluster_takes(S, C, rows) and smem <= smem_limit
 
     for C in CLUSTER_SIZES:
@@ -279,10 +313,19 @@ def _lib():
     lib.msc_active_clusters.restype = ctypes.c_int
     lib.msc_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.msc_smem_limit.restype = ctypes.c_int
-    lib.mstv_forward.argtypes = [_P, _P, _P, _P, _c, _c, _c, _c, _P, _P, _P, _P]
+    _l = ctypes.c_longlong
+    lib.mstv_forward.argtypes = [_P, _P, _l, _l, _l, _P, _P, _c, _c, _c, _c, _P, _P, _P, _P]
     lib.mstv_forward.restype = ctypes.c_int
-    lib.mstv_backward.argtypes = [_P] * 5 + [_c] * 4 + [_P] * 4
+    lib.mstv_backward.argtypes = [_P, _l, _l, _l] + [_P] * 4 + [_c] * 4 + [_P] * 4
     lib.mstv_backward.restype = ctypes.c_int
+    lib.mstvc_forward.argtypes = [_P, _P, _l, _l, _l, _P, _P] + [_c] * 6 + [_P] * 5
+    lib.mstvc_forward.restype = ctypes.c_int
+    lib.mstvc_backward.argtypes = [_P, _l, _l, _l] + [_P] * 5 + [_c] * 6 + [_P] * 8
+    lib.mstvc_backward.restype = ctypes.c_int
+    lib.mstvc_smem_bytes.argtypes = [_c, _c, _c, _c]
+    lib.mstvc_smem_bytes.restype = ctypes.c_longlong
+    lib.mstvc_active_clusters.argtypes = [_c, _c, _c, ctypes.POINTER(ctypes.c_int)]
+    lib.mstvc_active_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -302,10 +345,21 @@ def active_clusters(S, C, rows, device):
     return _query(_lib().msc_active_clusters, S, C, rows, device=device)
 
 
+def active_clusters_tv(S, C, rows, device):
+    """``active_clusters`` for K2g's cluster kernels."""
+    return _query(_lib().mstvc_active_clusters, S, C, rows, device=device)
+
+
 @functools.cache
 def _device_plan(B, S, nA, device):
     smem_limit = _query(_lib().msc_smem_limit, device=device)
     return plan_scan(B, S, nA, smem_limit, lambda C, rows: active_clusters(S, C, rows, device))
+
+
+@functools.cache
+def _device_plan_tv(B, S, nA, device):
+    smem_limit = _query(_lib().msc_smem_limit, device=device)
+    return plan_scan_tv(B, S, nA, smem_limit, lambda C, rows: active_clusters_tv(S, C, rows, device))
 
 
 def _ptr(t):
@@ -447,71 +501,119 @@ def markov_scan(alpha0, A, R, L=None, plan=None):
 # -- the time-varying scan (K2g): CUDA kernels and the wrapper ---------------------
 
 
-def _tv_forward_cuda(alpha0, A, R, L=None):
-    """alpha_T and what the backward reads, hs_t = h_t - m_t and
-    o_t = logsumexp_l(hs_t + A_t) (T, B, S) each, by one launch of
-    ``mstv_forward_kernel``."""
+def _tv_strides(A):
+    """A with its last dim contiguous and its l stride below 2^31 (copied
+    only if not), and the strides of A_t's time, row (0 where A_t is shared)
+    and l dims."""
+    if (A.stride(-1) != 1 and A.shape[-1] > 1) or A.stride(-2) >= 2**31:
+        A = A.contiguous()
+    st = A.stride()
+    return A, st[0], (st[1] if A.ndim == 4 else 0), st[-2]
+
+
+def _tv_plan(plan, B, S, nA, device):
+    if plan is None:
+        plan = _device_plan_tv(B, S, nA, device)
+    if plan.route == "stream" and S > MAX_STATES_TV:
+        raise ValueError(f"markov_scan_tv: the streaming route takes S <= {MAX_STATES_TV}, got {S}")
+    if plan.route == "cluster" and (not cluster_takes(S, plan.cluster, plan.rows) or (nA > 1 and plan.rows != 1)):
+        raise ValueError(f"markov_scan_tv: bad cluster plan {plan} for nA={nA}")
+    return plan
+
+
+def _tv_forward_cuda(alpha0, A, R, L=None, plan=None):
+    """alpha_T and what the backward reads: the plan, hs_t = h_t - m_t and
+    o_t = logsumexp_l(hs_t + A_t) (T, B, S) each and, on the cluster route,
+    c_t, the raw column maxima of each A_t (T, nA, S); one kernel launch.
+    ``plan`` (a ``ScanPlan``) forces a route; by default ``plan_scan_tv``
+    chooses by shape."""
     _check_tv_shapes(alpha0, A, R, L)
     _check_cuda(alpha0, A, R, L)
     T, B, S = R.shape
-    if T == 0 or B == 0 or S == 0 or S > MAX_STATES_TV:
-        raise ValueError(f"markov_scan_tv: the kernel takes 1 <= T, 1 <= B and 1 <= S <= {MAX_STATES_TV}, "
-                         f"got {T, B, S}")
+    if T == 0 or B == 0 or S == 0:
+        raise ValueError(f"markov_scan_tv: the kernel takes 1 <= T, 1 <= B and 1 <= S, got {T, B, S}")
     nA = 1 if A.ndim == 3 else B
-    alpha0, A, R = alpha0.contiguous(), A.contiguous(), R.contiguous()
+    plan = _tv_plan(plan, B, S, nA, alpha0.device)
+    A, sAt, sAb, sAl = _tv_strides(A)
+    alpha0, R = alpha0.contiguous(), R.contiguous()
     L = None if L is None else L.contiguous()
     new = functools.partial(torch.empty, dtype=alpha0.dtype, device=alpha0.device)
     hs, os, out = new((T, B, S)), new((T, B, S)), new((B, S))
-    err = _lib().mstv_forward(alpha0.data_ptr(), A.data_ptr(), R.data_ptr(), _ptr(L), B, T, S, nA,
-                              hs.data_ptr(), os.data_ptr(), out.data_ptr(), _stream(alpha0))
+    cs = None
+    if plan.route == "cluster":
+        cs = new((T, nA, S))
+        err = _lib().mstvc_forward(alpha0.data_ptr(), A.data_ptr(), sAt, sAb, sAl, R.data_ptr(), _ptr(L), B, T, S, nA,
+                                   plan.cluster, plan.rows, hs.data_ptr(), os.data_ptr(), cs.data_ptr(),
+                                   out.data_ptr(), _stream(alpha0))
+    else:
+        err = _lib().mstv_forward(alpha0.data_ptr(), A.data_ptr(), sAt, sAb, sAl, R.data_ptr(), _ptr(L), B, T, S, nA,
+                                  hs.data_ptr(), os.data_ptr(), out.data_ptr(), _stream(alpha0))
     if err:
-        raise RuntimeError(f"markov_scan_tv forward failed to launch: CUDA error {err}")
+        raise RuntimeError(f"markov_scan_tv forward ({plan}) failed to launch: CUDA error {err}")
     tv_launches["forward"] += 1
-    return out, hs, os
+    tv_route_launches[plan.route]["forward"] += 1
+    return out, (plan, hs, os, cs)
 
 
-def _tv_backward_cuda(A, L, hs, os, g):
-    """dalpha0, dA (one per step, and per row where A has a row axis), dR
-    and dL (None without L) from dloss/dalpha_T: ``mstv_backward_kernel``
-    (the reverse scan) and ``mstv_fold_kernel`` (dA_t)."""
-    _check_cuda(g, A, L, hs, os)
+def _tv_backward_cuda(A, L, saved, g):
+    """dalpha0, dA (A's shape: one per step, and per row where A has a row
+    axis), dR and dL (None without L) from dloss/dalpha_T, on the forward's
+    route: ``mstvc_stats_kernel``, ``mstvc_backward_kernel`` (the reverse
+    scan) and ``mstvc_fold_kernel`` (dA_t), or ``mstv_backward_kernel`` and
+    ``mstv_fold_kernel``."""
+    plan, hs, os, cs = saved
+    _check_cuda(g, A, L, hs, os, cs)
     T, B, S = hs.shape
     if g.shape != (B, S):
         raise ValueError(f"markov_scan_tv: gradient shape {tuple(g.shape)} != ({B}, {S})")
     nA = 1 if A.ndim == 3 else B
-    g, A = g.contiguous(), A.contiguous()
+    shape = A.shape
+    A, sAt, sAb, sAl = _tv_strides(A)
+    g = g.contiguous()
     L = None if L is None else L.contiguous()
     new = functools.partial(torch.empty, dtype=g.dtype, device=g.device)
-    dalpha0, dR, dA = new((B, S)), new((T, B, S)), new(A.shape)
+    dalpha0, dR, dA = new((B, S)), new((T, B, S)), new(shape)
     dL = None if L is None else new((T, B, S))
-    err = _lib().mstv_backward(A.data_ptr(), hs.data_ptr(), os.data_ptr(), g.data_ptr(), _ptr(dL), B, T, S, nA,
-                               dalpha0.data_ptr(), dR.data_ptr(), dA.data_ptr(), _stream(g))
+    if plan.route == "cluster":
+        # the classes of the columns and their factors (mstvc_stats_kernel)
+        P0, F0, X1 = new((T, B, S)), new((T, B, S)), new((T, B, S))
+        two = torch.empty((T, -(-B // plan.rows)), dtype=torch.int32, device=g.device)
+        err = _lib().mstvc_backward(A.data_ptr(), sAt, sAb, sAl, hs.data_ptr(), os.data_ptr(), cs.data_ptr(),
+                                    g.data_ptr(), _ptr(dL), B, T, S, nA, plan.cluster, plan.rows, dalpha0.data_ptr(),
+                                    dR.data_ptr(), dA.data_ptr(), P0.data_ptr(), F0.data_ptr(), X1.data_ptr(),
+                                    two.data_ptr(), _stream(g))
+    else:
+        err = _lib().mstv_backward(A.data_ptr(), sAt, sAb, sAl, hs.data_ptr(), os.data_ptr(), g.data_ptr(), _ptr(dL),
+                                   B, T, S, nA, dalpha0.data_ptr(), dR.data_ptr(), dA.data_ptr(), _stream(g))
     if err:
-        raise RuntimeError(f"markov_scan_tv backward failed to launch: CUDA error {err}")
+        raise RuntimeError(f"markov_scan_tv backward ({plan}) failed to launch: CUDA error {err}")
     tv_launches["backward"] += 1
+    tv_route_launches[plan.route]["backward"] += 1
     return dalpha0, dA, dR, dL
 
 
 class _MarkovScanTVCUDA(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, alpha0, A, R, L):
-        out, hs, os = _tv_forward_cuda(alpha0, A, R, L)
-        ctx.save_for_backward(A, L, hs, os)
+    def forward(ctx, alpha0, A, R, L, plan):
+        out, (plan, *saved) = _tv_forward_cuda(alpha0, A, R, L, plan)
+        ctx.plan = plan
+        ctx.save_for_backward(A, L, *saved)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        A, L, hs, os = ctx.saved_tensors
-        return _tv_backward_cuda(A, L, hs, os, g)
+        A, L, *saved = ctx.saved_tensors
+        return (*_tv_backward_cuda(A, L, (ctx.plan, *saved), g), None)
 
 
-def markov_scan_tv(alpha0, A, R, L=None):
+def markov_scan_tv(alpha0, A, R, L=None, plan=None):
     """``alpha_T`` of ``markov_scan_tv_plain``'s recurrence.  CUDA tensors
     go through the hand-written kernels with their analytic backward (one
     launch forward, one backward; float32 only, raising rather than
-    falling back); CPU tensors go through the plain version.  Replaces the
-    general body of ``pyro_tpu/ops/markov_product.py:427-451`` scanned at
-    ``:469``."""
+    falling back), on the route ``plan_scan_tv`` chooses by shape unless
+    ``plan`` (a ``ScanPlan``) names one; CPU tensors go through the plain
+    version.  Replaces the general body of
+    ``pyro_tpu/ops/markov_product.py:427-451`` scanned at ``:469``."""
     if any(t is not None and t.is_cuda for t in (alpha0, A, R, L)):
-        return _MarkovScanTVCUDA.apply(alpha0, A, R, L)
+        return _MarkovScanTVCUDA.apply(alpha0, A, R, L, plan)
     return markov_scan_tv_plain(alpha0, A, R, L)

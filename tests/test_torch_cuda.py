@@ -33,7 +33,10 @@ the filter's Gamma rtol 1e-4 and its mean and covariance rtol and atol
 the time-varying scan: -inf exactly where the float64 plain version has
 it, finite values within atol 1e-4 plus rtol 1e-6 of it, each gradient
 within 1e-4 (a few steps) or 1e-3 (127 dependent steps, or unreachable
-states) times its largest entry of float64's; model_1vt's step as a
+states) times its largest entry of float64's, on both of its routes (the
+cluster route the wrapper's choice at every case that it takes, the
+streaming route forced), with a built underflow case and a transition read
+in place with time stride 0; model_1vt's step as a
 training step's; the pairwise fallback's loss rtol 1e-5 and gradients rtol
 1e-4 with atol 1e-5 times their largest entry of the float64 CPU run's.
 """
@@ -1011,17 +1014,49 @@ def _tv_inputs(rng, B, T, S, cuda, per_row_A=False, with_L=False, unreachable=Fa
     return [None if a is None else torch.tensor(a, dtype=torch.float32, device=cuda) for a in (alpha0, A, R, L)]
 
 
-def _compare_tv(inputs, g, tol):
+def _underflow_inputs(rng, B, T, S, cuda, per_row_A=False):
+    """Data on which K2g's factored sum is 0 at the even columns of every
+    step while the true value is finite: hs peaks at l = 0 (R keeps state 0
+    about 200 above the others) and A_t[0, r] is about -200 at the even
+    columns (``tests/test_torch_scan_tv_form.py::underflow_inputs``)."""
+    A = rng.normal(size=(T, B, S, S) if per_row_A else (T, S, S)) * 2.0
+    A[..., 0, 0::2] = -200.0 + rng.normal(size=A[..., 0, 0::2].shape)
+    R = rng.normal(size=(T, B, S))
+    R[..., 1::2] -= 400.0
+    R[..., 2::2] -= 200.0
+    alpha0 = rng.normal(size=(B, S)) - 200.0
+    alpha0[:, 0] = 0.0
+    return [torch.tensor(a, dtype=torch.float32, device=cuda) for a in (alpha0, A, R)] + [None]
+
+
+def _tv_route(inputs, route):
+    """The plan that runs K2g on ``route``: the wrapper's choice (checked to
+    be that route), or the streaming route forced."""
+    alpha0, A = inputs[0], inputs[1]
+    B, S = alpha0.shape
+    chosen = ms._device_plan_tv(B, S, 1 if A.ndim == 3 else B, alpha0.device)
+    if route == "cluster":
+        assert chosen.route == "cluster", chosen
+        return None
+    return None if chosen.route == route else ms.ScanPlan(route)
+
+
+def _compare_tv(inputs, g, tol, route=None):
     """K2g forward and every gradient against the plain version in float64:
     -inf exactly where it is -inf, the finite values within atol 1e-4 plus
-    rtol 1e-6, each gradient finite and within ``tol * max|grad|``."""
+    rtol 1e-6, each gradient finite and within ``tol * max|grad|``; on
+    ``route`` if one is named (one launch each way counted there)."""
     leaves = [None if t is None else t.clone().requires_grad_() for t in inputs]
+    plan = None if route is None else _tv_route(inputs, route)
     n = dict(ms.tv_launches)
+    on_route = {k: dict(v) for k, v in ms.tv_route_launches.items()}
     k2 = dict(ms.launches)
-    out = ms.markov_scan_tv(*leaves)
+    out = ms.markov_scan_tv(*leaves, plan=plan)
     (out * g).sum().backward()
     torch.cuda.synchronize()
     assert ms.tv_launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1}
+    if route is not None:
+        assert ms.tv_route_launches[route] == {k: v + 1 for k, v in on_route[route].items()}
     assert ms.launches == k2
     leaves64 = [None if t is None else t.double().requires_grad_() for t in inputs]
     out64 = ms.markov_scan_tv_plain(*leaves64)
@@ -1036,29 +1071,57 @@ def _compare_tv(inputs, g, tol):
     return out.detach(), [None if k is None else k.grad for k in leaves]
 
 
-@pytest.mark.parametrize(
-    "B,T,S,per_row_A,with_L,tol",
-    [
-        (32, 127, 256, False, False, 1e-3),  # model_1vt's shape
-        (8, 63, 64, True, False, 1e-4),
-        (3, 6, 37, False, True, 1e-4),
-        (3, 6, 37, True, True, 1e-4),
-        (4, 9, 7, False, True, 1e-4),  # odd S
-        (2, 5, 257, True, False, 1e-4),
-        (5, 1, 33, False, True, 1e-4),  # T=1
-        (2, 2, ms.MAX_STATES_TV, False, True, 1e-4),  # the largest S the kernels take
-    ],
-)
-def test_tv_scan_kernel_matches_plain(cuda, B, T, S, per_row_A, with_L, tol):
+_TV_CASES = [
+    (32, 127, 256, False, False, 1e-3),  # model_1vt's shape
+    (8, 63, 64, True, False, 1e-4),
+    (3, 6, 37, False, True, 1e-4),
+    (3, 6, 37, True, True, 1e-4),
+    (4, 9, 7, False, True, 1e-4),  # odd S
+    (2, 5, 257, True, False, 1e-4),
+    (5, 1, 33, False, True, 1e-4),  # T=1
+    (2, 3, 640, False, True, 1e-4),  # the cluster route at C=16, W=40
+]
+TV_ROUTES = ["cluster", "stream"]
+
+
+@pytest.mark.parametrize("route", TV_ROUTES)
+@pytest.mark.parametrize("B,T,S,per_row_A,with_L,tol", _TV_CASES)
+def test_tv_scan_kernel_matches_plain(cuda, B, T, S, per_row_A, with_L, tol, route):
     rng = np.random.default_rng(1000 + S)
     inputs = _tv_inputs(rng, B, T, S, cuda, per_row_A, with_L, emission=-35.0 if T > 100 else 0.0)
     g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
-    _compare_tv(inputs, g, tol)
+    _compare_tv(inputs, g, tol, route)
 
 
+@pytest.mark.parametrize("B,T,S", [(2, 2, ms.MAX_STATES_TV), (2, 3, 1024)])
+def test_tv_scan_past_the_cluster_route_takes_the_streaming_route(cuda, B, T, S):
+    """A shape whose slice and E fit no CTA's shared memory (S=1024, and the
+    largest S the streaming route takes) is routed to the streaming route by
+    plan, before any launch, and matches the plain version in float64."""
+    assert ms._device_plan_tv(B, S, 1, cuda) == ms.ScanPlan("stream")
+    rng = np.random.default_rng(1000 + S)
+    inputs = _tv_inputs(rng, B, T, S, cuda, with_L=True)
+    g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
+    _compare_tv(inputs, g, 1e-4, "stream")
+
+
+def test_model_1vt_shape_takes_the_cluster_route(cuda):
+    """At model_1vt's shape (B=32, S=256, A_t shared) the wrapper plans K2g's
+    cluster route; one forward launch is counted on it."""
+    plan = ms._device_plan_tv(32, 256, 1, cuda)
+    assert plan.route == "cluster" and plan.cluster >= 8, plan
+    rng = np.random.default_rng(4)
+    alpha0, A, R, _ = _tv_inputs(rng, 32, 4, 256, cuda)
+    n = dict(ms.tv_route_launches["cluster"])
+    with torch.no_grad():
+        ms.markov_scan_tv(alpha0, A, R)
+    assert ms.tv_route_launches["cluster"]["forward"] == n["forward"] + 1
+
+
+@pytest.mark.parametrize("route", TV_ROUTES)
 @pytest.mark.parametrize("seed", range(3))
 @pytest.mark.parametrize("per_row_A", [False, True])
-def test_tv_scan_kernel_unreachable_states(cuda, seed, per_row_A):
+def test_tv_scan_kernel_unreachable_states(cuda, seed, per_row_A, route):
     """Columns of A_t that no state reaches, -inf entries and -inf states
     of alpha0: -inf values where the plain version has them, no NaN, each
     gradient within 1e-3 * max|grad| of float64."""
@@ -1066,7 +1129,50 @@ def test_tv_scan_kernel_unreachable_states(cuda, seed, per_row_A):
     B, T, S = (8, 63, 64) if per_row_A else (32, 127, 256)
     inputs = _tv_inputs(rng, B, T, S, cuda, per_row_A, unreachable=True, emission=-35.0)
     g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
-    _compare_tv(inputs, g, 1e-3)
+    _compare_tv(inputs, g, 1e-3, route)
+
+
+@pytest.mark.parametrize("route", TV_ROUTES)
+@pytest.mark.parametrize("per_row_A", [False, True])
+def test_tv_scan_kernel_underflow_case(cuda, per_row_A, route):
+    """hs and A_t peak at different l, so that the cluster route's factored
+    sum is 0 at half of the columns while the true value is finite: its
+    exact recomputation (and the backward's class of exact weights) must
+    match float64 there, beside the factored columns."""
+    rng = np.random.default_rng(3000 + per_row_A)
+    B, T, S = (4, 9, 64) if per_row_A else (32, 31, 256)
+    inputs = _underflow_inputs(rng, B, T, S, cuda, per_row_A)
+    g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
+    out, _ = _compare_tv(inputs, g, 1e-3, route)
+    assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("route", TV_ROUTES)
+@pytest.mark.parametrize("per_row_A", [False, True])
+def test_tv_scan_reads_a_time_constant_transition_in_place(cuda, per_row_A, route):
+    """A transition constant in time reaches K2g as an ``expand`` with time
+    stride 0 (``ops/markov_product.py``): the kernels read it by its strides,
+    match the plain version, and return dA in the expanded shape, which
+    autograd sums over time into the base's gradient."""
+    rng = np.random.default_rng(6 + per_row_A)
+    B, T, S = 4, 7, 64
+    alpha0, _, R, L = _tv_inputs(rng, B, T, S, cuda, with_L=True)
+    base = _tv_inputs(rng, 1, 1, S, cuda, per_row_A=per_row_A)[1]  # (1, S, S) or (1, 1, S, S)
+    g = torch.tensor(rng.normal(size=(B, S)), dtype=torch.float32, device=cuda)
+    expand = (T, S, S) if not per_row_A else (T, B, S, S)
+    leaves, ref = [], []
+    for fn, dtype in ((ms.markov_scan_tv, torch.float32), (ms.markov_scan_tv_plain, torch.float64)):
+        b = base.to(dtype).clone().requires_grad_()
+        A = b.expand(*expand)
+        assert A.stride(0) == 0
+        args = [x.to(dtype) for x in (alpha0, A, R, L)]
+        kwargs = {"plan": _tv_route(args, route)} if fn is ms.markov_scan_tv else {}
+        out = fn(*args, **kwargs)
+        (out * g.to(dtype)).sum().backward()
+        ref.append(out.detach())
+        leaves.append(b.grad)
+    torch.testing.assert_close(ref[0].double(), ref[1], rtol=1e-6, atol=1e-4)
+    torch.testing.assert_close(leaves[0].double(), leaves[1], rtol=0, atol=1e-4 * leaves[1].abs().max().item())
 
 
 def test_launch_after_a_refused_launch(cuda):
@@ -1085,16 +1191,19 @@ def test_launch_after_a_refused_launch(cuda):
                                                                 device=cuda))
 
 
-def test_tv_scan_backward_is_deterministic(cuda):
+@pytest.mark.parametrize("route", TV_ROUTES)
+def test_tv_scan_backward_is_deterministic(cuda, route):
     """Two runs of K2g's backward (the reverse scan and the dA_t fold, sums
     in a fixed order, no float atomics) give the same bits."""
     rng = np.random.default_rng(5)
-    alpha0, A, R, L = _tv_inputs(rng, 32, 127, 256, cuda, with_L=True)
+    inputs = _tv_inputs(rng, 32, 127, 256, cuda, with_L=True)
+    alpha0, A, R, L = inputs
     g = torch.tensor(rng.normal(size=(32, 256)), dtype=torch.float32, device=cuda)
     with torch.no_grad():
-        _, hs, os = ms._tv_forward_cuda(alpha0, A, R, L)
-    first = ms._tv_backward_cuda(A, L, hs, os, g)
-    second = ms._tv_backward_cuda(A, L, hs, os, g)
+        _, saved = ms._tv_forward_cuda(alpha0, A, R, L, plan=_tv_route(inputs, route))
+    assert saved[0].route == route
+    first = ms._tv_backward_cuda(A, L, saved, g)
+    second = ms._tv_backward_cuda(A, L, saved, g)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
