@@ -67,7 +67,8 @@ Phases (any failure exits non-zero):
      64 draws at ``64.4000.16.4`` for K4b (with its tape) and K4c; each
      kernel's levels timed against the plain version's in turns, beside
      the bound of the same levels (a stride-0 input's bytes counted once),
-     K4b's with the profiler's device ms beside the CUDA events; K4b over
+     K4a's and K4b's with the profiler's device ms beside the CUDA events,
+     K4a's also level by level; K4b over
      the n-sweep (n 1, 2, 5, 16, 17, 31, 32; t 2, 3, odd, 4000; up to 8
      rows; P contiguous, sliced or expanded with stride 0) against its
      plain version and the float64 plain version, two launches bitwise
@@ -146,9 +147,9 @@ Phases (any failure exits non-zero):
      levels, the chain's precision read in place with stride 0); alpha'
      exactly, every output against the float64 plain version (both
      distances printed); each kernel's levels timed against the plain
-     version's in turns, beside the bound of the same levels, K5b's with
-     the profiler's device ms beside the CUDA events; K5b over phase 8's
-     n-sweep as K4b;
+     version's in turns, beside the bound of the same levels, each with
+     the profiler's device ms beside the CUDA events, K5a's also level by
+     level; K5b over phase 8's n-sweep as K4b;
   16. slice 9 through ``examples/gamma_gaussian_hmm.py``'s models at full
      width (numpy, seed 0; Student-t noise through a shared Gamma(2, 2)
      scale): ``GammaGaussianHMM.log_prob`` at ``8.10000.32.4`` (13 K5a
@@ -1251,6 +1252,18 @@ def device_ms_passes(torch, kernel, calls, name, passes=3, warm_up_s=0.2):
     return [times[i * m:(i + 1) * m] for i in range(passes)]
 
 
+def halving_device_ms(torch, kernel, calls, label):
+    """The profiler's device ms of K4a or K5a (``gl_halving_kernel``) over
+    the recorded levels ``calls``: the median of three passes' sums, and
+    each level's median, printed beside its pairs; returns the sum."""
+    passes = device_ms_passes(torch, kernel, calls, "gl_halving_kernel")
+    device = sorted(sum(p) for p in passes)[1]
+    by_level = [sorted(p[i] for p in passes)[1] for i in range(len(calls))]
+    pairs = [args[1].shape[0] * (args[1].shape[1] // 2) for args in calls]
+    print(f"    {label} device ms a level (pairs): " + ", ".join(f"{x:.4f} ({q})" for x, q in zip(by_level, pairs)))
+    return device
+
+
 def contract_device_ms(torch, kernel, calls, passes=3):
     """The profiler's device ms of the contraction kernel over one pass of
     the recorded levels ``calls``: the median of the last ``passes`` passes,
@@ -1383,7 +1396,11 @@ def phase_k4(torch, gl):
             nbytes = sum(k4_bounds(name, args)[1] for args in calls)
             b = bound(flops, nbytes)
             first = calls[0][1 if name != "mids" else 0]
-            device = f", profiler {contract_device_ms(torch, kernel, calls):.4f} device ms" if name == "contract" else ""
+            device = ""
+            if name == "contract":
+                device = f", profiler {contract_device_ms(torch, kernel, calls):.4f} device ms"
+            elif name == "halving":
+                device = f", profiler {halving_device_ms(torch, kernel, calls, 'K4a'):.4f} device ms"
             print(f"  {name} over the {len(calls)} levels of the {where} (first level's input "
                   f"{tuple(first.shape)}): max abs err {err:.3g}; kernel {t['kernel']:.4f} ms{device}, plain "
                   f"{t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)")
@@ -2165,7 +2182,8 @@ def phase_k5(torch, gl):
             b = bound(flops, nbytes)
             first = calls[0][1]
             device = (f", profiler {contract_device_ms(torch, kernel, calls):.4f} device ms"
-                      if name.startswith("gamma_contract") else "")
+                      if name.startswith("gamma_contract")
+                      else f", profiler {halving_device_ms(torch, kernel, calls, 'K5a'):.4f} device ms")
             print(f"  {name[:14]} over the {len(calls)} levels of the {where} (first level's input "
                   f"{tuple(first.shape)}): alpha' exact, max abs err {err:.3g} to the plain version; to float64, "
                   f"times each output's max, kernel "

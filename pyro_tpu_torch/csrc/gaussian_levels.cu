@@ -15,10 +15,10 @@
 //   P' = diag(A, D) - Kt' Kt, and per pair (i1, i2): ib = i1[n:] + i2[:n],
 //   s = L^-1 ib, info' = [i1[:n], i2[n:]] - s Kt, logZ' = logZ1 + logZ2 +
 //   n/2 log 2pi - sum log diag L + |s|^2 / 2.  Every CTA factorises the one
-//   shared matrix itself in shared memory (no launch of its own for it),
-//   CTA 0 writes P' and L, then a warp takes a pair at a time: lane i holds
-//   row i of the substitution (n <= 32), the columns of s Kt read Kt from
-//   shared memory.
+//   shared matrix itself (no launch of its own for it), warp 0 by shuffles,
+//   and forms L^-1; CTA 0 writes P' and L; then the CTAs walk tiles of 64
+//   pairs, every solve a product with L^-1 on the tensor cores (the design
+//   and what bounds it: the K4a and K5a section below).
 // K4b, gl_contract_kernel: the contraction of adjacent pairs of a chain
 //   whose precision varies with time.  Replaces the mid-block elimination of
 //   sequential_gaussian_filter_sample's forward (:726-787) and the work of
@@ -85,8 +85,8 @@
 // 60 MB, K4c at 64 draws about 50 MB: bytes, some 15-20 us each over a
 // call.  But a level depends on the one before, and a call has 12-13
 // levels of short kernels, so launch and the per-level latency of the small
-// factorisations set the time.  The kernels are plain f32 code with the
-// small matrices in shared memory and registers.
+// factorisations set the time.  K4c is plain f32 code with the small
+// matrices in shared memory and registers.
 //
 // Plain C interface for ctypes; each entry point launches on the given
 // stream and returns the launch's error code.
@@ -95,38 +95,11 @@
 #include <math.h>
 
 #define NMAX 32        // the largest state dim n the kernels take
-#define NT_HALVE 256   // threads of K4a's CTA: 8 warps
 #define NT_PAIR 128    // threads of K4b's backward CTA
 #define NT_CONTRACT 256  // the most threads of K4b's CTA (more warps for larger n)
 #define NT_MIDS 256    // threads of K4c's CTA: 8 warps
 #define FULL 0xffffffffu
 #define HALF_LOG_2PI 0.91893853320467274178f
-
-// Cholesky of the n x n matrix in M (row stride ld, lower part read) in
-// place, by the whole block of nt threads: M becomes L with zeros above the
-// diagonal.  Right-looking: column j is divided by sqrt of its pivot, then
-// the trailing lower triangle takes the rank-1 update.  Ends synchronised.
-__device__ void block_cholesky(float* M, int ld, int n, int nt) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < n; ++j) {
-    __syncthreads();
-    const float d = sqrtf(M[j * ld + j]);
-    for (int i = j + 1 + tid; i < n; i += nt) M[i * ld + j] /= d;
-    __syncthreads();
-    if (tid == 0) M[j * ld + j] = d;
-    const int w = n - j - 1;
-    for (int x = tid; x < w * w; x += nt) {
-      const int i = j + 1 + x / w, k = j + 1 + x % w;
-      if (k <= i) M[i * ld + k] -= M[i * ld + j] * M[k * ld + j];
-    }
-  }
-  __syncthreads();
-  for (int x = tid; x < n * n; x += nt) {
-    const int i = x / n, k = x % n;
-    if (k > i) M[i * ld + k] = 0.f;
-  }
-  __syncthreads();
-}
 
 // X <- L^-1 X for the n x nc matrix X (row stride ldx) with L lower (row
 // stride ld), by the whole block: row j is final once divided by L[j][j],
@@ -203,100 +176,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
-}
-
-// ------------------------------------------------------------------- K4a --
-
-// P (2n, 2n); info (R, 2m, 2n) and logZ (R, 2m) with row strides info_rs
-// and logZ_rs (elements); outputs P_out (2n, 2n), L_out (n, n) (CTA 0),
-// info_out (R, m, 2n), logZ_out (R, m), and ib_out (R, m, n) unless null.
-// GAMMA (K5a): alpha and beta (R, 2m) with row strides alpha_rs and beta_rs
-// in, alpha_out and beta_out (R, m) out, and logZ' without |s|^2 / 2.
-template <bool GAMMA>
-__global__ void __launch_bounds__(NT_HALVE) gl_halving_kernel(
-    const float* __restrict__ P, const float* __restrict__ info, long long info_rs,
-    const float* __restrict__ logZ, long long logZ_rs, int R, int m, int n, float* __restrict__ P_out,
-    float* __restrict__ L_out, float* __restrict__ info_out, float* __restrict__ logZ_out,
-    float* __restrict__ ib_out, const float* __restrict__ alpha, long long alpha_rs,
-    const float* __restrict__ beta, long long beta_rs, float* __restrict__ alpha_out,
-    float* __restrict__ beta_out) {
-  __shared__ float Ls[NMAX][NMAX + 1];
-  __shared__ float Kt[NMAX][2 * NMAX + 1];
-  __shared__ float sv[NT_HALVE / 32][NMAX];
-  __shared__ float inv_diag[NMAX];
-  __shared__ float half_logdet;
-  const int tid = threadIdx.x, n2 = 2 * n;
-  // J = D + A, and [B^T | B] into Kt
-  for (int x = tid; x < n * n; x += NT_HALVE) {
-    const int i = x / n, j = x % n;
-    Ls[i][j] = P[(n + i) * n2 + n + j] + P[i * n2 + j];
-  }
-  for (int x = tid; x < n * n2; x += NT_HALVE) {
-    const int i = x / n2, j = x % n2;
-    Kt[i][j] = j < n ? P[j * n2 + n + i] : P[i * n2 + j];
-  }
-  block_cholesky(&Ls[0][0], NMAX + 1, n, NT_HALVE);
-  block_solve_lower(&Ls[0][0], NMAX + 1, &Kt[0][0], 2 * NMAX + 1, n, n2, NT_HALVE);
-  if (tid < 32) {
-    float v = 0.f;
-    for (int i = tid; i < n; i += 32) {
-      v += logf(Ls[i][i]);
-      inv_diag[i] = 1.f / Ls[i][i];
-    }
-    v = warp_sum(v);
-    if (tid == 0) half_logdet = v;
-  }
-  if (blockIdx.x == 0) {
-    for (int x = tid; x < n2 * n2; x += NT_HALVE) {
-      const int i = x / n2, j = x % n2;
-      float acc = 0.f;
-      for (int k = 0; k < n; ++k) acc = fmaf(Kt[k][i], Kt[k][j], acc);
-      const bool diag_block = (i < n) == (j < n);
-      P_out[x] = (diag_block ? P[x] : 0.f) - acc;
-    }
-    for (int x = tid; x < n * n; x += NT_HALVE) L_out[x] = Ls[x / n][x % n];
-  }
-  __syncthreads();
-  const int lane = tid & 31, warp = tid >> 5;
-  const long long pairs = (long long)R * m;
-  const float c0 = (float)n * HALF_LOG_2PI;
-  for (long long q = (long long)blockIdx.x * (NT_HALVE / 32) + warp; q < pairs;
-       q += (long long)gridDim.x * (NT_HALVE / 32)) {
-    const long long r = q / m, p = q % m;
-    const float* i1 = info + r * info_rs + 2 * p * n2;
-    const float* i2 = i1 + n2;
-    const float ib = lane < n ? i1[n + lane] + i2[lane] : 0.f;
-    if (ib_out && lane < n) ib_out[q * n + lane] = ib;
-    // s = L^-1 ib, lane i holding row i
-    float res = ib, s = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float sj = __shfl_sync(FULL, res, j) * inv_diag[j];
-      if (lane == j) s = sj;
-      if (lane > j && lane < n) res = fmaf(-Ls[lane][j], sj, res);
-    }
-    sv[warp][lane] = s;
-    __syncwarp();
-    for (int c = lane; c < n2; c += 32) {
-      float acc = c < n ? i1[c] : i2[c];
-      for (int k = 0; k < n; ++k) acc = fmaf(-sv[warp][k], Kt[k][c], acc);
-      info_out[q * n2 + c] = acc;
-    }
-    const float ss = warp_sum(lane < n ? s * s : 0.f);
-    if (lane == 0) {
-      const float* lz = logZ + r * logZ_rs + 2 * p;
-      if constexpr (GAMMA) {
-        // the completion |s|^2 / 2 goes to beta, scaled by the mixing variable
-        const float* al = alpha + r * alpha_rs + 2 * p;
-        const float* be = beta + r * beta_rs + 2 * p;
-        logZ_out[q] = lz[0] + lz[1] + c0 - half_logdet;
-        alpha_out[q] = al[0] + al[1] - 0.5f * (float)n;
-        beta_out[q] = be[0] + be[1] - 0.5f * ss;
-      } else {
-        logZ_out[q] = lz[0] + lz[1] + c0 - half_logdet + 0.5f * ss;
-      }
-    }
-    __syncwarp();
-  }
 }
 
 // ------------------------------------------------------------------- K4b --
@@ -1378,6 +1257,376 @@ static int halving_bwd_ready() {
   return 0;
 }
 
+// ------------------------------------------------------ K4a and K5a --
+//
+// The design for Hopper (gl_halving_kernel<GAMMA>: K4a, and K5a as its
+// <true> instantiation).  One launch a level; a CTA of 256 threads (8
+// warps), one an SM (HV_CTAS: up to 255 registers a thread; at two an SM,
+// 128, the straight-line factorisation and the tiles' products spilled and
+// ran slower), walks tiles of 64 pairs of one row, tile += gridDim.x, over
+// a grid of min(tiles, CTAs the card runs at once)
+// (ops/gaussian_levels.py::halving_plan, from gl_halving_shape).  Every
+// state-dim array is held zero-padded to 32 (the halves of a 2n-vector to
+// 32 each), as in K4a's backward above, so the products run at fixed sizes
+// with no test on n, on the tensor cores (hb_mma: mma.sync tf32 in 3xTF32,
+// about float32's accuracy; its operands come from shared memory, where
+// f32 register tiles of the same products ran at the shared-memory rate in
+// K4a's backward):
+//   prologue, every CTA: J = D + A, A, D and C = [B^T | B] in (coalesced,
+//     a thread an entry), the first tile's loads issued; warp 0 factorises
+//     J with its rows in registers (hv_cholesky: lane i row i, straight-line
+//     code, each pivot formed by every lane, no shuffle) and forms 1 / L_jj
+//     and L^-1 (hb_tri_inverse); the tile set out; Kt = L^-1 C (32 x 64 x 32);
+//     P' = diag(A, D) - Kt^T Kt in four slabs of 16 rows over the first
+//     CTAs (written symmetric), L by CTA 0.  Three block barriers, none
+//     inside the factorisation;
+//   per tile: S = IB L^-T; info' = OUTER - S Kt, stored from the product's
+//     registers (two adjacent columns a thread); |s|^2 a row sum in index
+//     order, then logZ' (and alpha', beta'); then the next tile, its info
+//     in registers since this one started (a thread's share: the four half
+//     rows i1[:n], i1[n:], i2[:n], i2[n:] of 8 pairs at one state index, so
+//     the thread forms ib = i1[n:] + i2[:n] itself), set out as IB (64 x 32)
+//     and OUTER = [i1[:n] | i2[n:]] (64 x 64), its pairs' scalars in shared
+//     memory by cp.async.  Three barriers a tile; the warps whose 16 rows
+//     hold no pair skip the products (a level's last tiles hold 1-39
+//     pairs).
+// What bounds it on an H100 (700 W): over the 13 levels of a homogeneous
+// log_prob (B=8, T=10,000, n=32) the pairs move some 63 MB (19 us at 3.35
+// TB/s) for 0.43 GFLOP, most of it at the first two levels.  From the
+// fourth level on a level is one or two tiles a CTA, and one CTA's chain
+// sets its time, some 17,000 cycles to the end of its first tile (clock64
+// marks in CTA 0, examples/halving_timing.py's levels): J and C in 2,100,
+// the factorisation 5,000 (3,500 of it the 32 pivots, a reciprocal square
+// root and a round trip through shared memory each), L^-1 2,500, Kt 1,300,
+// P''s slab 1,900, a tile's two products 2,700.  J's rows read from global
+// memory by the lane that holds them (a warp's load 32 rows apart) took
+// 7,000-10,000 cycles more; warp_cholesky (K4b's) on P in shared memory
+// took 12,000 for the factorisation.
+
+#define HV_NT 256    // threads of K4a's and K5a's CTA: 8 warps
+#define HV_TP 64     // pairs a tile
+#define HV_CTAS 1    // the launch bound: CTAs an SM (the grid's width an SM comes from the occupancy at launch)
+#define HV_KS 72     // row stride of C and Kt: conflict-free as an mma operand, either way round
+#define HV_OS 68     // row stride of OUTER
+#define HV_PRE 32    // a thread's share of a tile's info: 8 pairs' four half rows
+#define HV_SLABS 4   // P' in slabs of 16 of its 64 padded rows, one a CTA
+// shared memory, in floats (the 32-wide arrays in rows of HB_LS)
+#define HV_J 0                           // J = D + A (rows of 33: a lane a row reads without bank conflict)
+#define HV_A (HV_J + NMAX * 36)          // A and D (rows of 33): the diagonal blocks of P'
+#define HV_D (HV_A + NMAX * 36)
+#define HV_LT (HV_D + NMAX * 36)         // L^T
+#define HV_LINV (HV_LT + 32 * HB_LS)     // L^-1, rows
+#define HV_LINVT (HV_LINV + 32 * HB_LS)  // L^-1 transposed (hb_tri_inverse writes it; not read)
+#define HV_INVD (HV_LINVT + 32 * HB_LS)  // 1 / L_jj
+#define HV_C (HV_INVD + 32)              // C = [B^T | B] (32 x 64)
+#define HV_KT (HV_C + 32 * HV_KS)        // Kt (32 x 64)
+#define HV_IB (HV_KT + 32 * HV_KS)       // a tile: ib (64 x 32)
+#define HV_OUT (HV_IB + HV_TP * HB_LS)   // OUTER (64 x 64)
+#define HV_S (HV_OUT + HV_TP * HV_OS)    // S = IB L^-T (64 x 32)
+#define HV_SC (HV_S + HV_TP * HB_LS)     // the pairs' scalars, two tiles' of 6 rows of 64
+#define HV_FLOATS (HV_SC + 2 * 6 * HV_TP)
+
+// P (2n, 2n); info (R, 2m, 2n), logZ (R, 2m) with row strides (elements);
+// outputs P_out (2n, 2n), L_out (n, n), info_out (R, m, 2n), logZ_out (R,
+// m), and ib_out (R, m, n) unless null.  GAMMA (K5a): alpha and beta (R,
+// 2m) in, alpha_out and beta_out (R, m) out, and logZ' without |s|^2 / 2.
+struct HalvingArgs {
+  const float *P, *info, *logZ, *alpha, *beta;
+  long long info_rs, logZ_rs, alpha_rs, beta_rs;
+  int R, m, n;
+  float *P_out, *L_out, *info_out, *logZ_out, *ib_out, *alpha_out, *beta_out;
+};
+
+// A tile: row r, its first pair p0 and its np pairs.
+struct HvTile {
+  int r, p0, np;
+};
+
+__device__ __forceinline__ HvTile hv_tile(const HalvingArgs& a, int tile, int tiles_a_row) {
+  HvTile t;
+  t.r = tile / tiles_a_row;
+  t.p0 = (tile - t.r * tiles_a_row) * HV_TP;
+  t.np = min(HV_TP, a.m - t.p0);
+  return t;
+}
+
+// Warp 0: L = chol(J), J (Js, rows of 33, zero-padded to NMAX as the
+// identity), lane i row i in registers; right-looking, each entry less
+// L[i][j] L[c][j] for j = 0, 1, ... in turn, each pivot by a reciprocal
+// square root with one Newton step (warp_cholesky's arithmetic, bit for
+// bit).  Every lane keeps the diagonal's updates too (dg, the same values
+// in every lane), so a pivot needs no broadcast; column j of L goes through
+// shared memory (Lt's row j) to the lanes' updates.  Into Lt (Lt[j HB_LS +
+// i] = L[i][j], zero above the diagonal, the identity's past n) and
+// *logdet (sum log L_jj over j < n).
+__device__ __forceinline__ void hv_cholesky(const float* Js, int n, int lane, float* Lt, float* logdet) {
+  const bool row = lane < n;
+  float a[NMAX], dg[NMAX];
+#pragma unroll
+  for (int c = 0; c < NMAX; ++c) {
+    a[c] = Js[lane * 33 + c];
+    dg[c] = Js[c * 33 + c];
+  }
+  float diag = 1.f;
+#pragma unroll
+  for (int j = 0; j < NMAX; ++j) {
+    const float piv = dg[j];
+    float rs = rsqrtf(piv);
+    rs *= fmaf(-0.5f * piv * rs, rs, 1.5f);
+    const float l = a[j] * rs;
+    if (lane == j) diag = l;
+    a[j] = lane >= j ? l : 0.f;
+    Lt[j * HB_LS + lane] = a[j];
+    __syncwarp();
+#pragma unroll
+    for (int c4 = (j + 1) & ~3; c4 < NMAX; c4 += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(Lt + j * HB_LS + c4);
+      const float lc[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (c4 + u > j) {
+          a[c4 + u] = fmaf(-l, lc[u], a[c4 + u]);
+          dg[c4 + u] = fmaf(-lc[u], lc[u], dg[c4 + u]);
+        }
+    }
+  }
+  const float v = warp_sum(row ? logf(diag) : 0.f);
+  if (lane == 0) *logdet = v;
+}
+
+// This thread's share of tile t's info into registers: pair p = warp + 8
+// s's half rows at state index lane into pre[4 s ...], zero past the tile's
+// pairs and past n.
+__device__ __forceinline__ void hv_fetch(const HalvingArgs& a, const HvTile& t, float (&pre)[HV_PRE]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n = a.n, n2 = 2 * n;
+  const float* base = a.info + t.r * a.info_rs + 2LL * t.p0 * n2 + lane;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int p = warp + 8 * s;
+    const bool in = lane < n && p < t.np;
+    const float* f1 = base + 2LL * p * n2;
+    pre[4 * s] = in ? __ldg(f1) : 0.f;
+    pre[4 * s + 1] = in ? __ldg(f1 + n) : 0.f;
+    pre[4 * s + 2] = in ? __ldg(f1 + n2) : 0.f;
+    pre[4 * s + 3] = in ? __ldg(f1 + n2 + n) : 0.f;
+  }
+}
+
+// The share in pre set out as IB and OUTER in shared memory, and ib into
+// the tape.
+__device__ __forceinline__ void hv_stage(const HalvingArgs& a, const HvTile& t, const float (&pre)[HV_PRE], float* hv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long o = (long long)t.r * a.m + t.p0;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int p = warp + 8 * s;
+    const float ib = pre[4 * s + 1] + pre[4 * s + 2];
+    hv[HV_IB + p * HB_LS + lane] = ib;
+    hv[HV_OUT + p * HV_OS + lane] = pre[4 * s];
+    hv[HV_OUT + p * HV_OS + 32 + lane] = pre[4 * s + 3];
+    if (a.ib_out && lane < a.n && p < t.np) a.ib_out[(o + p) * a.n + lane] = ib;
+  }
+}
+
+// Thread p < np of tile t: the pair's two log normalisers (and alphas and
+// betas) into rows 0-1 (2-5) of sc (6 rows of 64) by cp.async, then a
+// commit group of the thread's own (empty for the other threads).
+template <bool GAMMA>
+__device__ __forceinline__ void hv_scalars(const HalvingArgs& a, const HvTile& t, float* sc) {
+  const int p = threadIdx.x;
+  if (p < t.np) {
+    const long long f = 2LL * (t.p0 + p), r = t.r;
+    hb_copy4(sc + p, a.logZ + r * a.logZ_rs + f);
+    hb_copy4(sc + HV_TP + p, a.logZ + r * a.logZ_rs + f + 1);
+    if constexpr (GAMMA) {
+      hb_copy4(sc + 2 * HV_TP + p, a.alpha + r * a.alpha_rs + f);
+      hb_copy4(sc + 3 * HV_TP + p, a.alpha + r * a.alpha_rs + f + 1);
+      hb_copy4(sc + 4 * HV_TP + p, a.beta + r * a.beta_rs + f);
+      hb_copy4(sc + 5 * HV_TP + p, a.beta + r * a.beta_rs + f + 1);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// One halving level of a homogeneous chain (K4a; K5a with GAMMA).  Any
+// grid; HV_FLOATS floats of dynamic shared memory.  The products are split
+// over the 8 warps in tiles of 16 x 8 (hb_mma): Kt (32 x 64) as 16 rows and
+// 16 columns a warp, a slab of P' (16 x 64) as 16 and 8, S (64 x 32) as 16
+// and 16, info' (64 x 64) as 16 and 32; a warp's rows of info' are its rows
+// of S.
+template <bool GAMMA>
+__global__ void __launch_bounds__(HV_NT, HV_CTAS) gl_halving_kernel(const HalvingArgs a) {
+  extern __shared__ __align__(16) float hv[];
+  __shared__ float half_logdet;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, n = a.n, n2 = 2 * n;
+  const int tiles_a_row = (a.m + HV_TP - 1) / HV_TP, tiles = a.R * tiles_a_row;
+  float* const Lt = hv + HV_LT;
+  float* const Linv = hv + HV_LINV;
+  float* const C = hv + HV_C;
+  float* const Kt = hv + HV_KT;
+  const int tm = 16 * (warp >> 1);  // a warp's rows of a 64-row product
+
+  // prologue: J, A, D and C in, the first tile's loads and its scalars'
+  // copies issued; warp 0 factorises J and inverts L; the tile set out; Kt
+  // = L^-1 C; P' and L written
+  int tile = blockIdx.x;
+  HvTile t = {0, 0, 0};
+  float pre[HV_PRE];
+  if (tile < tiles) t = hv_tile(a, tile, tiles_a_row);
+  hv_scalars<GAMMA>(a, t, hv + HV_SC);
+  {  // J = D + A, A, D and C = [B^T | B] in, coalesced: entry (i, j) of D, A and B a thread
+    float d[4], q[4], b[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = tid + e * HV_NT, i = x >> 5, j = x & 31;
+      const bool in = i < n && j < n;
+      d[e] = in ? __ldg(a.P + (n + i) * n2 + n + j) : 0.f;
+      q[e] = in ? __ldg(a.P + i * n2 + j) : 0.f;
+      b[e] = in ? __ldg(a.P + i * n2 + n + j) : 0.f;
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int x = tid + e * HV_NT, i = x >> 5, j = x & 31;
+      hv[HV_J + i * 33 + j] = i < n && j < n ? d[e] + q[e] : (i == j ? 1.f : 0.f);
+      hv[HV_A + i * 33 + j] = q[e];
+      hv[HV_D + i * 33 + j] = d[e];
+      C[i * HV_KS + 32 + j] = b[e];
+      C[j * HV_KS + i] = b[e];
+    }
+  }
+  if (tile < tiles) hv_fetch(a, t, pre);
+  __syncthreads();
+  if (warp == 0) {
+    hv_cholesky(hv + HV_J, n, lane, Lt, &half_logdet);
+    hb_tri_inverse(Lt, hv + HV_INVD, n, lane, Linv, hv + HV_LINVT);
+  }
+  if (tile < tiles) hv_stage(a, t, pre, hv);
+  __syncthreads();
+  {
+    const int wm = 16 * (warp >> 2), wn = 16 * (warp & 3);
+    float kt[2][4];
+    hb_zero(kt);
+    hb_mma<2>(kt, 32, Linv + wm * HB_LS, HB_LS, 1, C + wn, HV_KS, 1);
+    hb_put_tiles(Kt + wm * HV_KS + wn, HV_KS, kt);
+  }
+  __syncthreads();
+  for (int b = blockIdx.x; b < HV_SLABS; b += gridDim.x) {
+    // P' = diag(A, D) - Kt^T Kt, rows 16 b ...; the entry (r, c), r >= c,
+    // written at (r, c) and (c, r)
+    float pp[1][4];
+    hb_zero(pp);
+    hb_mma<1>(pp, 32, Kt + 16 * b, 1, HV_KS, Kt + 8 * warp, HV_KS, 1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * b + hb_row(e), c = 8 * warp + hb_col(0, e), i = r & 31, k = c & 31;
+      if (i < n && k < n && r >= c) {
+        const int gi = (r >> 5) * n + i, gj = (c >> 5) * n + k;
+        const float v = ((r >> 5) == (c >> 5) ? hv[(r >> 5 ? HV_D : HV_A) + i * 33 + k] : 0.f) - pp[0][e];
+        a.P_out[gi * n2 + gj] = v;
+        a.P_out[gj * n2 + gi] = v;
+      }
+    }
+  }
+  if (blockIdx.x == 0) {
+    for (int x = tid; x < 32 * 32; x += HV_NT) {
+      const int i = x >> 5, j = x & 31;
+      if (i < n && j < n) a.L_out[i * n + j] = Lt[j * HB_LS + i];
+    }
+  }
+
+  // the tiles: IB and OUTER hold this one's, the next one's loads in flight
+  const float c0 = (float)n * HALF_LOG_2PI;
+  const int tn = 16 * (warp & 1), tn2 = 32 * (warp & 1);
+  for (int k = 0; tile < tiles; tile += gridDim.x, ++k) {
+    const HvTile cur = t;
+    const bool more = tile + gridDim.x < tiles;
+    if (more) {
+      t = hv_tile(a, tile + gridDim.x, tiles_a_row);
+      hv_fetch(a, t, pre);
+    }
+    hv_scalars<GAMMA>(a, more ? t : HvTile{0, 0, 0}, hv + HV_SC + ((k + 1) & 1) * 6 * HV_TP);
+    if (tm < cur.np) {  // S = IB L^-T
+      float sv[2][4];
+      hb_zero(sv);
+      hb_mma<2>(sv, 32, hv + HV_IB + tm * HB_LS, HB_LS, 1, Linv + tn * HB_LS, 1, HB_LS);
+      hb_put_tiles(hv + HV_S + tm * HB_LS + tn, HB_LS, sv);
+    }
+    __syncthreads();
+    const long long o = (long long)cur.r * a.m + cur.p0;
+    if (tm < cur.np) {  // info' = OUTER - S Kt, entries (2h, 2h + 1) of a tile adjacent in a row
+      float acc[4][4];
+      hb_zero(acc);
+      hb_mma<4>(acc, 32, hv + HV_S + tm * HB_LS, HB_LS, 1, Kt + tn2, HV_KS, 1);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int p = tm + hb_row(2 * h), c = tn2 + hb_col(j, 2 * h), kk = c & 31;
+          if (p < cur.np && kk < n) {
+            const float* ou = hv + HV_OUT + p * HV_OS + c;
+            const float v0 = ou[0] - acc[j][2 * h], v1 = ou[1] - acc[j][2 * h + 1];
+            float* dst = a.info_out + (o + p) * n2 + (c >> 5) * n + kk;
+            if ((n & 1) == 0) {
+              *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+            } else {
+              dst[0] = v0;
+              if (kk + 1 < n) dst[1] = v1;
+            }
+          }
+        }
+    }
+    if (tid < cur.np) {  // |s|^2 in index order; the pair's scalars
+      const float* srow = hv + HV_S + tid * HB_LS;
+      float ss = 0.f;
+#pragma unroll
+      for (int x = 0; x < 32; x += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(srow + x);
+        ss = fmaf(v.x, v.x, ss);
+        ss = fmaf(v.y, v.y, ss);
+        ss = fmaf(v.z, v.z, ss);
+        ss = fmaf(v.w, v.w, ss);
+      }
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this tile's scalars (the next tile's may be in flight)
+      const float* sc = hv + HV_SC + (k & 1) * 6 * HV_TP + tid;
+      if constexpr (GAMMA) {
+        // the completion |s|^2 / 2 goes to beta, scaled by the mixing variable
+        a.logZ_out[o + tid] = sc[0] + sc[HV_TP] + c0 - half_logdet;
+        a.alpha_out[o + tid] = sc[2 * HV_TP] + sc[3 * HV_TP] - 0.5f * (float)n;
+        a.beta_out[o + tid] = sc[4 * HV_TP] + sc[5 * HV_TP] - 0.5f * ss;
+      } else {
+        a.logZ_out[o + tid] = sc[0] + sc[HV_TP] + c0 - half_logdet + 0.5f * ss;
+      }
+    }
+    __syncthreads();
+    if (more) {  // the next tile set out
+      hv_stage(a, t, pre, hv);
+      __syncthreads();
+    }
+  }
+}
+
+// The dynamic shared memory K4a's and K5a's CTA takes (above the default
+// 48 KB), set once an instantiation.
+template <bool GAMMA>
+static int halving_ready() {
+  static bool ready = false;
+  if (!ready) {
+    const int err = (int)cudaFuncSetAttribute(gl_halving_kernel<GAMMA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              HV_FLOATS * (int)sizeof(float));
+    if (err) return err;
+    ready = true;
+  }
+  return 0;
+}
+
+template <bool GAMMA>
+static int launch_halving(const HalvingArgs& a, int blocks, cudaStream_t st) {
+  const int err = halving_ready<GAMMA>();
+  if (err) return err;
+  gl_halving_kernel<GAMMA><<<blocks, HV_NT, HV_FLOATS * sizeof(float), st>>>(a);
+  return (int)cudaGetLastError();
+}
+
 // --------------------------------------------------------- K4b backward --
 
 // The tape of the forward: L (R, t / 2, n, n), Pmk (R, t / 2, n, 2n), im
@@ -1491,20 +1740,28 @@ extern "C" {
 int gl_halving(const float* P, const float* info, long long info_rs, const float* logZ, long long logZ_rs, int R,
                int m, int n, int blocks, float* P_out, float* L_out, float* info_out, float* logZ_out,
                float* ib_out, cudaStream_t st) {
-  gl_halving_kernel<false><<<blocks, NT_HALVE, 0, st>>>(P, info, info_rs, logZ, logZ_rs, R, m, n, P_out, L_out,
-                                                        info_out, logZ_out, ib_out, nullptr, 0, nullptr, 0, nullptr,
-                                                        nullptr);
-  return (int)cudaGetLastError();
+  const HalvingArgs a = {P, info, logZ, nullptr, nullptr, info_rs, logZ_rs, 0, 0, R, m, n,
+                         P_out, L_out, info_out, logZ_out, ib_out, nullptr, nullptr};
+  return launch_halving<false>(a, blocks, st);
 }
 
 int gl_gamma_halving(const float* P, const float* info, long long info_rs, const float* logZ, long long logZ_rs,
                      const float* alpha, long long alpha_rs, const float* beta, long long beta_rs, int R, int m,
                      int n, int blocks, float* P_out, float* L_out, float* info_out, float* logZ_out,
                      float* alpha_out, float* beta_out, cudaStream_t st) {
-  gl_halving_kernel<true><<<blocks, NT_HALVE, 0, st>>>(P, info, info_rs, logZ, logZ_rs, R, m, n, P_out, L_out,
-                                                       info_out, logZ_out, nullptr, alpha, alpha_rs, beta, beta_rs,
-                                                       alpha_out, beta_out);
-  return (int)cudaGetLastError();
+  const HalvingArgs a = {P, info, logZ, alpha, beta, info_rs, logZ_rs, alpha_rs, beta_rs, R, m, n,
+                         P_out, L_out, info_out, logZ_out, nullptr, alpha_out, beta_out};
+  return launch_halving<true>(a, blocks, st);
+}
+
+// K4a's (gamma 0) or K5a's (gamma 1) pairs a tile, and the CTAs one SM runs
+// at once by their shared memory, registers and threads: the wrapper's plan.
+int gl_halving_shape(int gamma, int* tile, int* ctas) {
+  const int err = gamma ? halving_ready<true>() : halving_ready<false>();
+  if (err) return err;
+  *tile = HV_TP;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, gamma ? gl_halving_kernel<true> : gl_halving_kernel<false>, HV_NT, HV_FLOATS * sizeof(float));
 }
 
 int gl_contract(const float* P, const float* info, const float* logZ, const long long* layout, int R, int t, int n,

@@ -13,6 +13,8 @@ the kernel launches or the call raises.
   factor sharing one precision P (2n, 2n); info (R, 2m, 2n) and logZ
   (R, 2m) become (R, m, 2n) and (R, m), P becomes P', and the level's
   Cholesky factor L (n, n) and ``ib`` (R, m, n) are kept for the sampler.
+  The kernel's CTAs walk tiles of pairs of one row; ``halving_plan`` sizes
+  the grid from the tile and the CTAs an SM that the kernel reports.
 - ``contract_pairs`` (K4b): adjacent pairs (2p, 2p + 1) of a chain whose
   precision varies, P (..., t, 2n, 2n), info (..., t, 2n), logZ (..., t)
   (any leading batch dims, R rows in all), to (..., ceil(t / 2), ...), an
@@ -34,7 +36,7 @@ Training: ``halving_level`` and ``contract_pairs`` each run through one
 ``torch.autograd.Function`` on every device, whose backward is the plain
 adjoint (``halving_level_bwd_plain``, ``contract_pairs_bwd_plain``, written
 out, not autograd) on the CPU and the backward kernels on the card, one
-launch a level each.  K4a's CTAs walk tiles of pairs and write partial
+launch a level each.  K4a's backward CTAs walk tiles of pairs and write partial
 sums of the adjoints of the shared Kt and L; the last CTA to finish adds
 them in a fixed order and carries the shared factorisation back to P
 (``halving_bwd_plan`` sizes the grid, the order of the sums and their
@@ -303,9 +305,10 @@ def _lib():
                                      _P]
     lib.gl_gamma_contract.argtypes = [_P, _P, _P, _P, _P, _LAYOUT, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
     lib.gl_contract_ctas_per_sm.argtypes = [_c, _c, ctypes.POINTER(_c)]
+    lib.gl_halving_shape.argtypes = [_c, ctypes.POINTER(_c), ctypes.POINTER(_c)]
     for fn in (lib.gl_halving, lib.gl_contract, lib.gl_mids, lib.gl_halving_bwd, lib.gl_contract_bwd,
                lib.gl_gamma_halving, lib.gl_gamma_contract, lib.gl_contract_ctas_per_sm,
-               lib.gl_halving_bwd_shape):
+               lib.gl_halving_bwd_shape, lib.gl_halving_shape):
         fn.restype = ctypes.c_int
     return lib
 
@@ -354,6 +357,40 @@ def _rows(t, inner):
     return t, t.stride(0) if t.shape[0] > 1 else inner
 
 
+class HalvingShape(NamedTuple):
+    """What K4a's and K5a's kernel fixes: the pairs of a ``tile`` (one row's),
+    and the CTAs an SM runs at once at its shared memory and registers
+    (``ctas_per_sm``)."""
+
+    tile: int
+    ctas_per_sm: int
+
+
+@functools.cache
+def _halving_shape(gamma):
+    tile, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(_lib().gl_halving_shape(int(gamma), ctypes.byref(tile), ctypes.byref(ctas)), "halving_level shape")
+    if ctas.value < 1:
+        raise RuntimeError("halving_level: no CTA fits an SM")
+    return HalvingShape(tile.value, ctas.value)
+
+
+class HalvingPlan(NamedTuple):
+    """How K4a or K5a launches at one level: ``tiles`` of pairs (each of one
+    row) walked by ``blocks`` CTAs."""
+
+    tiles: int
+    blocks: int
+
+
+def halving_plan(R, m, sms, shape):
+    """K4a's or K5a's launch at a level of R rows of m pairs on a card of
+    ``sms`` SMs, for a kernel of ``shape`` (a ``HalvingShape``): at most one
+    CTA a tile and ``shape.ctas_per_sm`` an SM."""
+    tiles = R * -(-m // shape.tile)
+    return HalvingPlan(tiles, max(1, min(tiles, shape.ctas_per_sm * sms)))
+
+
 def _halving_cuda(P, info, logZ, tape):
     R, two_m, n2 = info.shape
     n, m = n2 // 2, two_m // 2
@@ -364,7 +401,7 @@ def _halving_cuda(P, info, logZ, tape):
     new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
     P_out, L_out, info_out, logZ_out = new((n2, n2)), new((n, n)), new((R, m, n2)), new((R, m))
     ib = new((R, m, n)) if tape else None
-    blocks = max(1, min(-(-R * m // 8), 8 * _sms(P.device)))
+    blocks = halving_plan(R, m, _sms(P.device), _halving_shape(False)).blocks
     err = _lib().gl_halving(
         P.data_ptr(), info.data_ptr(), info_rs, logZ.data_ptr(), logZ_rs, R, m, n, blocks,
         P_out.data_ptr(), L_out.data_ptr(), info_out.data_ptr(), logZ_out.data_ptr(),
@@ -484,7 +521,7 @@ def _gamma_halving_cuda(P, info, logZ, alpha, beta):
     new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
     P_out, L_out, info_out = new((n2, n2)), new((n, n)), new((R, m, n2))
     logZ_out, alpha_out, beta_out = new((R, m)), new((R, m)), new((R, m))
-    blocks = max(1, min(-(-R * m // 8), 8 * _sms(P.device)))
+    blocks = halving_plan(R, m, _sms(P.device), _halving_shape(True)).blocks
     err = _lib().gl_gamma_halving(
         P.data_ptr(), info.data_ptr(), info_rs, logZ.data_ptr(), logZ_rs, alpha.data_ptr(), alpha_rs,
         beta.data_ptr(), beta_rs, R, m, n, blocks, P_out.data_ptr(), L_out.data_ptr(), info_out.data_ptr(),

@@ -463,21 +463,61 @@ def _assert_near(a, b):
     torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4 * float(b.abs().max()))
 
 
-@pytest.mark.parametrize("R,m,n", [(8, 5000, 32), (3, 7, 16), (2, 1, 5)])
-def test_halving_kernel_matches_plain(cuda, R, m, n):
+# K4a and K5a (one kernel template) at every state dim class and at the
+# tile's edges (tiles of 64 pairs of one row): m of 1, 63, 64, 65 and 5000.
+HALVING_DIMS = [1, 2, 5, 16, 17, 31, 32]
+HALVING_PAIRS = [1, 63, 64, 65, 5000]
+
+
+def _halving_inputs(gen, R, m, n, cuda):
+    """P, and info and logZ as a prefix of each row: strided rows, as the
+    merged levels pass them."""
+    P = _spd(gen, (), 2 * n, cuda)
+    info = torch.randn(R, 2 * m + 3, 2 * n, generator=gen, device=cuda)[:, : 2 * m]
+    logZ = torch.randn(R, 2 * m + 3, generator=gen, device=cuda)[:, : 2 * m]
+    return P, info, logZ
+
+
+@pytest.mark.parametrize("m", HALVING_PAIRS)
+@pytest.mark.parametrize("n", HALVING_DIMS)
+def test_halving_kernel_matches_plain(cuda, n, m):
+    """With the tape; a second launch gives the same bits."""
     from pyro_tpu_torch.ops import gaussian_levels as gl
 
+    R = 8 if m == 5000 else 3
     gen = torch.Generator(device="cuda").manual_seed(n)
-    P = _spd(gen, (), 2 * n, cuda)
-    full = torch.randn(R, 2 * m + 3, 2 * n, generator=gen, device=cuda)
-    info = full[:, : 2 * m]  # a prefix of each row: strided rows, as the merged levels pass them
-    logZ = torch.randn(R, 2 * m + 3, generator=gen, device=cuda)[:, : 2 * m]
+    P, info, logZ = _halving_inputs(gen, R, m, n, cuda)
     before = gl.launches["halving"]
     out_k = gl.halving_level(P, info, logZ, tape=True)
     out_p = gl.halving_level_plain(P, info, logZ, tape=True)
+    again = gl.halving_level(P, info, logZ, tape=True)
     torch.cuda.synchronize()
-    assert gl.launches["halving"] == before + 1
+    assert gl.launches["halving"] == before + 2
     for a, b in zip(out_k, out_p):
+        _assert_near(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+    assert torch.equal(out_k[0], out_k[0].T)  # P' written symmetric
+
+
+def test_halving_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses (an empty grid) raises, for K4a and K5a, and
+    the next launch runs and is right."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    P, info, logZ = _halving_inputs(gen, 2, 65, 16, cuda)
+    alpha, beta = (x[:, :130] for x in _gamma_rows(gen, 2, 133, cuda))
+    plan = gl.halving_plan
+    monkeypatch.setattr(gl, "halving_plan", lambda *args: plan(*args)._replace(blocks=0))
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gl.halving_level(P, info, logZ)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gl.gamma_halving_level(P, info, logZ, alpha, beta)
+    monkeypatch.setattr(gl, "halving_plan", plan)
+    for a, b in zip(gl.halving_level(P, info, logZ, tape=True), gl.halving_level_plain(P, info, logZ, tape=True)):
+        _assert_near(a, b)
+    for a, b in zip(gl.gamma_halving_level(P, info, logZ, alpha, beta),
+                    gl.gamma_halving_level_plain(P, info, logZ, alpha, beta)):
         _assert_near(a, b)
 
 
@@ -842,23 +882,29 @@ def _gamma_rows(gen, R, t, cuda):
     return alpha, 1.0 + torch.rand(R, t, generator=gen, device=cuda)
 
 
-@pytest.mark.parametrize("R,m,n", [(8, 2501, 32), (3, 7, 16), (2, 1, 3)])
-def test_gamma_halving_kernel_matches_plain(cuda, R, m, n):
+@pytest.mark.parametrize("m", HALVING_PAIRS)
+@pytest.mark.parametrize("n", HALVING_DIMS)
+def test_gamma_halving_kernel_matches_plain(cuda, n, m):
+    """Strided rows; a second launch gives the same bits, and K4a on the
+    same input gives P' and info' bit for bit."""
     from pyro_tpu_torch.ops import gaussian_levels as gl
 
+    R = 8 if m == 5000 else 3
     gen = torch.Generator(device="cuda").manual_seed(n)
-    P = _spd(gen, (), 2 * n, cuda)
-    info = torch.randn(R, 2 * m + 3, 2 * n, generator=gen, device=cuda)[:, : 2 * m]  # strided rows
-    logZ = torch.randn(R, 2 * m + 3, generator=gen, device=cuda)[:, : 2 * m]
+    P, info, logZ = _halving_inputs(gen, R, m, n, cuda)
     alpha, beta = (x[:, : 2 * m] for x in _gamma_rows(gen, R, 2 * m + 3, cuda))
     before = gl.launches["gamma_halving"]
     out_k = gl.gamma_halving_level(P, info, logZ, alpha, beta)
     out_p = gl.gamma_halving_level_plain(P, info, logZ, alpha, beta)
+    again = gl.gamma_halving_level(P, info, logZ, alpha, beta)
+    k4 = gl.halving_level(P, info, logZ)
     torch.cuda.synchronize()
-    assert gl.launches["gamma_halving"] == before + 1
+    assert gl.launches["gamma_halving"] == before + 2
     assert torch.equal(out_k[3], out_p[3])
     for a, b in zip(out_k, out_p):
         _assert_near(a, b)
+    assert all(torch.equal(a, b) for a, b in zip(out_k, again))
+    assert torch.equal(out_k[0], k4[0]) and torch.equal(out_k[1], k4[1])
 
 
 GAMMA_CONTRACT_CASES = [
