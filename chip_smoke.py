@@ -67,8 +67,9 @@ Phases (any failure exits non-zero):
      64 draws at ``64.4000.16.4`` for K4b (with its tape) and K4c; each
      kernel's levels timed against the plain version's in turns, beside
      the bound of the same levels (a stride-0 input's bytes counted once),
-     K4a's and K4b's with the profiler's device ms beside the CUDA events,
-     K4a's also level by level; K4b over
+     with the profiler's device ms beside the CUDA events, K4a's and K4c's
+     also level by level; K4c's two launches at every level bitwise equal;
+     K4b over
      the n-sweep (n 1, 2, 5, 16, 17, 31, 32; t 2, 3, odd, 4000; up to 8
      rows; P contiguous, sliced or expanded with stride 0) against its
      plain version and the float64 plain version, two launches bitwise
@@ -93,7 +94,7 @@ Phases (any failure exits non-zero):
      through the kernels, one launch counted a level), P gradients
      symmetrised; each backward run twice on the same inputs, bitwise
      equal; each kernel's levels timed against the plain version's in
-     turns, beside the bound of the same levels, K4a's with the profiler's
+     turns, beside the bound of the same levels, with the profiler's
      device ms over the step's levels and level by level;
   11. slice 7, SVI through K4 at full width, 5 steps each through the
      entry points (``make_train_svi``: Trace_ELBO with the empty guide and
@@ -1252,16 +1253,21 @@ def device_ms_passes(torch, kernel, calls, name, passes=3, warm_up_s=0.2):
     return [times[i * m:(i + 1) * m] for i in range(passes)]
 
 
-def halving_device_ms(torch, kernel, calls, label):
-    """The profiler's device ms of K4a or K5a (``gl_halving_kernel``) over
+def levels_device_ms(torch, kernel, calls, name, label, pairs):
+    """The profiler's device ms of the kernel whose name holds ``name`` over
     the recorded levels ``calls``: the median of three passes' sums, and
-    each level's median, printed beside its pairs; returns the sum."""
-    passes = device_ms_passes(torch, kernel, calls, "gl_halving_kernel")
+    each level's median, printed beside its ``pairs``; returns the sum."""
+    passes = device_ms_passes(torch, kernel, calls, name)
     device = sorted(sum(p) for p in passes)[1]
     by_level = [sorted(p[i] for p in passes)[1] for i in range(len(calls))]
-    pairs = [args[1].shape[0] * (args[1].shape[1] // 2) for args in calls]
     print(f"    {label} device ms a level (pairs): " + ", ".join(f"{x:.4f} ({q})" for x, q in zip(by_level, pairs)))
     return device
+
+
+def halving_device_ms(torch, kernel, calls, label):
+    """K4a's or K5a's (``gl_halving_kernel``) ``levels_device_ms``."""
+    pairs = [args[1].shape[0] * (args[1].shape[1] // 2) for args in calls]
+    return levels_device_ms(torch, kernel, calls, "gl_halving_kernel", label, pairs)
 
 
 def contract_device_ms(torch, kernel, calls, passes=3):
@@ -1386,6 +1392,7 @@ def phase_k4(torch, gl):
                     outs_k = outs_k[:3] + tuple(outs_k[3] or ())
                     outs_p = outs_p[:3] + tuple(outs_p[3] or ())
                 elif name == "mids":
+                    check(torch.equal(outs_k, kernel(*args)), f"mids level {i}: two launches differ")
                     outs_k, outs_p = (outs_k,), (outs_p,)
                 err = max(err, check_k4_level(f"{name} level {i}", outs_k, outs_p))
             t = alternate({
@@ -1401,8 +1408,13 @@ def phase_k4(torch, gl):
                 device = f", profiler {contract_device_ms(torch, kernel, calls):.4f} device ms"
             elif name == "halving":
                 device = f", profiler {halving_device_ms(torch, kernel, calls, 'K4a'):.4f} device ms"
+            else:
+                pairs = [args[3].shape[0] * args[3].shape[1] for args in calls]
+                ms = levels_device_ms(torch, kernel, calls, "gl_mids_kernel", "K4c", pairs)
+                device = f", profiler {ms:.4f} device ms"
+            equal = "; two launches bitwise equal" if name == "mids" else ""
             print(f"  {name} over the {len(calls)} levels of the {where} (first level's input "
-                  f"{tuple(first.shape)}): max abs err {err:.3g}; kernel {t['kernel']:.4f} ms{device}, plain "
+                  f"{tuple(first.shape)}): max abs err {err:.3g}{equal}; kernel {t['kernel']:.4f} ms{device}, plain "
                   f"{t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)")
             result[name] = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"], "bound": b,
                             "levels": len(calls)}
@@ -1600,21 +1612,19 @@ def phase_k4_backward(torch, gl):
                 "kernel": lambda: [kernel(*args) for args in calls],
                 "plain": lambda: [plain(*args) for args in calls],
             }, iters=5)
-            if name == "halving":  # K4a backward's device ms, level by level
-                passes = device_ms_passes(torch, kernel, calls, "gl_halving_bwd_kernel")
-                device = sorted(sum(p) for p in passes)[1]
-                by_level = [sorted(p[i] for p in passes)[1] for i in range(len(calls))]
+            # the backward kernel's device ms, level by level
+            if name == "halving":
+                pairs = [args[2].shape[0] * args[2].shape[1] for args in calls]
+            else:
+                pairs = [args[1].shape[0] * args[1].shape[1] for args in calls]
+            device = levels_device_ms(torch, kernel, calls, f"gl_{name}_bwd_kernel", f"{name} backward", pairs)
         flops = sum(k4_bounds(f"{name}_bwd", args)[0] for args in calls)
         nbytes = sum(k4_bounds(f"{name}_bwd", args)[1] for args in calls)
         b = bound(flops, nbytes)
         print(f"  {name} backward over the {len(calls)} levels of a {path} training step: max abs err {err:.3g} "
-              f"(P gradients symmetrised), two runs bitwise equal; kernel {t['kernel']:.4f} ms"
-              + (f", profiler {device:.4f} device ms" if name == "halving" else "")
-              + f", plain {t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: {flops / 1e9:.4f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB)")
-        if name == "halving":
-            pairs = [args[2].shape[0] * args[2].shape[1] for args in calls]
-            print("    device ms a level (pairs): " + ", ".join(f"{x:.4f} ({q})" for x, q in zip(by_level, pairs)))
+              f"(P gradients symmetrised), two runs bitwise equal; kernel {t['kernel']:.4f} ms, profiler "
+              f"{device:.4f} device ms, plain {t['plain']:.4f} ms, bound {b[0]:.4f} ms ({b[1]}: "
+              f"{flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB)")
         result[f"{name}_bwd"] = {"max_abs_err": err, "ms": t["kernel"], "plain_ms": t["plain"], "bound": b,
                                  "levels": len(calls)}
     pyro.clear_param_store()

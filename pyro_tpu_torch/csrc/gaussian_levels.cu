@@ -37,7 +37,9 @@
 //   (draw, pair): info_c = i_m - P_mk (l, r), mid = L^-T (L^-1 info_c + eps),
 //   written with the left points into their interleaved places of the next
 //   level's points; L and P_mk are read with stride 0 where they are shared
-//   (never broadcast into memory).  A warp per (draw, pair), lane i row i.
+//   (never broadcast into memory).  Tiles of pairs of one row, L^-1 formed
+//   once a pair (or once a CTA where shared), a thread a (draw, pair) (the
+//   design and what bounds it: the K4c section below).
 // K5a and K5b, gl_halving_kernel<true> and gl_contract_kernel<true>: the
 //   same levels of the gamma-Gaussian algebra (Student-t state-space
 //   models), exp(c) s^alpha exp(s (i.x - x'Px/2 - beta)) with a shared
@@ -60,7 +62,8 @@
 // tape (K4a: L and ib; K4b: L, P_mk and i_m) and returns the gradient of
 // each precision symmetrised, (g + g^T) / 2 of the gradient of the blocks
 // the forward reads:
-// K4b, gl_contract_bwd_kernel: one CTA an item, as the forward.  Per pair,
+// K4b, gl_contract_bwd_kernel: a warp an item, every solve a product with
+//   L^-1 (the design and what bounds it: the K4b backward section below).  Per pair,
 //   X = L^-1 [P_mk | i_m]; from the upstream gP', gi', gZ': gX1 = -X1 (gP' +
 //   gP'^T) - x2 gi'^T, gx2 = -X1 gi' + gZ' x2; gB = L^-T [gX1 | gx2] (the
 //   gradients of P_mk and i_m); gL = -tril(gB X^T) - gZ' / L_jj on the
@@ -82,7 +85,7 @@
 // What bounds them on an H100 (700 W): K4a over a whole log_prob at B=8,
 // T=10,000, n=32 is about 0.4 GFLOP (6 us on the f32 CUDA cores) against
 // about 60 MB of info read and written (18 us), K4b at T=4000, n=16 about
-// 60 MB, K4c at 64 draws about 50 MB: bytes, some 15-20 us each over a
+// 60 MB, K4c at 64 draws about 78 MB: bytes, some 15-25 us each over a
 // call.  But a level depends on the one before, and a call has 12-13
 // levels of short kernels, so launch and the per-level latency of the small
 // factorisations set the time.  K4c is plain f32 code with the small
@@ -95,82 +98,9 @@
 #include <math.h>
 
 #define NMAX 32        // the largest state dim n the kernels take
-#define NT_PAIR 128    // threads of K4b's backward CTA
 #define NT_CONTRACT 256  // the most threads of K4b's CTA (more warps for larger n)
-#define NT_MIDS 256    // threads of K4c's CTA: 8 warps
 #define FULL 0xffffffffu
 #define HALF_LOG_2PI 0.91893853320467274178f
-
-// X <- L^-1 X for the n x nc matrix X (row stride ldx) with L lower (row
-// stride ld), by the whole block: row j is final once divided by L[j][j],
-// then every later row subtracts its multiple.  Ends synchronised.
-__device__ void block_solve_lower(const float* L, int ld, float* X, int ldx, int n, int nc, int nt) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < n; ++j) {
-    const float d = L[j * ld + j];
-    for (int c = tid; c < nc; c += nt) X[j * ldx + c] /= d;
-    __syncthreads();
-    const int w = n - j - 1;
-    for (int x = tid; x < w * nc; x += nt) {
-      const int i = j + 1 + x / nc, c = x % nc;
-      X[i * ldx + c] -= L[i * ld + j] * X[j * ldx + c];
-    }
-    __syncthreads();
-  }
-}
-
-// X <- L^-T X for the n x nc matrix X (row stride ldx) with L lower (row
-// stride ld), by the whole block: back substitution, row j final once
-// divided by L[j][j], then every earlier row i subtracts L[j][i] times it.
-// Ends synchronised.
-__device__ void block_solve_lower_t(const float* L, int ld, float* X, int ldx, int n, int nc, int nt) {
-  const int tid = threadIdx.x;
-  for (int j = n - 1; j >= 0; --j) {
-    const float d = L[j * ld + j];
-    for (int c = tid; c < nc; c += nt) X[j * ldx + c] /= d;
-    __syncthreads();
-    for (int x = tid; x < j * nc; x += nt) {
-      const int i = x / nc, c = x % nc;
-      X[i * ldx + c] -= L[j * ld + i] * X[j * ldx + c];
-    }
-    __syncthreads();
-  }
-}
-
-// The Cholesky adjoint, by the whole block: with L (lower, row stride ld)
-// the factor of A and W (row stride ldw) holding the gradient of L in its
-// lower triangle, W becomes the symmetric gradient of A, L^-T S L^-1 with
-// S the symmetric matrix of the lower triangle of L^T gL, every entry
-// halved.  Y (row stride ldw) is scratch.  Starts and ends synchronised.
-__device__ void block_cholesky_adjoint(const float* L, int ld, float* W, float* Y, int ldw, int n, int nt) {
-  const int tid = threadIdx.x;
-  for (int x = tid; x < n * n; x += nt) {
-    const int i = x / n, j = x % n;
-    if (j <= i) {
-      float acc = 0.f;
-      for (int k = i; k < n; ++k) acc = fmaf(L[k * ld + i], W[k * ldw + j], acc);
-      Y[i * ldw + j] = 0.5f * acc;
-    }
-  }
-  __syncthreads();
-  for (int x = tid; x < n * n; x += nt) {
-    const int i = x / n, j = x % n;
-    W[i * ldw + j] = j <= i ? Y[i * ldw + j] : Y[j * ldw + i];
-  }
-  __syncthreads();
-  block_solve_lower_t(L, ld, W, ldw, n, n, nt);
-  for (int x = tid; x < n * n; x += nt) {
-    const int i = x / n, j = x % n;
-    Y[i * ldw + j] = W[j * ldw + i];
-  }
-  __syncthreads();
-  block_solve_lower_t(L, ld, Y, ldw, n, n, nt);
-  for (int x = tid; x < n * n; x += nt) {
-    const int i = x / n, j = x % n;
-    W[i * ldw + j] = 0.5f * (Y[i * ldw + j] + Y[j * ldw + i]);
-  }
-  __syncthreads();
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -682,59 +612,6 @@ static int launch_contract(const ContractArgs& a, int blocks, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------------- K4c --
-
-// cur (D, R, m_cur, n) points; per pair pr = r Np + p of the R rows: L
-// (n, n) at L + pr L_stride, P_mk (n, 2n) at Pmk + pr Pmk_stride (stride 0
-// where shared), i_m (R, Np, n); eps (D, R, Np, n).  out (D, R, m_out, n),
-// m_out = Np + m_cur: out[2p] = cur[p], out[2p + 1] = the mid of the pair
-// (cur[p], cur[p + 1]), and out[2 Np + q] = cur[Np + q] for the tail.
-__global__ void __launch_bounds__(NT_MIDS) gl_mids_kernel(
-    const float* __restrict__ cur, int m_cur, const float* __restrict__ L, long long L_stride,
-    const float* __restrict__ Pmk, long long Pmk_stride, const float* __restrict__ im,
-    const float* __restrict__ eps, int D, int R, int Np, int n, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n2 = 2 * n;
-  const int m_out = Np + m_cur, tail = m_cur - Np;
-  const long long items = (long long)D * R * Np;
-  for (long long w = (long long)blockIdx.x * (NT_MIDS / 32) + warp; w < items;
-       w += (long long)gridDim.x * (NT_MIDS / 32)) {
-    const long long dr = w / Np, p = w % Np, pr = (dr % R) * Np + p;
-    const float* c = cur + dr * m_cur * n;
-    float* o = out + dr * m_out * n;
-    const float* Lp = L + pr * L_stride;
-    const float* Pm = Pmk + pr * Pmk_stride;
-    const float left = lane < n ? c[p * n + lane] : 0.f;
-    const float right = lane < n ? c[(p + 1) * n + lane] : 0.f;
-    // info_c = i_m - P_mk (l, r), lane i row i
-    float res = lane < n ? im[pr * n + lane] : 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float lj = __shfl_sync(FULL, left, j), rj = __shfl_sync(FULL, right, j);
-      if (lane < n) res = fmaf(-Pm[lane * n2 + j], lj, fmaf(-Pm[lane * n2 + n + j], rj, res));
-    }
-    // y = L^-1 info_c + eps
-    float y = 0.f;
-    for (int j = 0; j < n; ++j) {
-      const float yj = __shfl_sync(FULL, res, j) / Lp[j * n + j];
-      if (lane == j) y = yj;
-      if (lane > j && lane < n) res = fmaf(-Lp[lane * n + j], yj, res);
-    }
-    if (lane < n) y += eps[w * n + lane];
-    // mid = L^-T y: column j of L^T is row j of L
-    float mid = 0.f;
-    for (int j = n - 1; j >= 0; --j) {
-      const float xj = __shfl_sync(FULL, y, j) / Lp[j * n + j];
-      if (lane == j) mid = xj;
-      if (lane < j) y = fmaf(-Lp[j * n + lane], xj, y);
-    }
-    if (lane < n) {
-      o[2 * p * n + lane] = left;
-      o[(2 * p + 1) * n + lane] = mid;
-      for (long long q = p; q < tail; q += Np) o[(2 * Np + q) * n + lane] = c[(Np + q) * n + lane];
-    }
-  }
-}
-
-
 // --------------------------------------------------------- K4a backward --
 //
 // The design for Hopper.  One launch a level; a CTA of 256 threads (8
@@ -908,24 +785,27 @@ __device__ __forceinline__ void hb_store4(float* p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// Warp 0: 1 / L_jj into invd (1 past n), and L^-1 from L^T (zero-padded)
-// by forward substitution of the unit vectors, lane c column c, right-looking (row k
+// One warp: 1 / L_jj into invd (32 floats; 1 past n), and L^-1 from L^T
+// (zero-padded to NP, rows LS floats apart, 16-byte aligned) by forward
+// substitution of the unit vectors, lane c column c, right-looking (row k
 // final once scaled by 1 / L_kk, then every later row takes its multiple),
-// straight-line code over NMAX; into Linv (rows) and LinvT (columns), zero
-// outside n x n.
+// straight-line code over NP; into Linv (rows) and LinvT (columns), zero
+// outside n x n.  NP is the padded state dim, NMAX or 16 (lanes past it
+// idle).
+template <int NP = NMAX, int LS = HB_LS>
 __device__ __forceinline__ void hb_tri_inverse(const float* Lt, float* invd, int n, int lane, float* Linv,
                                                float* LinvT) {
-  invd[lane] = lane < n ? 1.f / Lt[lane * HB_LS + lane] : 1.f;
+  invd[lane] = lane < n ? 1.f / Lt[lane * LS + lane] : 1.f;
   __syncwarp();
-  float x[NMAX];
+  float x[NP];
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i) x[i] = i == lane ? 1.f : 0.f;
+  for (int i = 0; i < NP; ++i) x[i] = i == lane ? 1.f : 0.f;
 #pragma unroll
-  for (int k = 0; k < NMAX; ++k) {
+  for (int k = 0; k < NP; ++k) {
     x[k] *= invd[k];
-    const float* col = Lt + k * HB_LS;  // L[i][k] over i
+    const float* col = Lt + k * LS;  // L[i][k] over i
 #pragma unroll
-    for (int i4 = (k + 1) & ~3; i4 < NMAX; i4 += 4) {
+    for (int i4 = (k + 1) & ~3; i4 < NP; i4 += 4) {
       const float4 l = *reinterpret_cast<const float4*>(col + i4);
       const float lv[4] = {l.x, l.y, l.z, l.w};
 #pragma unroll
@@ -933,13 +813,14 @@ __device__ __forceinline__ void hb_tri_inverse(const float* Lt, float* invd, int
         if (i4 + v > k) x[i4 + v] = fmaf(-lv[v], x[k], x[i4 + v]);
     }
   }
+  if (NP < 32 && lane >= NP) return;
   const bool in = lane < n;  // columns past n are the unit vectors: written as zero
 #pragma unroll
-  for (int i = 0; i < NMAX; ++i) Linv[i * HB_LS + lane] = in ? x[i] : 0.f;
+  for (int i = 0; i < NP; ++i) Linv[i * LS + lane] = in ? x[i] : 0.f;
 #pragma unroll
-  for (int i = 0; i < NMAX; i += 4) {
+  for (int i = 0; i < NP; i += 4) {
     const float v[4] = {in ? x[i] : 0.f, in ? x[i + 1] : 0.f, in ? x[i + 2] : 0.f, in ? x[i + 3] : 0.f};
-    hb_store4(LinvT + lane * HB_LS + i, v);
+    hb_store4(LinvT + lane * LS + i, v);
   }
 }
 
@@ -1627,112 +1508,663 @@ static int launch_halving(const HalvingArgs& a, int blocks, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------------- K4c --
+//
+// The design for Hopper (gl_mids_kernel<NP>, NP the state dim padded to 16
+// or 32).  One launch a level; a CTA of 128 threads (4 warps) walks tiles
+// of consecutive pairs of one row, tile += gridDim.x, over a grid of
+// min(tiles, CTAs the card runs at once) (ops/gaussian_levels.py::mids_plan,
+// from gl_mids_shape).  A tile holds MD_TP = 4 pairs where L and P_mk are
+// per pair (the heterogeneous sampler), MD_TPS = 32 where they are shared
+// (the homogeneous one, stride 0: only i_m varies).  Most levels are one
+// CTA's chain, so small tiles spread a level over more SMs: in turns
+// (examples/tape_timing.py), 8 pairs on 256 threads ran the heterogeneous
+// sampler's levels in 0.158 device ms, 4 on 128 in 0.140, 2 on 64 in
+// 0.135, and the homogeneous one's (4 draws, n = 32) in 0.329, 0.310 and
+// 0.322.  Per tile:
+//   per pair, once for all draws: warp j brings pair j's L (transposed)
+//     and P_mk (each half padded to NP) from the tape into its slot of
+//     shared memory by cp.async, 4 bytes an entry, reading along the tape's
+//     rows (a pair's L and P_mk are contiguous, n^2 and 2n^2 floats), and
+//     forms 1 / L_jj and L^-1 by hb_tri_inverse (lane c column c, no block
+//     barrier); in the shared case warp 0 does this once a CTA;
+//   per pair, MD_K<NP> of its draws a thread (2 at NP = 16, H = D / 2
+//     apart; 1 at 32), the draws fastest (so a warp's lanes are draws of one
+//     pair at D >= 64 and every operand read from shared memory is a float4
+//     broadcast that feeds each of the thread's draws): x = [cur[p] |
+//     cur[p + 1]] (2n contiguous floats; the left point written out as it
+//     is), info_c = i_m - P_mk x (NP x 2NP), y = L^-1 info_c + eps, mid =
+//     L^-T y, each entry a dot product in index order from registers (the
+//     triangles' zeros skipped four at a time), the mid written to out[2p +
+//     1].  The points, the noise, i_m and the outputs go 16 bytes a thread
+//     where n % 4 == 0 and the pointers are aligned (else 4);
+//   the carried tail out[2 Np + q] = cur[Np + q], every CTA a share.
+// The products are f32 on the CUDA cores (4n^2 + n FMAs an item less the
+// triangles' halves: 0.26 GFLOP at the sampler's first level, some 4 us at
+// the f32 rate), each thread's sums in a fixed order: two launches give the
+// same bits.  What bounds it on an H100 (700 W): at the sampler's finest
+// levels the draws' bytes (cur, eps and out: some 33 MB at 64 draws and
+// 2000 pairs, 10 us at 3.35 TB/s) and the operands' reads from shared
+// memory; at the small ones the chain of one tile, some 9,000 cycles at one
+// pair (examples/tape_timing.py --marks: the tape's loads 1,800, L^-1 700,
+// one thread's two draws 6,300).  Two draws a thread halve the reads: each
+// float4 broadcast fills 512 bytes of registers, 4 cycles of an SM's
+// shared-memory path, and feeds 8 FMAs, not 4 (in a variant with marks, one
+// draw a thread, the items of a tile of 8 pairs took 18,000 cycles, two
+// 13,000).  The earlier design ran a warp a (draw, pair) item, lane i row
+// i, with three dependent chains of n shuffles and divides and each pair's
+// L and P_mk read again by every draw, strided across the lanes.
+
+#define MD_NT 128   // threads of K4c's CTA: 4 warps
+#define MD_TP 4     // pairs a tile where L and P_mk are per pair: a warp forms each one's L^-1
+#define MD_TPS 32   // pairs a tile where they are shared
+template <int NP>
+constexpr int MD_K = NP == 16 ? 2 : 1;  // draws a thread (at NP = 32 two would take over 255 registers)
+
+// One pair's operands in shared memory, in floats: L^T, L^-1 (rows and
+// columns) in rows of LS, 1 / L_jj (32), P_mk (NP rows of [l | r], each half
+// padded to NP).
+template <int NP>
+struct MidsSlot {
+  static constexpr int LS = NP + 4;  // float4-aligned rows; lanes' rows of LinvT at distinct banks
+  static constexpr int LT = 0, LINV = NP * LS, LINVT = 2 * NP * LS, INVD = 3 * NP * LS;
+  static constexpr int PM = INVD + 32, FLOATS = PM + 2 * NP * NP;
+};
+
+// cur (D, R, m_cur, n) points; per pair pr = r Np + p: L (n, n) at L + pr
+// L_stride and P_mk (n, 2n) at Pmk + pr Pmk_stride (strides 0 where shared),
+// i_m (R, Np, n); eps (D, R, Np, n).  out (D, R, Np + m_cur, n).  vec: n % 4
+// == 0 and cur, im, eps and out 16-byte aligned.
+struct MidsArgs {
+  const float *cur, *L, *Pmk, *im, *eps;
+  long long L_stride, Pmk_stride;
+  int m_cur, D, R, Np, n, vec;
+  float* out;
+};
+
+// x[i] = src[i] for i < n, 0 past it.
+template <int NP>
+__device__ __forceinline__ void md_load(const float* __restrict__ src, int n, bool vec, float* x) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < NP; i += 4) {
+      const float4 v = i < n ? __ldg(reinterpret_cast<const float4*>(src + i)) : make_float4(0.f, 0.f, 0.f, 0.f);
+      x[i] = v.x;
+      x[i + 1] = v.y;
+      x[i + 2] = v.z;
+      x[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) x[i] = i < n ? __ldg(src + i) : 0.f;
+  }
+}
+
+// dst[i] = x[i] for i < n.
+template <int NP>
+__device__ __forceinline__ void md_store(float* dst, int n, bool vec, const float* x) {
+  if (vec) {
+#pragma unroll
+    for (int i = 0; i < NP; i += 4)
+      if (i < n) *reinterpret_cast<float4*>(dst + i) = make_float4(x[i], x[i + 1], x[i + 2], x[i + 3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      if (i < n) dst[i] = x[i];
+  }
+}
+
+// One warp: pair pr's L (lower triangle, transposed) and P_mk into the slot
+// at `s`, zero-padded, read along the tape's rows by cp.async (4 bytes an
+// entry, all in flight at once); then 1 / L_jj and L^-1.
+template <int NP>
+__device__ __forceinline__ void md_stage(const MidsArgs& a, long long pr, float* s, int lane) {
+  using S = MidsSlot<NP>;
+  const int n = a.n;
+  const float* L = a.L + pr * a.L_stride;
+  const float* P = a.Pmk + pr * a.Pmk_stride;
+  for (int e = lane; e < NP * NP; e += 32) {  // e = i NP + k: L[i][k] into Lt[k][i]
+    const int i = e / NP, k = e % NP;
+    float* d = s + S::LT + k * S::LS + i;
+    if (i < n && k <= i) hb_copy4(d, L + i * n + k);
+    else *d = 0.f;
+  }
+  for (int e = lane; e < 2 * NP * NP; e += 32) {  // e = i 2NP + h NP + k: P_mk[i][h n + k]
+    const int i = e / (2 * NP), h = (e / NP) & 1, k = e % NP;
+    if (i < n && k < n) hb_copy4(s + S::PM + e, P + i * 2 * n + h * n + k);
+    else s[S::PM + e] = 0.f;
+  }
+  hb_copy_wait();
+  __syncwarp();
+  hb_tri_inverse<NP, S::LS>(s + S::LT, s + S::INVD, n, lane, s + S::LINV, s + S::LINVT);
+}
+
+// Pair p of row r and K of its draws, dd + u H (u < K; those past D are not
+// written), from the pair's slot `s`: each operand read from shared memory
+// feeds the K draws' sums.
+template <int NP, int K>
+__device__ __forceinline__ void md_items(const MidsArgs& a, const float* s, int r, int p, int dd, int H) {
+  using S = MidsSlot<NP>;
+  const int n = a.n, m_out = a.Np + a.m_cur;
+  const bool vec = a.vec;
+  const long long pr = (long long)r * a.Np + p;
+  long long dr[K];
+  bool in[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    in[u] = dd + u * H < a.D;
+    dr[u] = (long long)(in[u] ? dd + u * H : dd) * a.R + r;
+  }
+  float x[K][2 * NP], v[K][NP], e[K][NP], im[NP];
+  md_load<NP>(a.im + pr * n, n, vec, im);
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    md_load<NP>(a.cur + (dr[u] * a.m_cur + p) * n, n, vec, x[u]);  // the left point
+    md_load<NP>(a.cur + (dr[u] * a.m_cur + p + 1) * n, n, vec, x[u] + NP);  // the right
+    md_load<NP>(a.eps + (dr[u] * a.Np + p) * n, n, vec, e[u]);
+    if (in[u]) md_store<NP>(a.out + (dr[u] * m_out + 2 * p) * n, n, vec, x[u]);  // the left point goes out as it is
+  }
+  // info_c = i_m - P_mk x
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const float* row = s + S::PM + i * 2 * NP;
+    float acc[K];
+#pragma unroll
+    for (int u = 0; u < K; ++u) acc[u] = im[i];
+#pragma unroll
+    for (int c = 0; c < 2 * NP; c += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(row + c);
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        acc[u] = fmaf(-q.x, x[u][c], acc[u]);
+        acc[u] = fmaf(-q.y, x[u][c + 1], acc[u]);
+        acc[u] = fmaf(-q.z, x[u][c + 2], acc[u]);
+        acc[u] = fmaf(-q.w, x[u][c + 3], acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < K; ++u) v[u][i] = acc[u];
+  }
+  // y = L^-1 info_c + eps (row i of L^-1 is zero past i), into e
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const float* row = s + S::LINV + i * S::LS;
+    float acc[K];
+#pragma unroll
+    for (int u = 0; u < K; ++u) acc[u] = 0.f;
+#pragma unroll
+    for (int k = 0; k <= i; k += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(row + k);
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        acc[u] = fmaf(q.x, v[u][k], acc[u]);
+        acc[u] = fmaf(q.y, v[u][k + 1], acc[u]);
+        acc[u] = fmaf(q.z, v[u][k + 2], acc[u]);
+        acc[u] = fmaf(q.w, v[u][k + 3], acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < K; ++u) e[u][i] = acc[u] + e[u][i];
+  }
+  // mid = L^-T y (row i of L^-T is zero before i), into v
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    const float* row = s + S::LINVT + i * S::LS;
+    float acc[K];
+#pragma unroll
+    for (int u = 0; u < K; ++u) acc[u] = 0.f;
+#pragma unroll
+    for (int k = i & ~3; k < NP; k += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(row + k);
+#pragma unroll
+      for (int u = 0; u < K; ++u) {
+        acc[u] = fmaf(q.x, e[u][k], acc[u]);
+        acc[u] = fmaf(q.y, e[u][k + 1], acc[u]);
+        acc[u] = fmaf(q.z, e[u][k + 2], acc[u]);
+        acc[u] = fmaf(q.w, e[u][k + 3], acc[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < K; ++u) v[u][i] = acc[u];
+  }
+#pragma unroll
+  for (int u = 0; u < K; ++u)
+    if (in[u]) md_store<NP>(a.out + (dr[u] * m_out + 2 * p + 1) * n, n, vec, v[u]);
+}
+
+// One level's midpoint draws (see MidsArgs).  Any grid; dynamic shared
+// memory of one slot (shared) or MD_TP slots (per pair).
+template <int NP>
+__global__ void __launch_bounds__(MD_NT) gl_mids_kernel(const MidsArgs a) {
+  extern __shared__ __align__(16) float md[];
+  using S = MidsSlot<NP>;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool shared = a.L_stride == 0;
+  const int tp = shared ? MD_TPS : MD_TP, tiles_a_row = (a.Np + tp - 1) / tp, tiles = a.R * tiles_a_row;
+  const int H = (a.D + MD_K<NP> - 1) / MD_K<NP>;  // a thread's draws are H apart
+  if (shared) {  // the one L^-1, before any tile
+    if (warp == 0) md_stage<NP>(a, 0, md, lane);
+    __syncthreads();
+  }
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int r = tile / tiles_a_row, p0 = (tile - r * tiles_a_row) * tp, np = min(tp, a.Np - p0);
+    if (!shared) {
+      if (warp < np) md_stage<NP>(a, (long long)r * a.Np + p0 + warp, md + warp * S::FLOATS, lane);
+      __syncthreads();
+    }
+    for (int it = tid; it < np * H; it += MD_NT) {
+      const int j = it / H;
+      md_items<NP, MD_K<NP>>(a, md + (shared ? 0 : j * S::FLOATS), r, p0 + j, it - j * H, H);
+    }
+    if (!shared) __syncthreads();  // the slots free for the next tile
+  }
+  // the carried tail: out[2 Np + q] = cur[Np + q], q < m_cur - Np
+  const int run = (a.m_cur - a.Np) * a.n, m_out = a.Np + a.m_cur;
+  const long long total = (long long)a.D * a.R * run;
+  for (long long x = (long long)blockIdx.x * MD_NT + tid; x < total; x += (long long)gridDim.x * MD_NT) {
+    const long long dr = x / run, k = x - dr * run;
+    a.out[(dr * m_out + 2 * a.Np) * a.n + k] = a.cur[(dr * a.m_cur + a.Np) * a.n + k];
+  }
+}
+
+template <int NP>
+static size_t mids_smem_bytes(bool shared) {
+  return (shared ? 1 : MD_TP) * MidsSlot<NP>::FLOATS * sizeof(float);
+}
+
+// The dynamic shared memory K4c's CTA may take (per pair at NP = 32, above
+// the default 48 KB), set once an instantiation.
+template <int NP>
+static int mids_ready() {
+  static bool ready = false;
+  if (!ready) {
+    const int err = (int)cudaFuncSetAttribute(gl_mids_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)mids_smem_bytes<NP>(false));
+    if (err) return err;
+    ready = true;
+  }
+  return 0;
+}
+
+template <int NP>
+static int launch_mids(const MidsArgs& a, int blocks, cudaStream_t st) {
+  const int err = mids_ready<NP>();
+  if (err) return err;
+  gl_mids_kernel<NP><<<blocks, MD_NT, mids_smem_bytes<NP>(a.L_stride == 0), st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+static int mids_shape(int shared, int* tile, int* ctas) {
+  const int err = mids_ready<NP>();
+  if (err) return err;
+  *tile = shared ? MD_TPS : MD_TP;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, gl_mids_kernel<NP>, MD_NT,
+                                                            mids_smem_bytes<NP>(shared));
+}
+
 // --------------------------------------------------------- K4b backward --
+//
+// The design for Hopper (gl_contract_bwd_kernel<NP>, NP the state dim padded
+// to 16 or 32).  One launch a level; a warp an item (a pair, or an odd
+// level's last factor, whose gradient passes through), CB_WARPS<NP> warps a
+// CTA (2 at NP = 16, 1 at 32, by shared memory: 15.8 and 58 KB a warp),
+// items += the grid's warps, over a grid of min(CTAs to hold the items,
+// CTAs the card runs at once) (ops/gaussian_levels.py::contract_bwd_plan,
+// from gl_contract_bwd_shape).  The warps share nothing: no block barrier,
+// and each output is written by the warp that owns the pair, so every sum
+// runs in a fixed order (two launches give the same bits).  Per pair,
+// every array zero-padded to NP (the halves of a 2n-vector to NP each), a
+// __syncwarp between steps:
+//   the tape's L (transposed), P_mk and i_m and the upstream gP', gi' in by
+//     cp.async, 4 bytes an entry, read along their rows, all in flight at
+//     once; 1 / L_jj and L^-1 by hb_tri_inverse (lane c column c);
+//   X1 = L^-1 P_mk and x2 = L^-1 i_m; gX1 = -(x2 gi'^T + X1 G), G = gP' +
+//     gP'^T read from both triangles; gx2 = gZ' x2 - X1 gi'; gB = L^-T [gX1
+//     | gx2]; gL = -tril(gB X^T) - gZ' / L_jj on the diagonal; M = tril(L^T
+//     gL), S its symmetric half; T1 = S L^-1, W = L^-T T1 (the Cholesky
+//     adjoint, gP_mm = (W + W^T) / 2).  Every solve is a product with L^-1
+//     or L^-T, and every product the same form: a lane owns a column (or a
+//     row) of the result in registers and walks the summed index in order,
+//     each step one entry of its own from shared memory and a float4
+//     broadcast of a row, so only the result's index is unrolled (the
+//     loops over the summed index stay rolled, 8 steps a turn: code run
+//     once a pair; 4 a turn ran 2-6% slower, 2 13%, examples/tape_timing.py).
+//     The same products on hb_mma (3xTF32, the operands read from the same
+//     arrays) ran slower in a variant, 12.7 against 11.6 us a small level:
+//     each is only a few 16 x 8 tiles deep, so the tensor cores' latency
+//     and the fragments' loads buy nothing at one warp a pair;
+//   gPx, gPy (2 x 4n^2 floats), ginfo and glogZ written a row at a time,
+//     consecutive lanes on consecutive floats.
+// About 17 n^3 FMAs a pair (70,000 at n = 16, 2200 a lane).  What bounds it
+// on an H100 (700 W): over the 12 levels of an lgssm step (R = 1, T = 4000,
+// n = 16) some 63 MB (19 us at 3.35 TB/s) and 0.29 GFLOP; but a level is
+// at most one or two rounds of pairs over the warps the card holds (14 an
+// SM at n = 16), so the chain of one warp's pair sets each level's time:
+// some 19,400 cycles (examples/tape_timing.py --marks: the loads 5,100, L^-1
+// 800, the nine products 9,200, the outputs 4,300).  In a variant with a
+// branch a row on the entry's block the outputs took 23,000 cycles, 330 a
+// row even with the stores left out.  The earlier design ran a CTA of 128
+// threads a pair, with the solves row by row between block barriers (some
+// 136 a pair at n = 16).
+
+// A warp's shared memory at padded state dim NP, in floats: L^T, L^-1 rows
+// and columns (rows of LS), 1 / L_jj; P_mk ([l | r] rows of 2NP; then gX1,
+// gL, W); i_m; X1 transposed with x2 as its last row (then S); gP' (rows of
+// GS: its columns read down without bank conflicts); gi'; gB transposed with
+// gb2 = L^-T gx2 as its last row; gx2.
+template <int NP>
+struct CbSmem {
+  static constexpr int LS = NP + 4, NC = 2 * NP, GS = NC + 1, WARPS = NP == 16 ? 2 : 1;
+  static constexpr int LT = 0, LINV = NP * LS, LINVT = 2 * NP * LS, INVD = 3 * NP * LS;
+  static constexpr int PM = INVD + 32, IM = PM + NP * NC, X1T = IM + NP, GP = X1T + (NC + 1) * LS;
+  static constexpr int GI = GP + NC * GS, GBT = GI + NC, GX2 = GBT + (NC + 1) * LS, FLOATS = GX2 + NP;
+};
 
 // The tape of the forward: L (R, t / 2, n, n), Pmk (R, t / 2, n, 2n), im
 // (R, t / 2, n); the upstream gradients gP_out (R, t_out, 2n, 2n), gi_out
 // (R, t_out, 2n), gZ_out (R, t_out), each null for zero; outputs gP (R, t,
-// 2n, 2n), ginfo (R, t, 2n), glogZ (R, t).  Items are the R t_out outputs:
-// a pair, or the odd level's last factor.
-__global__ void __launch_bounds__(NT_PAIR) gl_contract_bwd_kernel(
-    const float* __restrict__ L_tape, const float* __restrict__ Pmk_tape, const float* __restrict__ im_tape,
-    const float* __restrict__ gP_out, const float* __restrict__ gi_out, const float* __restrict__ gZ_out, int R,
-    int t, int n, int t_out, float* __restrict__ gP, float* __restrict__ ginfo, float* __restrict__ glogZ) {
-  __shared__ float G[2 * NMAX][2 * NMAX + 1];  // gP' + gP'^T
-  __shared__ float X[NMAX][2 * NMAX + 2];      // L^-1 [P_mk | i_m]
-  __shared__ float GX[NMAX][2 * NMAX + 2];     // [gX1 | gx2], then gB = L^-T of it
-  __shared__ float Ls[NMAX][NMAX + 1];
-  __shared__ float W[NMAX][NMAX + 1];  // gL, then gP_mm
-  __shared__ float Y[NMAX][NMAX + 1];
-  __shared__ float gis[2 * NMAX];
-  const int tid = threadIdx.x, n2 = 2 * n, nc = n2 + 1;
-  const long long np = t / 2, items = (long long)R * t_out;
-  for (long long o = blockIdx.x; o < items; o += gridDim.x) {
-    const long long r = o / t_out, p = o % t_out;
-    const float gz = gZ_out ? gZ_out[o] : 0.f;
-    const float* gPo = gP_out ? gP_out + o * n2 * n2 : nullptr;
-    const float* gio = gi_out ? gi_out + o * n2 : nullptr;
-    if (p == np) {  // the odd level's last factor
-      const long long f = r * t + t - 1;
-      for (int x = tid; x < n2 * n2; x += NT_PAIR) {
-        const int i = x / n2, j = x % n2;
-        gP[f * n2 * n2 + x] = gPo ? 0.5f * (gPo[x] + gPo[j * n2 + i]) : 0.f;
-      }
-      for (int i = tid; i < n2; i += NT_PAIR) ginfo[f * n2 + i] = gio ? gio[i] : 0.f;
-      if (tid == 0) glogZ[f] = gz;
-      continue;
-    }
-    const long long pr = r * np + p;
-    for (int x = tid; x < n * n; x += NT_PAIR) Ls[x / n][x % n] = L_tape[pr * n * n + x];
-    for (int x = tid; x < n * nc; x += NT_PAIR) {
-      const int i = x / nc, c = x % nc;
-      X[i][c] = c < n2 ? Pmk_tape[(pr * n + i) * n2 + c] : im_tape[pr * n + i];
-    }
-    for (int x = tid; x < n2 * n2; x += NT_PAIR) {
-      const int i = x / n2, j = x % n2;
-      G[i][j] = gPo ? gPo[x] + gPo[j * n2 + i] : 0.f;
-    }
-    for (int i = tid; i < n2; i += NT_PAIR) gis[i] = gio ? gio[i] : 0.f;
-    __syncthreads();
-    block_solve_lower(&Ls[0][0], NMAX + 1, &X[0][0], 2 * NMAX + 2, n, nc, NT_PAIR);
-    // [gX1 | gx2] = [-X1 (gP' + gP'^T) - x2 gi'^T | -X1 gi' + gZ' x2]
-    for (int x = tid; x < n * nc; x += NT_PAIR) {
-      const int k = x / nc, c = x % nc;
-      float acc;
-      if (c < n2) {
-        acc = -X[k][n2] * gis[c];
-        for (int j = 0; j < n2; ++j) acc = fmaf(-X[k][j], G[j][c], acc);
-      } else {
-        acc = gz * X[k][n2];
-        for (int j = 0; j < n2; ++j) acc = fmaf(-X[k][j], gis[j], acc);
-      }
-      GX[k][c] = acc;
-    }
-    __syncthreads();
-    block_solve_lower_t(&Ls[0][0], NMAX + 1, &GX[0][0], 2 * NMAX + 2, n, nc, NT_PAIR);
-    // gL = -tril(gB X^T) - gZ' / L_jj on the diagonal
-    for (int x = tid; x < n * n; x += NT_PAIR) {
-      const int i = x / n, j = x % n;
-      float acc = 0.f;
-      if (j <= i) {
-        for (int c = 0; c < nc; ++c) acc = fmaf(-GX[i][c], X[j][c], acc);
-        if (i == j) acc -= gz / Ls[i][i];
-      }
-      W[i][j] = acc;
-    }
-    __syncthreads();
-    block_cholesky_adjoint(&Ls[0][0], NMAX + 1, &W[0][0], &Y[0][0], NMAX + 1, n, NT_PAIR);
-    // scatter into the pair's two factors: P_mm = Px[n:, n:] + Py[:n, :n],
-    // P_mk = [Px[:n, n:]^T | Py[:n, n:]], i_m = ix[n:] + iy[:n]
-    const long long fx = r * t + 2 * p;
-    float* gPx = gP + fx * n2 * n2;
-    float* gPy = gPx + n2 * n2;
-    for (int x = tid; x < n2 * n2; x += NT_PAIR) {
-      const int i = x / n2, j = x % n2;
-      float vx, vy;
-      if (i < n && j < n) {
-        vx = 0.5f * G[i][j];
-        vy = W[i][j];
-      } else if (i >= n && j >= n) {
-        vx = W[i - n][j - n];
-        vy = 0.5f * G[i][j];
-      } else if (i < n) {
-        vx = 0.5f * GX[j - n][i];
-        vy = 0.5f * GX[i][j];
-      } else {
-        vx = 0.5f * GX[i - n][j];
-        vy = 0.5f * GX[j][i];
-      }
-      gPx[x] = vx;
-      gPy[x] = vy;
-    }
-    for (int i = tid; i < n2; i += NT_PAIR) {
-      ginfo[fx * n2 + i] = i < n ? gis[i] : GX[i - n][n2];
-      ginfo[(fx + 1) * n2 + i] = i < n ? GX[i][n2] : gis[i];
-    }
-    if (tid == 0) glogZ[fx] = glogZ[fx + 1] = gz;
-    __syncthreads();
+// 2n, 2n), ginfo (R, t, 2n), glogZ (R, t).  Items are the R t_out outputs.
+struct ContractBwdArgs {
+  const float *L, *Pmk, *im, *gP_out, *gi_out, *gZ_out;
+  int R, t, n, t_out;
+  float *gP, *ginfo, *glogZ;
+};
+
+// acc[i] += row[i] b for i < NP, row a float4-aligned row of shared memory.
+template <int NP>
+__device__ __forceinline__ void cb_axpy(float (&acc)[NP], const float* row, float b) {
+#pragma unroll
+  for (int i = 0; i < NP; i += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(row + i);
+    acc[i] = fmaf(q.x, b, acc[i]);
+    acc[i + 1] = fmaf(q.y, b, acc[i + 1]);
+    acc[i + 2] = fmaf(q.z, b, acc[i + 2]);
+    acc[i + 3] = fmaf(q.w, b, acc[i + 3]);
   }
+}
+
+template <int NP>
+__device__ __forceinline__ void cb_put_row(float* row, const float (&acc)[NP]) {
+#pragma unroll
+  for (int i = 0; i < NP; i += 4) {
+    const float v[4] = {acc[i], acc[i + 1], acc[i + 2], acc[i + 3]};
+    hb_store4(row + i, v);
+  }
+}
+
+// The odd level's last factor (output o, factor f): its gradient passes
+// through, gP symmetrised.
+__device__ __forceinline__ void cb_pass(const ContractBwdArgs& a, long long o, long long f, int lane) {
+  const int n2 = 2 * a.n;
+  const float* gPo = a.gP_out ? a.gP_out + o * n2 * n2 : nullptr;
+  for (int x = lane; x < n2 * n2; x += 32) {
+    const int i = x / n2, j = x - i * n2;
+    a.gP[f * n2 * n2 + x] = gPo ? 0.5f * (gPo[x] + gPo[j * n2 + i]) : 0.f;
+  }
+  for (int i = lane; i < n2; i += 32) a.ginfo[f * n2 + i] = a.gi_out ? a.gi_out[o * n2 + i] : 0.f;
+  if (lane == 0) a.glogZ[f] = a.gZ_out ? a.gZ_out[o] : 0.f;
+}
+
+// One pair (output o, tape entry pr, first factor fx) by one warp, in its
+// shared memory `s`.
+template <int NP>
+__device__ __forceinline__ void cb_pair(const ContractBwdArgs& a, long long o, long long pr, long long fx, float* s,
+                                        int lane) {
+  using S = CbSmem<NP>;
+  constexpr int LS = S::LS, NC = S::NC, GS = S::GS, CPL = NC / 32;  // columns of a 2NP-wide matrix a lane
+  const int n = a.n, n2 = 2 * n;
+  float* const Lt = s + S::LT;
+  float* const Linv = s + S::LINV;
+  float* const PM = s + S::PM;
+  float* const X1T = s + S::X1T;
+  float* const GP = s + S::GP;
+  float* const GI = s + S::GI;
+  float* const GBT = s + S::GBT;
+  float* const GX2 = s + S::GX2;
+
+  // 1. the tape and the upstream gradients in, zero-padded
+  const float* L = a.L + pr * n * n;
+  for (int e = lane; e < NP * NP; e += 32) {  // L[i][k] into Lt[k][i]
+    const int i = e / NP, k = e % NP;
+    float* d = Lt + k * LS + i;
+    if (i < n && k <= i) hb_copy4(d, L + i * n + k);
+    else *d = 0.f;
+  }
+  const float* P = a.Pmk + pr * n * n2;
+  for (int e = lane; e < NP * NC; e += 32) {  // P_mk[i][h n + k] into PM[i][h NP + k]
+    const int i = e / NC, h = (e / NP) & 1, k = e % NP;
+    if (i < n && k < n) hb_copy4(PM + e, P + i * n2 + h * n + k);
+    else PM[e] = 0.f;
+  }
+  if (lane < NP) {
+    if (lane < n) hb_copy4(s + S::IM + lane, a.im + pr * n + lane);
+    else s[S::IM + lane] = 0.f;
+  }
+  const float* gPo = a.gP_out ? a.gP_out + o * n2 * n2 : nullptr;
+  for (int e = lane; e < NC * NC; e += 32) {  // gP'[ha n + i][hb n + k] into GP[ha NP + i][hb NP + k]
+    const int pa = e / NC, pb = e % NC, i = pa % NP, k = pb % NP;
+    if (gPo && i < n && k < n) hb_copy4(GP + pa * GS + pb, gPo + ((pa / NP) * n + i) * n2 + (pb / NP) * n + k);
+    else GP[pa * GS + pb] = 0.f;
+  }
+  for (int c = lane; c < NC; c += 32) {
+    const int k = c % NP;
+    if (a.gi_out && k < n) hb_copy4(GI + c, a.gi_out + o * n2 + (c / NP) * n + k);
+    else GI[c] = 0.f;
+  }
+  const float gz = a.gZ_out ? __ldg(a.gZ_out + o) : 0.f;
+  hb_copy_wait();
+  __syncwarp();
+
+  // 2. 1 / L_jj and L^-1
+  hb_tri_inverse<NP, LS>(Lt, s + S::INVD, n, lane, Linv, s + S::LINVT);
+  __syncwarp();
+  const float* const LinvT = s + S::LINVT;  // row k: column k of L^-1
+  const float* const invd = s + S::INVD;
+
+  // 3. X1 = L^-1 P_mk, lane c column c, into X1T; x2 = L^-1 i_m, lane i row i
+  float acc[CPL][NP];
+#pragma unroll
+  for (int h = 0; h < CPL; ++h) {
+#pragma unroll
+    for (int i = 0; i < NP; ++i) acc[h][i] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < NP; ++k) cb_axpy<NP>(acc[h], LinvT + k * LS, PM[k * NC + lane + 32 * h]);
+    cb_put_row<NP>(X1T + (lane + 32 * h) * LS, acc[h]);
+  }
+  if (lane < NP) {
+    float x2 = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < NP; ++k) x2 = fmaf(Linv[lane * LS + k], s[S::IM + k], x2);
+    X1T[NC * LS + lane] = x2;
+  }
+  __syncwarp();
+
+  // 4. gX1 = -(x2 gi'^T + X1 G), lane c column c, into PM (row-major);
+  //    gx2 = gZ' x2 - X1 gi', lane i row i
+#pragma unroll
+  for (int h = 0; h < CPL; ++h) {
+    const int c = lane + 32 * h;
+    const float gic = GI[c];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) acc[h][i] = X1T[NC * LS + i] * gic;
+#pragma unroll 8
+    for (int j = 0; j < NC; ++j) cb_axpy<NP>(acc[h], X1T + j * LS, GP[j * GS + c] + GP[c * GS + j]);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) PM[i * NC + c] = -acc[h][i];
+  }
+  if (lane < NP) {
+    float g = gz * X1T[NC * LS + lane];
+#pragma unroll 8
+    for (int c = 0; c < NC; ++c) g = fmaf(-X1T[c * LS + lane], GI[c], g);
+    GX2[lane] = g;
+  }
+  __syncwarp();
+
+  // 5. gB = L^-T [gX1 | gx2]: lane c column c, into GBT; gb2 lane i row i
+#pragma unroll
+  for (int h = 0; h < CPL; ++h) {
+    const int c = lane + 32 * h;
+#pragma unroll
+    for (int i = 0; i < NP; ++i) acc[h][i] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < NP; ++k) cb_axpy<NP>(acc[h], Linv + k * LS, PM[k * NC + c]);
+    cb_put_row<NP>(GBT + c * LS, acc[h]);
+  }
+  if (lane < NP) {
+    float g = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < NP; ++k) g = fmaf(Linv[k * LS + lane], GX2[k], g);
+    GBT[NC * LS + lane] = g;
+  }
+  __syncwarp();
+
+  // 6. gL = -tril(gB X^T) - gZ' / L_jj on the diagonal, lane j column j,
+  //    into PM (rows of LS)
+  float* const gLs = PM;
+  if (lane < NP) {
+    float g[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) g[i] = 0.f;
+#pragma unroll 8
+    for (int c = 0; c <= NC; ++c) cb_axpy<NP>(g, GBT + c * LS, X1T[c * LS + lane]);
+    const float dz = gz * invd[lane];
+#pragma unroll
+    for (int i = 0; i < NP; ++i)
+      gLs[i * LS + lane] = (i >= lane && i < n && lane < n) ? -g[i] - (i == lane ? dz : 0.f) : 0.f;
+  }
+  __syncwarp();
+
+  // 7. M = L^T gL, lane i row i (its lower triangle used); S, the symmetric
+  //    matrix of tril(M) halved, into X1T's place (rows of LS)
+  float* const Ss = X1T;
+  if (lane < NP) {
+    float m[NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) m[j] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < NP; ++k) cb_axpy<NP>(m, gLs + k * LS, Lt[lane * LS + k]);  // L[k][lane] gL[k][:]
+#pragma unroll
+    for (int j = 0; j < NP; ++j)
+      if (j <= lane) Ss[lane * LS + j] = Ss[j * LS + lane] = 0.5f * m[j];
+  }
+  __syncwarp();
+
+  // 8. T1 = S L^-1, lane j column j, into Lt's place
+  float* const T1 = Lt;
+  if (lane < NP) {
+    float t1[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) t1[i] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < NP; ++k) cb_axpy<NP>(t1, Ss + k * LS, Linv[k * LS + lane]);  // S[:][k] = S[k][:]
+#pragma unroll
+    for (int i = 0; i < NP; ++i) T1[i * LS + lane] = t1[i];
+  }
+  __syncwarp();
+
+  // 9. W = L^-T T1, lane j column j, into PM (rows of NP + 1)
+  float* const W = PM;
+  if (lane < NP) {
+    float w[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) w[i] = 0.f;
+#pragma unroll 8
+    for (int k = 0; k < NP; ++k) cb_axpy<NP>(w, Linv + k * LS, T1[k * LS + lane]);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) W[i * (NP + 1) + lane] = w[i];
+  }
+  __syncwarp();
+
+  // 10. the pair's two factors: gPx = [[G_ll / 2, gl^T], [gl, gP_mm]], gPy =
+  //     [[gP_mm, gr], [gr^T, G_rr / 2]] (gl, gr = gB's halves / 2), a
+  //     quarter at a time, lane b column b: each entry w (p1[i s1] + p2[i
+  //     s2]) at row i of the quarter, the lane's sources chosen once a
+  //     quarter (no branch in the rows' loop); ginfo = [gi'_l, gb2], [gb2,
+  //     gi'_r]; glogZ = gZ' for both
+  float* const out = a.gP + fx * n2 * n2;
+  for (int q = 0; q < 4; ++q) {  // factor f, row half ha
+    const int f = q >> 1, ha = q & 1;
+    for (int b = lane; b < n2; b += 32) {
+      const int hb = b >= n, ib = b - hb * n;
+      const float *p1, *p2;
+      int s1, s2;
+      float w = 0.5f;
+      if (ha == hb && ha == f) {  // half of G: G[i][ib] + G[ib][i] in the quarter's block
+        p1 = GP + ha * NP * GS + hb * NP + ib, s1 = GS;
+        p2 = GP + (hb * NP + ib) * GS + ha * NP, s2 = 1;
+      } else if (ha == hb) {  // gP_mm: (W + W^T) / 2
+        p1 = W + ib, s1 = NP + 1;
+        p2 = W + ib * (NP + 1), s2 = 1;
+      } else {  // a half of gB / 2, read twice and halved again (exact)
+        w = 0.25f;
+        if (f == 0) {
+          p1 = ha == 0 ? GBT + ib : GBT + ib * LS, s1 = ha == 0 ? LS : 1;  // gl^T, gl
+        } else {
+          p1 = ha == 0 ? GBT + (NP + ib) * LS : GBT + NP * LS + ib, s1 = ha == 0 ? 1 : LS;  // gr, gr^T
+        }
+        p2 = p1, s2 = s1;
+      }
+      float* o = out + (f * n2 + ha * n) * n2 + b;
+#pragma unroll 8
+      for (int i = 0; i < n; ++i) o[i * n2] = w * (p1[i * s1] + p2[i * s2]);
+    }
+  }
+  for (int e = lane; e < 2 * n2; e += 32) {
+    const int f = e >= n2, c = e - f * n2, h = c >= n, k = c - h * n;
+    a.ginfo[fx * n2 + e] = h == f ? GI[h * NP + k] : GBT[NC * LS + k];
+  }
+  if (lane < 2) a.glogZ[fx + lane] = gz;
+  __syncwarp();  // the shared memory free for the warp's next item
+}
+
+template <int NP>
+__global__ void __launch_bounds__(32 * CbSmem<NP>::WARPS) gl_contract_bwd_kernel(const ContractBwdArgs a) {
+  extern __shared__ __align__(16) float cb[];
+  using S = CbSmem<NP>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long np = a.t / 2, items = (long long)a.R * a.t_out;
+  for (long long o = (long long)blockIdx.x * S::WARPS + warp; o < items; o += (long long)gridDim.x * S::WARPS) {
+    const long long r = o / a.t_out, p = o - r * a.t_out;
+    if (p == np) cb_pass(a, o, r * a.t + a.t - 1, lane);
+    else cb_pair<NP>(a, o, r * np + p, r * a.t + 2 * p, cb + warp * S::FLOATS, lane);
+  }
+}
+
+template <int NP>
+static constexpr size_t contract_bwd_smem_bytes() {
+  return CbSmem<NP>::WARPS * CbSmem<NP>::FLOATS * sizeof(float);
+}
+
+// The dynamic shared memory K4b backward's CTA takes (above the default 48
+// KB at NP = 32), set once an instantiation.
+template <int NP>
+static int contract_bwd_ready() {
+  static bool ready = false;
+  if (!ready) {
+    const int err = (int)cudaFuncSetAttribute(gl_contract_bwd_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)contract_bwd_smem_bytes<NP>());
+    if (err) return err;
+    ready = true;
+  }
+  return 0;
+}
+
+template <int NP>
+static int launch_contract_bwd(const ContractBwdArgs& a, int blocks, cudaStream_t st) {
+  const int err = contract_bwd_ready<NP>();
+  if (err) return err;
+  gl_contract_bwd_kernel<NP><<<blocks, 32 * CbSmem<NP>::WARPS, contract_bwd_smem_bytes<NP>(), st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <int NP>
+static int contract_bwd_shape(int* pairs, int* ctas) {
+  const int err = contract_bwd_ready<NP>();
+  if (err) return err;
+  *pairs = CbSmem<NP>::WARPS;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, gl_contract_bwd_kernel<NP>, 32 * CbSmem<NP>::WARPS,
+                                                            contract_bwd_smem_bytes<NP>());
 }
 
 extern "C" {
@@ -1800,8 +2232,16 @@ int gl_contract_ctas_per_sm(int n, int gamma, int* ctas) {
 
 int gl_mids(const float* cur, int m_cur, const float* L, long long L_stride, const float* Pmk, long long Pmk_stride,
             const float* im, const float* eps, int D, int R, int Np, int n, int blocks, float* out, cudaStream_t st) {
-  gl_mids_kernel<<<blocks, NT_MIDS, 0, st>>>(cur, m_cur, L, L_stride, Pmk, Pmk_stride, im, eps, D, R, Np, n, out);
-  return (int)cudaGetLastError();
+  const auto aligned = [](const void* p) { return (reinterpret_cast<size_t>(p) & 15) == 0; };
+  const int vec = n % 4 == 0 && aligned(cur) && aligned(im) && aligned(eps) && aligned(out);
+  const MidsArgs a = {cur, L, Pmk, im, eps, L_stride, Pmk_stride, m_cur, D, R, Np, n, vec, out};
+  return n <= 16 ? launch_mids<16>(a, blocks, st) : launch_mids<32>(a, blocks, st);
+}
+
+// K4c's pairs a tile (L and P_mk shared or per pair) and the CTAs one SM
+// runs at once at state dim n, for the wrapper's plan.
+int gl_mids_shape(int n, int shared, int* tile, int* ctas) {
+  return n <= 16 ? mids_shape<16>(shared, tile, ctas) : mids_shape<32>(shared, tile, ctas);
 }
 
 int gl_halving_bwd(const float* P, const float* L, const float* ib, const float* gP_out, const float* gi_out,
@@ -1831,9 +2271,14 @@ int gl_halving_bwd_shape(int* tile, int* partial, int* ctas) {
 int gl_contract_bwd(const float* L_tape, const float* Pmk_tape, const float* im_tape, const float* gP_out,
                     const float* gi_out, const float* gZ_out, int R, int t, int n, int t_out, int blocks, float* gP,
                     float* ginfo, float* glogZ, cudaStream_t st) {
-  gl_contract_bwd_kernel<<<blocks, NT_PAIR, 0, st>>>(L_tape, Pmk_tape, im_tape, gP_out, gi_out, gZ_out, R, t, n,
-                                                     t_out, gP, ginfo, glogZ);
-  return (int)cudaGetLastError();
+  const ContractBwdArgs a = {L_tape, Pmk_tape, im_tape, gP_out, gi_out, gZ_out, R, t, n, t_out, gP, ginfo, glogZ};
+  return n <= 16 ? launch_contract_bwd<16>(a, blocks, st) : launch_contract_bwd<32>(a, blocks, st);
+}
+
+// K4b backward's pairs a CTA (a warp each) and the CTAs one SM runs at once
+// at state dim n, for the wrapper's plan.
+int gl_contract_bwd_shape(int n, int* pairs, int* ctas) {
+  return n <= 16 ? contract_bwd_shape<16>(pairs, ctas) : contract_bwd_shape<32>(pairs, ctas);
 }
 
 }  // extern "C"

@@ -36,11 +36,12 @@ from pathlib import Path
 from pyro_tpu_torch.examples.halving_bwd_timing import cuda_ms
 
 
-def device_passes(torch, fn, calls, passes=3, warm_up_s=0.2):
+def device_passes(torch, fn, calls, passes=3, warm_up_s=0.2, name="gl_halving_kernel"):
     """``fn(*args)`` over ``calls`` in one profiled window, for ``warm_up_s``
     seconds at least and then ``passes`` times (a window may drop the kernel
     events of its first few milliseconds): per pass of the last ``passes``,
-    each call's device ms of the halving kernel."""
+    each call's device ms of the kernel whose name holds ``name`` (one a
+    call)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -56,12 +57,45 @@ def device_passes(torch, fn, calls, passes=3, warm_up_s=0.2):
                 fn(*args)
         torch.cuda.synchronize()
     times = [e.device_time_total / 1e3 for e in prof.events()
-             if e.device_type == DeviceType.CUDA and "gl_halving_kernel" in e.name]
+             if e.device_type == DeviceType.CUDA and name in e.name]
     k = len(calls)
     if len(times) < passes * k:
-        raise RuntimeError(f"profiler: {len(times)} halving kernels, fewer than {passes * k}")
+        raise RuntimeError(f"profiler: {len(times)} {name} kernels, fewer than {passes * k}")
     times = times[len(times) - passes * k:]
     return [times[p * k:(p + 1) * k] for p in range(passes)]
+
+
+def build(sources, kernels):
+    """The checkout's ``gaussian_levels.cu`` and each of ``sources`` ({name:
+    path}) built with the package's nvcc flags, all at once, the variants
+    into ``build/variants/``; the ptxas lines of the entry functions whose
+    names hold one of ``kernels`` printed.  Returns {name: library path},
+    the checkout's as "checkout"."""
+    from pyro_tpu_torch.ops import cuda_build
+
+    out_dir = cuda_build.BUILD_DIR.parent / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = cuda_build._nvcc()
+    procs = {name: subprocess.Popen(
+        [nvcc, *cuda_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), src],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name, src in sources.items()}
+    t0 = time.perf_counter()
+    cuda_build.build_all(["gaussian_levels"])
+    logs = {"checkout": cuda_build.BUILD_LOGS.get("gaussian_levels", "")}
+    libs = {"checkout": cuda_build._target("gaussian_levels")}
+    for name, proc in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
+        libs[name] = out_dir / f"lib{name}.so"
+    print(f"built in {time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            if "Compiling entry function" in line and any(k in line for k in kernels):
+                report = [x.strip() for x in lines[i + 1:i + 4] if "spill" in x or "registers" in x]
+                print(f"  {name}: {line.split()[-3]}", *report)
+    return libs
 
 
 def record(torch, gl):
@@ -149,29 +183,8 @@ def main():
     pyro_tpu_torch.set_default_device("cuda")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    out_dir = cuda_build.BUILD_DIR.parent / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = cuda_build._nvcc()
     sources = {"earlier": args.earlier, **{Path(src).stem: src for src in args.variants}}
-    procs = {name: subprocess.Popen(
-        [nvcc, *cuda_build.NVCC_FLAGS, "-o", str(out_dir / f"lib{name}.so"), src],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name, src in sources.items()}
-    t0 = time.perf_counter()
-    cuda_build.build_all(["gaussian_levels"])
-    logs = {"checkout": cuda_build.BUILD_LOGS.get("gaussian_levels", "")}
-    libs = {"checkout": cuda_build._target("gaussian_levels")}
-    for name, proc in procs.items():
-        logs[name], _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for {name}:\n{logs[name]}")
-        libs[name] = out_dir / f"lib{name}.so"
-    print(f"built in {time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        lines = log.splitlines()
-        for i, line in enumerate(lines):
-            if "Compiling entry function" in line and "gl_halving_kernel" in line:
-                report = [x.strip() for x in lines[i + 1:i + 4] if "spill" in x or "registers" in x]
-                print(f"  {name}: {line.split()[-3]}", *report)
+    libs = build(sources, ("gl_halving_kernel",))
 
     def run(name, kernel):
         """Version ``name``'s ``kernel`` ("K4a" or "K5a"), its library loaded
@@ -179,7 +192,7 @@ def main():
         lib = "checkout" if name == "earlier" else name
         cuda_build._LIBS["gaussian_levels"] = ctypes.CDLL(str(libs[lib]))
         gl._lib.cache_clear()
-        gl._halving_shape.cache_clear()
+        gl._tile_shape.cache_clear()
         if name == "earlier":
             return earlier[kernel]
         return {"K4a": gl._halving_cuda, "K5a": gl._gamma_halving_cuda}[kernel]

@@ -23,7 +23,10 @@ the kernel launches or the call raises.
   operands where they lie, by their strides (``row_layout``): a precision
   expanded over rows or time (stride 0) is never copied.
 - ``level_mids`` (K4c): a level's midpoint draws, the points (D, R, m, n)
-  to (D, R, m + Np, n) with the mids in their interleaved places.
+  to (D, R, m + Np, n) with the mids in their interleaved places.  The
+  kernel's CTAs walk tiles of pairs of one row, all draws at once;
+  ``mids_plan`` sizes the grid from the tile and the CTAs an SM that the
+  kernel reports.
 - ``gamma_halving_level`` (K5a) and ``gamma_contract_pairs`` (K5b): K4a's
   and K4b's levels of the gamma-Gaussian algebra (``ops/gamma_gaussian.py``,
   the counterpart of ``pyro_tpu/ops/gamma_gaussian.py``), which carry per
@@ -40,7 +43,8 @@ launch a level each.  K4a's backward CTAs walk tiles of pairs and write partial
 sums of the adjoints of the shared Kt and L; the last CTA to finish adds
 them in a fixed order and carries the shared factorisation back to P
 (``halving_bwd_plan`` sizes the grid, the order of the sums and their
-buffer).  The forward keeps the tape (K4a's L and ib, K4b's L, P_mk and
+buffer).  K4b's backward runs a warp a pair (``contract_bwd_plan`` sizes
+its grid).  The forward keeps the tape (K4a's L and ib, K4b's L, P_mk and
 i_m) when a gradient is wanted and the backward recomputes the rest from
 it.  The taped outputs are not differentiated: a gradient that reaches one
 of them raises (their adjoint runs through K4c's backward, ROADMAP.md
@@ -298,9 +302,11 @@ def _lib():
     lib.gl_halving.argtypes = [_P, _P, _ll, _P, _ll, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
     lib.gl_contract.argtypes = [_P, _P, _P, _LAYOUT, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P, _P]
     lib.gl_mids.argtypes = [_P, _c, _P, _ll, _P, _ll, _P, _P, _c, _c, _c, _c, _c, _P, _P]
+    lib.gl_mids_shape.argtypes = [_c, _c, ctypes.POINTER(_c), ctypes.POINTER(_c)]
     lib.gl_halving_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P, _P]
     lib.gl_halving_bwd_shape.argtypes = [ctypes.POINTER(_c)] * 3
     lib.gl_contract_bwd.argtypes = [_P, _P, _P, _P, _P, _P, _c, _c, _c, _c, _c, _P, _P, _P, _P]
+    lib.gl_contract_bwd_shape.argtypes = [_c, ctypes.POINTER(_c), ctypes.POINTER(_c)]
     lib.gl_gamma_halving.argtypes = [_P, _P, _ll, _P, _ll, _P, _ll, _P, _ll, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P,
                                      _P]
     lib.gl_gamma_contract.argtypes = [_P, _P, _P, _P, _P, _LAYOUT, _c, _c, _c, _c, _c, _P, _P, _P, _P, _P, _P]
@@ -308,7 +314,8 @@ def _lib():
     lib.gl_halving_shape.argtypes = [_c, ctypes.POINTER(_c), ctypes.POINTER(_c)]
     for fn in (lib.gl_halving, lib.gl_contract, lib.gl_mids, lib.gl_halving_bwd, lib.gl_contract_bwd,
                lib.gl_gamma_halving, lib.gl_gamma_contract, lib.gl_contract_ctas_per_sm,
-               lib.gl_halving_bwd_shape, lib.gl_halving_shape):
+               lib.gl_halving_bwd_shape, lib.gl_halving_shape, lib.gl_mids_shape,
+               lib.gl_contract_bwd_shape):
         fn.restype = ctypes.c_int
     return lib
 
@@ -358,7 +365,8 @@ def _rows(t, inner):
 
 
 class HalvingShape(NamedTuple):
-    """What K4a's and K5a's kernel fixes: the pairs of a ``tile`` (one row's),
+    """What a tiled kernel fixes (K4a's and K5a's, K4c's, K4b backward's):
+    the pairs of a ``tile`` (one row's; K4b backward's, those a CTA holds),
     and the CTAs an SM runs at once at its shared memory and registers
     (``ctas_per_sm``)."""
 
@@ -367,11 +375,13 @@ class HalvingShape(NamedTuple):
 
 
 @functools.cache
-def _halving_shape(gamma):
+def _tile_shape(entry, *args):
+    """A kernel's ``HalvingShape`` as its C entry ``entry`` reports it, called
+    with ``args`` (the instantiation's: gamma, n, shared)."""
     tile, ctas = ctypes.c_int(0), ctypes.c_int(0)
-    _raise_on(_lib().gl_halving_shape(int(gamma), ctypes.byref(tile), ctypes.byref(ctas)), "halving_level shape")
+    _raise_on(getattr(_lib(), entry)(*args, ctypes.byref(tile), ctypes.byref(ctas)), entry)
     if ctas.value < 1:
-        raise RuntimeError("halving_level: no CTA fits an SM")
+        raise RuntimeError(f"{entry}{args}: no CTA fits an SM")
     return HalvingShape(tile.value, ctas.value)
 
 
@@ -401,7 +411,7 @@ def _halving_cuda(P, info, logZ, tape):
     new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
     P_out, L_out, info_out, logZ_out = new((n2, n2)), new((n, n)), new((R, m, n2)), new((R, m))
     ib = new((R, m, n)) if tape else None
-    blocks = halving_plan(R, m, _sms(P.device), _halving_shape(False)).blocks
+    blocks = halving_plan(R, m, _sms(P.device), _tile_shape("gl_halving_shape", 0)).blocks
     err = _lib().gl_halving(
         P.data_ptr(), info.data_ptr(), info_rs, logZ.data_ptr(), logZ_rs, R, m, n, blocks,
         P_out.data_ptr(), L_out.data_ptr(), info_out.data_ptr(), logZ_out.data_ptr(),
@@ -521,7 +531,7 @@ def _gamma_halving_cuda(P, info, logZ, alpha, beta):
     new = functools.partial(torch.empty, dtype=P.dtype, device=P.device)
     P_out, L_out, info_out = new((n2, n2)), new((n, n)), new((R, m, n2))
     logZ_out, alpha_out, beta_out = new((R, m)), new((R, m)), new((R, m))
-    blocks = halving_plan(R, m, _sms(P.device), _halving_shape(True)).blocks
+    blocks = halving_plan(R, m, _sms(P.device), _tile_shape("gl_halving_shape", 1)).blocks
     err = _lib().gl_gamma_halving(
         P.data_ptr(), info.data_ptr(), info_rs, logZ.data_ptr(), logZ_rs, alpha.data_ptr(), alpha_rs,
         beta.data_ptr(), beta_rs, R, m, n, blocks, P_out.data_ptr(), L_out.data_ptr(), info_out.data_ptr(),
@@ -555,6 +565,14 @@ def _gamma_contract_cuda(P, info, logZ, alpha, beta):
     return outs
 
 
+def mids_plan(R, Np, sms, shape):
+    """K4c's launch at a level of R rows of Np pairs on a card of ``sms``
+    SMs, for a kernel of ``shape`` (its tile of pairs, shared or per pair,
+    and its CTAs an SM, as ``gl_mids_shape`` reports them): at most one CTA
+    a tile and ``shape.ctas_per_sm`` an SM, as ``halving_plan``."""
+    return halving_plan(R, Np, sms, shape)
+
+
 def _mids_cuda(cur, L, P_mk, i_m, eps):
     D, R, m, n = cur.shape
     Np = i_m.shape[-2]
@@ -568,7 +586,7 @@ def _mids_cuda(cur, L, P_mk, i_m, eps):
     L = L.contiguous() if shared else L.expand(R, Np, n, n).contiguous()
     P_mk = P_mk.contiguous() if shared else P_mk.expand(R, Np, n, 2 * n).contiguous()
     out = torch.empty((D, R, m + Np, n), dtype=cur.dtype, device=cur.device)
-    blocks = max(1, min(-(-D * R * Np // 8), 16 * _sms(cur.device)))
+    blocks = mids_plan(R, Np, _sms(cur.device), _tile_shape("gl_mids_shape", n, int(shared))).blocks
     err = _lib().gl_mids(
         cur.data_ptr(), m, L.data_ptr(), 0 if shared else n * n, P_mk.data_ptr(), 0 if shared else 2 * n * n,
         i_m.data_ptr(), eps.data_ptr(), D, R, Np, n, blocks, out.data_ptr(), _stream(cur),
@@ -665,14 +683,24 @@ def _halving_bwd_cuda(P, L, ib, g_P, g_info, g_logZ):
     return gP, g_info_in, g_logZ_in
 
 
+def contract_bwd_plan(items, sms, shape):
+    """K4b backward's launch at a level of ``items`` outputs (pairs, and an
+    odd level's last factors) on a card of ``sms`` SMs, for a kernel of
+    ``shape`` (its ``tile``: the pairs a CTA holds, a warp each; its CTAs an
+    SM, as ``gl_contract_bwd_shape`` reports them): as ``halving_plan`` over
+    one row of ``items``."""
+    return halving_plan(1, items, sms, shape)
+
+
 def _contract_bwd_cuda(t, L, P_mk, i_m, g_P, g_info, g_logZ):
     R, np_, n, _ = L.shape
     n2, t_out = 2 * n, t - np_
     g_P, g_info, g_logZ = _grads(g_P, g_info, g_logZ)
     _check_cuda("contract_pairs backward", n, L, P_mk, i_m, *(g for g in (g_P, g_info, g_logZ) if g is not None))
+    L, P_mk, i_m = L.contiguous(), P_mk.contiguous(), i_m.contiguous()
     new = functools.partial(torch.empty, dtype=L.dtype, device=L.device)
     gP, g_info_in, g_logZ_in = new((R, t, n2, n2)), new((R, t, n2)), new((R, t))
-    blocks = max(1, min(R * t_out, 16 * _sms(L.device)))
+    blocks = contract_bwd_plan(R * t_out, _sms(L.device), _tile_shape("gl_contract_bwd_shape", n)).blocks
     err = _lib().gl_contract_bwd(
         L.data_ptr(), P_mk.data_ptr(), i_m.data_ptr(), _ptr(g_P), _ptr(g_info), _ptr(g_logZ), R, t, n, t_out,
         blocks, gP.data_ptr(), g_info_in.data_ptr(), g_logZ_in.data_ptr(), _stream(L),

@@ -581,27 +581,79 @@ def test_contract_kernel_matches_plain(cuda, R, t, n, layout):
         _assert_near(a, b)
 
 
-@pytest.mark.parametrize("D,R,m,Np,n,shared", [
-    (64, 1, 2001, 2000, 16, False),  # the heterogeneous sampler's first level at T=4000
-    (4, 8, 40, 39, 32, True),  # homogeneous: L and P_mk shared
-    (3, 2, 9, 7, 5, False),  # an odd level: two points carried
-])
-def test_mids_kernel_matches_plain(cuda, D, R, m, Np, n, shared):
-    from pyro_tpu_torch.ops import gaussian_levels as gl
-
-    gen = torch.Generator(device="cuda").manual_seed(Np)
+def _mids_inputs(gen, D, R, m, Np, n, shared, cuda):
     per = () if shared else (R, Np)
     L = torch.linalg.cholesky(_spd(gen, per, n, cuda))
     P_mk = torch.randn(per + (n, 2 * n), generator=gen, device=cuda)
     i_m = torch.randn(R, Np, n, generator=gen, device=cuda)
     cur = torch.randn(D, R, m, n, generator=gen, device=cuda)
     eps = torch.randn(D, R, Np, n, generator=gen, device=cuda)
-    before = gl.launches["mids"]
-    out_k = gl.level_mids(cur, L, P_mk, i_m, eps)
-    out_p = gl.level_mids_plain(cur, L, P_mk, i_m, eps)
-    torch.cuda.synchronize()
-    assert gl.launches["mids"] == before + 1
-    _assert_near(out_k, out_p)
+    return cur, L, P_mk, i_m, eps
+
+
+def _mids_cases(n, shared, k):
+    """(D, R, m, Np): Np at the edges of the kernel's tile of k pairs (1, k
+    - 1, k, k + 1) and 2000, D of 1, 3 and 64, each at an even level (one
+    point carried) and an odd one (two).  The grid holds the heterogeneous
+    sampler's first level at T=4000 (64, 1, 2001, 2000) at n=16 per pair;
+    the earlier cases (3, 2, 9, 7) at n=5 per pair and (4, 8, 40, 39) at
+    n=32, shared, are added."""
+    cases = [(D, 2, Np + 1 + odd, Np) for Np in (1, k - 1, k, k + 1) for D in (1, 3, 64) for odd in (0, 1)]
+    cases += [(64, 1, 2001, 2000), (64, 1, 2002, 2000)]
+    if shared and n == 32:
+        cases.append((4, 8, 40, 39))
+    if not shared and n == 5:
+        cases.append((3, 2, 9, 7))
+    return cases
+
+
+@pytest.mark.parametrize("shared", [False, True], ids=["per_pair", "shared"])
+@pytest.mark.parametrize("n", HALVING_DIMS)
+def test_mids_kernel_matches_plain(cuda, n, shared):
+    """K4c against its plain version over ``_mids_cases`` (each case's
+    inputs from seed Np, as the earlier cases had them); a second launch
+    gives the same bits."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    for D, R, m, Np in _mids_cases(n, shared, gl._tile_shape("gl_mids_shape", n, int(shared)).tile):
+        gen = torch.Generator(device="cuda").manual_seed(Np)
+        args = _mids_inputs(gen, D, R, m, Np, n, shared, cuda)
+        before = gl.launches["mids"]
+        out_k = gl.level_mids(*args)
+        out_p = gl.level_mids_plain(*args)
+        again = gl.level_mids(*args)
+        torch.cuda.synchronize()
+        assert gl.launches["mids"] == before + 2
+        _assert_near(out_k, out_p)
+        assert torch.equal(out_k, again), (D, R, m, Np)
+
+
+def test_tape_kernels_refused_launch_raises(cuda, monkeypatch):
+    """A launch the card refuses (an empty grid) raises, for K4c and for
+    K4b's backward, and the next launch runs and is right."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = _mids_inputs(gen, 3, 2, 11, 9, 16, False, cuda)
+    R, t, n = 2, 9, 16
+    *_, tape = gl.contract_pairs(_spd(gen, (R, t), 2 * n, cuda), torch.randn(R, t, 2 * n, generator=gen, device=cuda),
+                                 torch.randn(R, t, generator=gen, device=cuda), tape=True)
+    grads = (torch.randn(R, 5, 2 * n, 2 * n, generator=gen, device=cuda),
+             torch.randn(R, 5, 2 * n, generator=gen, device=cuda), torch.randn(R, 5, generator=gen, device=cuda))
+    plans = {name: getattr(gl, name) for name in ("mids_plan", "contract_bwd_plan")}
+    for name, plan in plans.items():
+        monkeypatch.setattr(gl, name, lambda *a, plan=plan: plan(*a)._replace(blocks=0))
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gl.level_mids(*args)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        gl._contract_bwd_cuda(t, *tape, *grads)
+    for name, plan in plans.items():
+        monkeypatch.setattr(gl, name, plan)
+    _assert_near(gl.level_mids(*args), gl.level_mids_plain(*args))
+    g_k, g_p = gl._contract_bwd_cuda(t, *tape, *grads), gl.contract_pairs_bwd_plain(t, *tape, *grads)
+    _assert_near(_sym(g_k[0]), _sym(g_p[0]))
+    for a, b in zip(g_k[1:], g_p[1:]):
+        _assert_near(a, b)
 
 
 def test_k4_backward_raises(cuda):
@@ -697,30 +749,45 @@ def test_halving_backward_against_float64(cuda):
         assert float((a.double() - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
-@pytest.mark.parametrize("R,t,n", [(1, 4001, 16), (8, 13, 32), (1, 7, 1), (8, 9, 16), (1, 2, 32)])
-def test_contract_backward_kernel_matches_plain(cuda, R, t, n):
+# K4b backward's cases at each n: (R, t) of 2 rows at t of 2, 3, 4 and 5
+# (one pair; a pair and a factor passed through; two pairs, a CTA's at
+# n <= 16; two and one passed through) and 1 row at t = 4001 (the lgssm
+# step's first level at n=16, with its last factor passed through); and the
+# earlier cases (8, 13) and (1, 2) at n=32, (1, 7) at n=1, (8, 9) at n=16.
+def _contract_bwd_cases(n):
+    earlier = {32: [(8, 13), (1, 2)], 1: [(1, 7)], 16: [(8, 9)]}
+    return [(2, t) for t in (2, 3, 4, 5)] + [(1, 4001)] + earlier.get(n, [])
+
+
+@pytest.mark.parametrize("n", HALVING_DIMS)
+def test_contract_backward_kernel_matches_plain(cuda, n):
     """K4b's backward kernel against the plain backward at the same tape and
-    upstream gradients (an odd t passes the last factor's through)."""
+    upstream gradients (an odd t passes the last factor's through): all
+    three, gP' None, then only gP' (each case's inputs from seed t + n, as
+    the earlier cases had them); a second launch gives the same bits."""
     from pyro_tpu_torch.ops import gaussian_levels as gl
 
-    gen = torch.Generator(device="cuda").manual_seed(t + n)
-    P = _spd(gen, (R, t), 2 * n, cuda)
-    info = torch.randn(R, t, 2 * n, generator=gen, device=cuda)
-    logZ = torch.randn(R, t, generator=gen, device=cuda)
-    *_, tape = gl.contract_pairs(P, info, logZ, tape=True)
-    t_out = t - t // 2
-    g_P = torch.randn(R, t_out, 2 * n, 2 * n, generator=gen, device=cuda)
-    g_info = torch.randn(R, t_out, 2 * n, generator=gen, device=cuda)
-    g_logZ = torch.randn(R, t_out, generator=gen, device=cuda)
-    for grads in ((g_P, g_info, g_logZ), (None, g_info, g_logZ), (g_P, None, None)):
-        before = gl.launches["contract_bwd"]
-        out_k = gl._contract_bwd_cuda(t, *tape, *grads)
-        out_p = gl.contract_pairs_bwd_plain(t, *tape, *grads)
-        torch.cuda.synchronize()
-        assert gl.launches["contract_bwd"] == before + 1
-        _assert_near(_sym(out_k[0]), _sym(out_p[0]))
-        for a, b in zip(out_k[1:], out_p[1:]):
-            _assert_near(a, b)
+    for R, t in _contract_bwd_cases(n):
+        gen = torch.Generator(device="cuda").manual_seed(t + n)
+        P = _spd(gen, (R, t), 2 * n, cuda)
+        info = torch.randn(R, t, 2 * n, generator=gen, device=cuda)
+        logZ = torch.randn(R, t, generator=gen, device=cuda)
+        *_, tape = gl.contract_pairs(P, info, logZ, tape=True)
+        t_out = t - t // 2
+        g_P = torch.randn(R, t_out, 2 * n, 2 * n, generator=gen, device=cuda)
+        g_info = torch.randn(R, t_out, 2 * n, generator=gen, device=cuda)
+        g_logZ = torch.randn(R, t_out, generator=gen, device=cuda)
+        for grads in ((g_P, g_info, g_logZ), (None, g_info, g_logZ), (g_P, None, None)):
+            before = gl.launches["contract_bwd"]
+            out_k = gl._contract_bwd_cuda(t, *tape, *grads)
+            out_p = gl.contract_pairs_bwd_plain(t, *tape, *grads)
+            again = gl._contract_bwd_cuda(t, *tape, *grads)
+            torch.cuda.synchronize()
+            assert gl.launches["contract_bwd"] == before + 2
+            _assert_near(_sym(out_k[0]), _sym(out_p[0]))
+            for a, b in zip(out_k[1:], out_p[1:]):
+                _assert_near(a, b)
+            assert all(torch.equal(a, b) for a, b in zip(out_k, again)), (R, t)
 
 
 def test_backward_kernels_reject_a_state_dim_above_32(cuda):
