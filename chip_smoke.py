@@ -165,7 +165,20 @@ Phases (any failure exits non-zero):
      ``GaussianHMM.conjugate_update`` (a Normal likelihood; the identity
      f + g = fg + log Z in float32 and float64) and ``prefix_condition`` at
      t=8000 (the chain rule in float64);
-  17. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+  17. slice 15, the deep Markov model of ``examples/dmm.py`` at the bench
+     row's widths, ``20.129.88.100.200.100.rnn600`` (B=20 sequences, T=129,
+     88 tones, z 100, transition 200, emission 100, a backward relu RNN of
+     600), data from ``synthetic_data`` with seed 0, Trace_ELBO and
+     ClippedAdam (lr 3e-3, clip_norm 10), no IAF: the first step's loss
+     and gradients on the card against the port's own CPU run at the same
+     weights, data and guide noise; 23 SVI steps (finite losses, the last
+     five below the first five), every parameter, buffer, optimiser state
+     and sampled value on the card; the steady step time over 20 steps
+     (host clock and synchronize) and one profiled step (device
+     operations, busy share, the five largest device items); two steps
+     with two IAFs in the guide, every tensor on the card.  The DMM
+     reaches none of the kernels below;
+  18. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
      backward on each route, K4a-c, K4a and K4b backward, K2g forward and
      backward on each route, K5a and K5b), the card's name and power
      limit, then the result line.
@@ -217,7 +230,8 @@ against float64 (as GaussianHMM's log_prob), the conjugate identity rtol
 1e-5 in float32 and 1e-10 in float64, the chain rule 1e-10 in float64.
 The VAE's first-step loss rtol 1e-4 and
 each gradient rtol 1e-4 with atol 1e-6 * max|grad| against the CPU run
-(float32 sums in another order; TF32 off).  Without a CUDA device, or
+(float32 sums in another order; TF32 off); the DMM's first-step loss rtol
+1e-4 and each gradient within 1e-3 * max|grad| of the CPU run's.  Without a CUDA device, or
 without the package beside this script, it exits non-zero and prints no
 result.
 """
@@ -2442,6 +2456,144 @@ def phase_gamma_slice(torch, gl):
     return out
 
 
+# -- slice 15: the deep Markov model (examples/dmm.py) -------------------------------
+
+# the bench row dmm_elbo_steps_per_sec, 20.129.88.100.200.100.rnn600 (bench.py:41-42)
+DMM_SIG = "20.129.88.100.200.100.rnn600"
+DMM_B, DMM_T = 20, 129
+DMM_STEPS = 20  # timed steady steps
+DMM_LOSS_RTOL = 1e-4  # the card's first-step loss against the port's CPU run
+DMM_GRAD_TOL = 1e-3  # each gradient against the CPU run's, times its largest entry
+
+
+def _dmm_grads(dmm):
+    """Each parameter's gradient, by its param-store name."""
+    import pyro_tpu_torch as pyro
+
+    return {name: p.grad.detach().cpu() for name, p in pyro.get_param_store().get_all_unconstrained().items()}
+
+
+def _off_card(torch, svi, dmm, data):
+    """Every parameter, optimiser state and sampled value of the DMM that is
+    not on the card."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+
+    tensors = {f"param {n}": v for n, v in pyro.get_param_store().get_all_unconstrained().items()}
+    tensors.update({f"buffer {n}": b for n, b in dmm.named_buffers()})
+    for name, chain in svi.optim._states.items():
+        for i, state in enumerate(chain):
+            tensors.update({f"optimiser {name}[{i}].{k}": v for k, v in state.items() if isinstance(v, torch.Tensor)})
+    guide_trace = poutine.trace(dmm.guide).get_trace(data)
+    model_trace = poutine.trace(poutine.replay(dmm.model, trace=guide_trace)).get_trace(data)
+    for label, trace in (("guide", guide_trace), ("model", model_trace)):
+        for name, site in trace.nodes.items():
+            if site["type"] == "sample":
+                tensors[f"{label} site {name}"] = site["value"]
+    return sorted(name for name, v in tensors.items() if v.device.type != "cuda")
+
+
+def _kernel_launches(lm, ms, gl):
+    """Launches counted by every hand kernel's wrapper so far."""
+    return sum(lm.launches.values()) + sum(ms.launches.values()) + sum(ms.tv_launches.values()) + sum(
+        gl.launches.values())
+
+
+def phase_dmm(torch, lm, ms, gl):
+    """Phase 17: the DMM of examples/dmm.py at the bench row's widths
+    through its entry points: the first step against the port's CPU run,
+    training with ClippedAdam (no hand kernel launched), every tensor on
+    the card, two steps with two IAFs, the steady step time and one
+    profiled step."""
+    print(f"phase 17: DMM SVI (Trace_ELBO, ClippedAdam lr 3e-3, clip_norm 10) at {DMM_SIG}")
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import dmm as example
+    from pyro_tpu_torch.infer import Trace_ELBO
+
+    torch.manual_seed(0)
+    weights = example.DMM().state_dict()
+    data_cpu = example.synthetic_data(torch.Generator().manual_seed(0), DMM_B, DMM_T)
+    data = data_cpu.to("cuda")
+    eps = torch.randn((DMM_B, DMM_T, example.Z_DIM), generator=torch.Generator().manual_seed(1))
+
+    def first_step(device, x):
+        pyro.set_default_device(device)
+        try:
+            pyro.clear_param_store()
+            dmm = example.DMM().to(device)
+            dmm.load_state_dict(weights)
+            t0 = time.perf_counter()
+            with shared_noise(torch, eps):
+                loss = Trace_ELBO().differentiable_loss(dmm.model, dmm.guide, x)
+            loss.backward()
+            value = float(loss.detach())
+            return value, _dmm_grads(dmm), (time.perf_counter() - t0) * 1e3
+        finally:
+            pyro.set_default_device("cuda")
+
+    loss_cpu, grads_cpu, cpu_ms = first_step("cpu", data_cpu)
+    loss_gpu, grads_gpu, _ = first_step("cuda", data)
+    rel = abs(loss_gpu - loss_cpu) / abs(loss_cpu)
+    print(f"  first step's loss: card {loss_gpu!r}, CPU {loss_cpu!r} ({cpu_ms:.0f} ms on the CPU), rel diff {rel:.3g}")
+    check(rel <= DMM_LOSS_RTOL, f"the DMM loss on the card differs from the CPU run by rtol {rel}")
+    check(sorted(grads_gpu) == sorted(grads_cpu), "the card and the CPU run registered other parameters")
+    worst, failures = (-1.0, ""), []
+    for name, ref in grads_cpu.items():
+        g = grads_gpu[name]
+        scale = float(ref.abs().max())
+        err = max_err(g, ref) / scale if scale > 0 else max_err(g, ref)
+        worst = max(worst, (err, name))
+        if not bool(torch.isfinite(g).all()) or err > DMM_GRAD_TOL:
+            failures.append(f"d{name}: {err:.3g} x max|grad|")
+    print(f"  first step's gradients ({len(grads_cpu)} parameters): largest error {worst[0]:.3g} x max|grad| "
+          f"(d{worst[1]}), the bar {DMM_GRAD_TOL}")
+    check(not failures, "DMM gradients off the CPU run's: " + "; ".join(failures))
+
+    pyro.clear_param_store()
+    dmm = example.DMM().to("cuda")
+    dmm.load_state_dict(weights)
+    svi = example.make_svi(dmm)
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    warm = 3
+    losses, step_ms = [], []
+    launched = _kernel_launches(lm, ms, gl)
+    for _ in range(warm + DMM_STEPS):
+        t0 = time.perf_counter()
+        loss = svi.step(data, generator=generator)  # reads the loss: synced
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss)
+    launched = _kernel_launches(lm, ms, gl) - launched
+    check(launched == 0, f"the DMM's steps launched {launched} hand kernels")
+    check(all(math.isfinite(l) for l in losses), "non-finite DMM loss")
+    check(sum(losses[-5:]) < sum(losses[:5]), f"the DMM loss did not fall: {losses[:5]} -> {losses[-5:]}")
+    off = _off_card(torch, svi, dmm, data)
+    check(not off, f"DMM tensors off the card: {off[:5]}")
+    steady = sorted(step_ms[warm:])
+    mean_ms = sum(steady) / len(steady)
+    print(f"  {warm + DMM_STEPS} steps, loss {losses[0]:.1f} -> {losses[-1]:.1f}, no hand kernel launched; every "
+          f"parameter, optimiser state and sampled value on the card")
+    print(f"  steady step (steps {warm}-{warm + DMM_STEPS - 1}, host clock and synchronize): mean {mean_ms:.3f} ms, "
+          f"median {steady[len(steady) // 2]:.3f}, min {steady[0]:.3f}, max {steady[-1]:.3f}, "
+          f"{1e3 / mean_ms:.2f} steps/s; first step {step_ms[0]:.3f} ms")
+    wall, busy, launches, kernels = profile_run(torch, lambda: svi.step(data, generator=generator), top=5)
+    print(f"  device operations per step {launches}, busy {100 * busy / wall:.1f}%")
+
+    pyro.clear_param_store()
+    iaf_dmm = example.DMM(num_iafs=2).to("cuda")
+    iaf_svi = example.make_svi(iaf_dmm)
+    iaf_losses = [iaf_svi.step(data, generator=generator) for _ in range(2)]
+    check(all(math.isfinite(l) for l in iaf_losses), f"non-finite DMM loss with two IAFs: {iaf_losses}")
+    off = _off_card(torch, iaf_svi, iaf_dmm, data)
+    check(not off, f"DMM tensors off the card with two IAFs: {off[:5]}")
+    check("iaf_1$$$output_layer.weight" in pyro.get_param_store(), "the second IAF registered no parameters")
+    print(f"  two IAFs: 2 steps, losses {iaf_losses[0]:.1f}, {iaf_losses[1]:.1f}, every tensor on the card")
+    pyro.clear_param_store()
+    del svi, dmm, iaf_svi, iaf_dmm
+    torch.cuda.empty_cache()
+    return {"step_ms": mean_ms, "steps_per_s": 1e3 / mean_ms, "launches": launches, "busy_share": busy / wall}
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -2534,6 +2686,7 @@ def main():
     phase_fallback(torch, lm, ms)
     k5 = phase_k5(torch, gl)
     k5_launches = phase_gamma_slice(torch, gl)["launches"]
+    phase_dmm(torch, lm, ms, gl)
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"

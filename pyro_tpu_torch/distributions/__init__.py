@@ -1,10 +1,11 @@
-from . import constraints
+from . import constraints, flows, transforms
 from .continuous import Beta, Gamma, HalfCauchy, Normal
 from .delta import Delta, Unit
 from .discrete import Bernoulli, Categorical
 from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution
 from .hmm import DiscreteHMM, GammaGaussianHMM, GaussianHMM, GaussianMRF, IndependentHMM
 from .multivariate import Dirichlet, MultivariateNormal
+from .neural_markov import NormalMarkovChain
 from .transforms import StickBreakingTransform, biject_to, transform_to
 
 __all__ = [
@@ -26,9 +27,12 @@ __all__ = [
     "MaskedDistribution",
     "MultivariateNormal",
     "Normal",
+    "NormalMarkovChain",
     "StickBreakingTransform",
     "Unit",
     "biject_to",
     "constraints",
+    "flows",
     "transform_to",
+    "transforms",
 ]

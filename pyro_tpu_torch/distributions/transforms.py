@@ -20,6 +20,13 @@ class Transform:
     def inv(self) -> "Transform":
         return _InverseTransform(self)
 
+    @property
+    def event_dim(self) -> int:
+        """The event dim that domain and codomain share."""
+        if self.domain.event_dim == self.codomain.event_dim:
+            return self.domain.event_dim
+        raise ValueError("Please use either .domain.event_dim or .codomain.event_dim")
+
     def __call__(self, x):
         raise NotImplementedError
 

@@ -1,3 +1,29 @@
-from .optim import Adam, PyroOptim
+from .optim import (
+    SGD,
+    Adadelta,
+    Adagrad,
+    AdagradRMSProp,
+    Adam,
+    Adamax,
+    AdamW,
+    ClippedAdam,
+    NAdam,
+    PyroOptim,
+    RAdam,
+    RMSprop,
+)
 
-__all__ = ["Adam", "PyroOptim"]
+__all__ = [
+    "Adadelta",
+    "Adagrad",
+    "AdagradRMSProp",
+    "Adam",
+    "AdamW",
+    "Adamax",
+    "ClippedAdam",
+    "NAdam",
+    "PyroOptim",
+    "RAdam",
+    "RMSprop",
+    "SGD",
+]

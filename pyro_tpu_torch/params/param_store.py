@@ -32,6 +32,10 @@ class ParamStoreDict:
     def __contains__(self, name):
         return name in self._params
 
+    def get_all_unconstrained(self) -> Dict[str, torch.Tensor]:
+        """Every parameter's unconstrained leaf, by name."""
+        return dict(self._params)
+
     def __getitem__(self, name):
         return transform_to(self._constraints[name])(self._params[name])
 
