@@ -178,7 +178,26 @@ Phases (any failure exits non-zero):
      operations, busy share, the five largest device items); two steps
      with two IAFs in the guide, every tensor on the card.  The DMM
      reaches none of the kernels below;
-  18. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+  18. slice 16, the discrete posterior queries on model_1 (``pyro.markov``)
+     at ``20.32.51.16`` (``synthetic_sequences`` seed 0), its AutoDelta
+     parameters from 3 Adam steps on the card, copied into a CPU run of the
+     port: ``TraceEnum_ELBO.compute_marginals`` (K1 forward and backward,
+     counted), one marginal per sequence for every x_t, against a float64
+     CPU run (the CPU's float32 run beside); ``infer_discrete`` at
+     temperature 0 (the MAP path's joint log density against the float64
+     CPU run's, its indices equal wherever that run's best path leads the
+     card's by more than 1e-3) and at temperature 1 (K1
+     forward counted; 256 draws' state frequencies against the card's
+     marginals); ``ubersum`` at ``examples/einsum.py``'s equation, dim 32,
+     plate size 32, the value against the CPU run and the gradient against
+     a float64 one; a sequential
+     Bernoulli guide site (loss and gradients against the CPU run and
+     parallel enumeration) and a model site with ``num_samples=8`` (finite
+     losses, the mean over 200 generators against the CPU run's); ms a call
+     of each query (``ubersum`` at plate sizes 8-32), and one profiled call
+     of ``compute_marginals`` and of ``infer_discrete`` with its busy share
+     and K1's device ms;
+  19. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
      backward on each route, K4a-c, K4a and K4b backward, K2g forward and
      backward on each route, K5a and K5b), the card's name and power
      limit, then the result line.
@@ -231,9 +250,19 @@ against float64 (as GaussianHMM's log_prob), the conjugate identity rtol
 The VAE's first-step loss rtol 1e-4 and
 each gradient rtol 1e-4 with atol 1e-6 * max|grad| against the CPU run
 (float32 sums in another order; TF32 off); the DMM's first-step loss rtol
-1e-4 and each gradient within 1e-3 * max|grad| of the CPU run's.  Without a CUDA device, or
-without the package beside this script, it exits non-zero and prints no
-result.
+1e-4 and each gradient within 1e-3 * max|grad| of the CPU run's.  The
+queries (TF32 off): the marginals and ubersum's gradients no further from a
+float64 CPU run than three times the CPU's own float32 run, plus 1e-6,
+and than 3e-4 in probability and 2e-3 * max|grad| (float32 rounds the log messages, log Z about -1.7e3 a sequence and 9.5e3,
+at 1.2e-4 and 1e-3, and these outputs are exps of their differences: the
+CPU's float32 run is some 1e-4 off in probability, 1e-3 relative in the
+gradients); ubersum's value rtol 1e-5 against the CPU run; the MAP path's
+joint log density rtol 1e-5 against the float64 CPU run's; each draw frequency within
+5 sqrt(p(1-p)/256) + 1/256 of its marginal p; sequential enumeration rtol
+1e-5; the sampled
+loss's mean within 4 standard errors of the CPU run's.  Without a CUDA
+device, or without the package beside this script, it exits non-zero and
+prints no result.
 """
 
 import contextlib
@@ -2594,6 +2623,310 @@ def phase_dmm(torch, lm, ms, gl):
     return {"step_ms": mean_ms, "steps_per_s": 1e3 / mean_ms, "launches": launches, "busy_share": busy / wall}
 
 
+# -- slice 16: the discrete posterior queries on model_1 ----------------------------
+
+Q_STEPS, Q_DRAWS, Q_SEEDS = 3, 256, 200
+# The marginals and ubersum's gradient are held against float64 CPU runs:
+# float32 rounds model_1's log messages (log Z about -1.7e3 a sequence) at
+# about 1.2e-4 and ubersum's (log Z about 9.5e3) at about 1e-3, and each of
+# these outputs is the exp of a difference of such messages, so float32 on
+# any device is 1e-5 to 1e-3 off in relative terms, beyond 1e-5 against
+# another float32 run.  The card must come no further from float64 than
+# Q_F32_FACTOR times the CPU's own float32 run, plus 1e-6, and never further
+# than a fixed ceiling, so that a fault common to both devices fails too:
+# Q_MARGINAL_CEIL in probability, Q_GRAD_CEIL times the gradient's largest
+# float64 entry (about 3.3 times the CPU's float32 run on an H100 run, 9.1e-5
+# and 6.0e-4 at most).
+Q_F32_FACTOR = 3.0
+Q_MARGINAL_CEIL = 3e-4
+Q_GRAD_CEIL = 2e-3
+Q_MAP_RTOL = 1e-5  # the MAP path's joint log density against the CPU run's
+Q_MAP_TIE = 1e-3  # MAP indices may differ only where the best path leads by at most this
+Q_EQUATION, Q_PLATES, Q_DIM = "a,abi,bcij,adj,deij->", "ij", 32  # examples/einsum.py's defaults
+Q_MIX_DATA = (0.3, -1.2, 2.1, 1.4, 0.8, -0.4)
+
+
+def _q_mixture(strategy):
+    """A mixture with a Bernoulli guide site per datum enumerated by
+    ``strategy``, and a global cost outside the plate."""
+    import torch
+
+    import pyro_tpu_torch as pyro
+    import pyro_tpu_torch.distributions as dist
+
+    def model(data):
+        mu = pyro.param("mu", lambda: torch.tensor(0.7, device=data.device))
+        pyro.sample("prior", dist.Normal(mu, torch.tensor(1.0, device=data.device)), obs=torch.tensor(0.5, device=data.device))
+        with pyro.plate("data", len(data), dim=-1):
+            z = pyro.sample("z", dist.Bernoulli(torch.tensor(0.4, device=data.device)))
+            pyro.sample("obs", dist.Normal(torch.where(z > 0, mu, -mu), torch.tensor(1.0, device=data.device)), obs=data)
+
+    def guide(data):
+        q = pyro.param("qz", lambda: torch.linspace(0.2, 0.8, len(data), device=data.device))
+        with pyro.plate("data", len(data), dim=-1):
+            pyro.sample("z", dist.Bernoulli(q), infer={"enumerate": strategy})
+
+    return model, guide
+
+
+def _q_sampled_model(data):
+    """A model site with 8 draws a datum in place of its support."""
+    import torch
+
+    import pyro_tpu_torch as pyro
+    import pyro_tpu_torch.distributions as dist
+
+    with pyro.plate("data", len(data)):
+        z = pyro.sample("z", dist.Bernoulli(torch.tensor(0.3, device=data.device)),
+                        infer={"enumerate": "parallel", "num_samples": 8})
+        pyro.sample("y", dist.Normal(torch.where(z > 0, 1.5, -1.0), torch.tensor(1.0, device=data.device)), obs=data)
+
+
+def _q_loss_and_grads(torch, strategy, device):
+    """Loss and parameter gradients of ``_q_mixture`` on ``device``."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.infer import TraceEnum_ELBO
+
+    pyro.set_default_device(device)
+    try:
+        pyro.clear_param_store()
+        data = torch.tensor(Q_MIX_DATA, device=device)
+        model, guide = _q_mixture(strategy)
+        loss = TraceEnum_ELBO(max_plate_nesting=1).differentiable_loss(model, guide, data)
+        loss.backward()
+        store = pyro.get_param_store()
+        grads = {k: store.get_unconstrained(k).grad.detach().cpu() for k in ("mu", "qz")}
+        pyro.clear_param_store()
+        return float(loss.detach()), grads
+    finally:
+        pyro.set_default_device("cuda")
+
+
+def _q_path_log_density(torch, model, sequences, lengths, path):
+    """Each sequence's joint log density of the hidden path ``path`` (B, T)
+    under the conditioned CPU model, as MAP decoding counts it (the
+    transitions and emissions within the lengths), summed in float64."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+
+    B, T_ = path.shape
+    data = {f"x_{t}": path[:, t].reshape(B, 1) for t in range(T_)}
+    pyro.set_default_device("cpu")
+    try:
+        trace = poutine.trace(poutine.condition(model, data=data)).get_trace(sequences, lengths)
+        trace.compute_log_prob()
+    finally:
+        pyro.set_default_device("cuda")
+    total = torch.zeros(B, dtype=torch.float64)
+    for name, site in trace.nodes.items():
+        if name.startswith(("x_", "y_")):
+            total += site["log_prob"].double().reshape(B, -1).sum(-1)
+    return total
+
+
+def phase_queries(torch, lm):
+    """Phase 18: compute_marginals, infer_discrete (MAP and draws), ubersum,
+    sequential and sampled enumeration, through the port's entry points, on
+    model_1 at the hmm_enum_steps_per_sec row's widths."""
+    print(f"phase 18: discrete queries on model_1 (pyro.markov) at {M1_B}.{M1_T}.{D}.{M1_S}")
+    import functools
+
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.examples import einsum as einsum_example
+    from pyro_tpu_torch.examples import hmm as example
+    from pyro_tpu_torch.infer import TraceEnum_ELBO, infer_discrete
+
+    argv = ["--model", "1", "--hidden-dim", str(M1_S), "--num-sequences", str(M1_B), "--max-length", str(M1_T),
+            "--data-dim", str(D)]
+    args = example.parse_args(argv)
+    names = ("AutoDelta.probs_x", "AutoDelta.probs_y")
+    elbo = TraceEnum_ELBO(max_plate_nesting=2)
+
+    def setup(device, values=None):
+        """model_1, its guide, data and the guide's probs on ``device``;
+        trained for Q_STEPS Adam steps, or with the unconstrained ``values``."""
+        pyro.set_default_device(device)
+        pyro.clear_param_store()
+        sequences, lengths = example.synthetic_sequences(0, M1_B, M1_T, D)
+        model, guide, svi = example.make_svi(args, args.learning_rate)
+        if values is None:
+            losses = [svi.step(sequences, lengths) for _ in range(Q_STEPS)]
+            check(all(math.isfinite(l) for l in losses), f"model_1 training losses {losses}")
+            print(f"  {Q_STEPS} Adam steps on the card: losses {losses}")
+        else:
+            svi.evaluate_loss(sequences, lengths)  # registers the params
+            store = pyro.get_param_store()
+            for k, v in values.items():
+                store.set_unconstrained(k, v.to(device, store.get_unconstrained(k).dtype))
+        probs = {k: v["value"].detach() for k, v in poutine.trace(guide).get_trace(sequences, lengths).nodes.items()
+                 if k in ("probs_x", "probs_y")}
+        return model, guide, sequences, lengths, probs
+
+    _, _, _, _, probs = setup("cuda")
+    values = {k: pyro.get_param_store().get_unconstrained(k).detach().cpu() for k in names}
+    try:
+        # the reference: float64 on the CPU, given the guide's float32 probs
+        # clamped to float32's [eps, 1 - eps] as its distributions clamp them
+        eps = torch.finfo(torch.float32).eps
+        with default_dtype(torch, torch.float64):
+            pyro.set_default_device("cpu")
+            cond_c = poutine.condition(functools.partial(example.model_1, args=args),
+                                       data={k: v.cpu().double().clamp(eps, 1 - eps) for k, v in probs.items()})
+            seq_c, len_c = example.synthetic_sequences(0, M1_B, M1_T, D)
+            t0 = time.perf_counter()
+            marg_cpu = elbo.compute_marginals(cond_c, lambda *args: None, seq_c, len_c)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            map_cpu = poutine.trace(infer_discrete(cond_c, first_available_dim=-3, temperature=0)).get_trace(
+                seq_c, len_c)
+            path_cpu = torch.stack([map_cpu.nodes[f"x_{t}"]["value"].reshape(M1_B) for t in range(M1_T)], -1)
+            logp_cpu = _q_path_log_density(torch, cond_c, seq_c, len_c, path_cpu)
+        model_32, guide_32, seq_32, len_32, _ = setup("cpu", values)
+        marg_cpu32 = elbo.compute_marginals(model_32, guide_32, seq_32, len_32)
+    finally:
+        pyro.set_default_device("cuda")
+    pyro.clear_param_store()
+    model, guide, sequences, lengths, probs = setup("cuda", values)
+    conditioned = poutine.condition(model, data=probs)
+
+    # compute_marginals: K1 forward and backward
+    lm.launches.update(forward=0, backward=0)
+    marginals = elbo.compute_marginals(model, guide, sequences, lengths)
+    torch.cuda.synchronize()
+    marg_launches = dict(lm.launches)
+    print(f"  compute_marginals: K1 launches {marg_launches}; the float64 CPU run {cpu_ms:.1f} ms")
+    check(marg_launches["forward"] > 0 and marg_launches["backward"] > 0,
+          f"compute_marginals launched K1 {marg_launches}")
+    check(sorted(marginals) == sorted(marg_cpu) == sorted(f"x_{t}" for t in range(M1_T)),
+          f"marginals of {sorted(marginals)}")
+    worst = {"card": 0.0, "CPU float32": 0.0, "card to CPU float32": 0.0}
+    for name, m in marginals.items():
+        probs = m.probs
+        check(tuple(probs.shape) == (M1_B, 1, M1_S) and probs.is_cuda,
+              f"{name}: marginal of shape {tuple(probs.shape)}, not one per sequence ({M1_B}, 1, {M1_S})")
+        ref = marg_cpu[name].probs
+        for key, a, b in (("card", probs.cpu(), ref), ("CPU float32", marg_cpu32[name].probs, ref),
+                          ("card to CPU float32", probs.cpu(), marg_cpu32[name].probs)):
+            worst[key] = max(worst[key], max_err(a.double(), b.double()))
+    bar = min(Q_F32_FACTOR * worst["CPU float32"] + 1e-6, Q_MARGINAL_CEIL)
+    print(f"  marginals: {len(marginals)} sites of shape ({M1_B}, 1, {M1_S}), one per sequence; largest error to "
+          f"the float64 CPU run: card {worst['card']:.3g}, the CPU's float32 run {worst['CPU float32']:.3g} (bar "
+          f"{bar:.3g}); card to the CPU's float32 run {worst['card to CPU float32']:.3g}")
+    check(worst["card"] <= bar, f"marginals {worst['card']:.3g} from the float64 CPU run, over {bar:.3g}")
+    p = torch.stack([marginals[f"x_{t}"].probs.reshape(M1_B, M1_S) for t in range(M1_T)], 1)  # (B, T, S)
+
+    # infer_discrete at temperature 0: the MAP path
+    lm.launches.update(forward=0, backward=0)
+    map_trace = poutine.trace(infer_discrete(conditioned, first_available_dim=-3, temperature=0)).get_trace(
+        sequences, lengths)
+    path = torch.stack([map_trace.nodes[f"x_{t}"]["value"].reshape(M1_B) for t in range(M1_T)], -1).cpu()
+    logp = _q_path_log_density(torch, cond_c, seq_c, len_c, path)
+    rel = float(((logp - logp_cpu).abs() / logp_cpu.abs()).max())
+    differ = (path != path_cpu).any(-1)
+    lead = float((logp_cpu - logp)[differ].max()) if bool(differ.any()) else 0.0
+    print(f"  infer_discrete, temperature 0: K1 launches {dict(lm.launches)}; the MAP path's joint log density "
+          f"against the float64 CPU run's: rel {rel:.3g}; {int(differ.sum())} of {M1_B} paths differ from its, "
+          f"its best path leading the card's there by {lead:.3g} at most")
+    check(rel <= Q_MAP_RTOL, f"MAP log density rel {rel:.3g} from the CPU run")
+    check(lead <= Q_MAP_TIE, f"MAP indices differ where the CPU's best path leads by {lead:.3g}")
+
+    # infer_discrete at temperature 1: draws against the marginals
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    sampler = infer_discrete(conditioned, first_available_dim=-3, temperature=1, generator=generator)
+    lm.launches.update(forward=0, backward=0)
+    counts = torch.zeros((M1_B, M1_T, M1_S), device="cuda")
+    for _ in range(Q_DRAWS):
+        tr = poutine.trace(sampler).get_trace(sequences, lengths)
+        x = torch.stack([tr.nodes[f"x_{t}"]["value"].reshape(M1_B) for t in range(M1_T)], -1)
+        counts.scatter_add_(-1, x[..., None], torch.ones_like(x[..., None], dtype=counts.dtype))
+    torch.cuda.synchronize()
+    draw_launches = dict(lm.launches)
+    check(draw_launches["forward"] > 0, f"infer_discrete at temperature 1 launched K1 {draw_launches}")
+    freq = counts / Q_DRAWS
+    bar = 5 * (p * (1 - p) / Q_DRAWS).sqrt() + 1 / Q_DRAWS
+    excess = float((freq - p).abs().sub(bar).max())
+    print(f"  infer_discrete, temperature 1: K1 launches over {Q_DRAWS} draws {draw_launches}; largest "
+          f"|frequency - p| less its bar {excess:.3g} (at most 0)")
+    check(excess <= 0, f"draw frequencies off the marginals by {excess:.3g} past the bar")
+
+    # ubersum at examples/einsum.py's equation, against the CPU runs
+    ops_cpu = einsum_example.make_operands(Q_EQUATION, Q_PLATES, 32, Q_DIM, "cpu")
+    ops = [x.cuda() for x in ops_cpu]
+    ops64 = [x.double() for x in ops_cpu]
+    value, value_cpu = (einsum_example.logprob(Q_EQUATION, *xs, plates=Q_PLATES) for xs in (ops, ops_cpu))
+    grads, grads_cpu, grads64 = (einsum_example.gradient(Q_EQUATION, *xs, plates=Q_PLATES) for xs in (ops, ops_cpu, ops64))
+    rel = float(((value.cpu() - value_cpu).abs() / value_cpu.abs()).max())
+    print(f"  ubersum {Q_EQUATION} (plates {Q_PLATES}, dim {Q_DIM}, plate size 32): {float(value):.6f} against the "
+          f"CPU run's {float(value_cpu):.6f} (rel {rel:.3g})")
+    check(rel <= 1e-5, f"ubersum off the CPU run: rel {rel:.3g}")
+    for name, g, gc, g64 in zip(Q_EQUATION.split("->")[0].split(","), grads, grads_cpu, grads64):
+        err, err32 = max_err(g.cpu().double(), g64), max_err(gc.double(), g64)
+        print(f"    d/d{name}: max|grad| {float(g64.abs().max()):.3g}; largest error to float64: card {err:.3g}, the "
+              f"CPU's float32 run {err32:.3g}; card to the CPU's float32 run {max_err(g.cpu(), gc):.3g}")
+        bar = min(Q_F32_FACTOR * err32 + 1e-6, Q_GRAD_CEIL * float(g64.abs().max()))
+        check(err <= bar, f"ubersum gradient d/d{name}: {err:.3g} from float64, over {bar:.3g}")
+
+    # sequential and sampled enumeration
+    seq_gpu = _q_loss_and_grads(torch, "sequential", "cuda")
+    for label, ref in (("CPU run", _q_loss_and_grads(torch, "sequential", "cpu")),
+                       ("parallel enumeration", _q_loss_and_grads(torch, "parallel", "cuda"))):
+        lrel = abs(seq_gpu[0] - ref[0]) / abs(ref[0])
+        gexcess = max(float(((seq_gpu[1][k] - ref[1][k]).abs() - 1e-5 * ref[1][k].abs() - 1e-7).max()) for k in ref[1])
+        print(f"  sequential guide site: loss {seq_gpu[0]!r} against the {label}'s {ref[0]!r} (rel {lrel:.3g}); "
+              f"gradients past rtol 1e-5 by {gexcess:.3g}")
+        check(lrel <= 1e-5 and gexcess <= 0, f"sequential enumeration off the {label}")
+    sampled = {}
+    for device in ("cuda", "cpu"):
+        pyro.set_default_device(device)
+        try:
+            data = torch.tensor(Q_MIX_DATA, device=device)
+            sampled[device] = torch.tensor([
+                TraceEnum_ELBO(max_plate_nesting=1).loss(_q_sampled_model, lambda data: None, data,
+                                                         generator=torch.Generator(device=device).manual_seed(s))
+                .item() for s in range(Q_SEEDS)], dtype=torch.float64)
+        finally:
+            pyro.set_default_device("cuda")
+    se = math.hypot(*(float(v.std()) / math.sqrt(Q_SEEDS) for v in sampled.values()))
+    diff = abs(float(sampled["cuda"].mean() - sampled["cpu"].mean()))
+    print(f"  sampled model site (num_samples=8): mean loss over {Q_SEEDS} generators {float(sampled['cuda'].mean()):.5f}"
+          f" on the card, {float(sampled['cpu'].mean()):.5f} on the CPU ({diff / se:.2f} standard errors apart)")
+    check(bool(sampled["cuda"].isfinite().all()) and diff <= 4 * se, f"sampled enumeration: {diff:.3g} > 4 x {se:.3g}")
+
+    # timing: ms a call (host clock around work that ends in a sync), then
+    # one profiled call of each query with its busy share and K1's device ms
+    def timed(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / iters
+
+    queries = {
+        "compute_marginals": lambda: elbo.compute_marginals(model, guide, sequences, lengths),
+        "infer_discrete t=0": lambda: poutine.trace(infer_discrete(conditioned, first_available_dim=-3, temperature=0))
+        .get_trace(sequences, lengths),
+        "infer_discrete t=1": lambda: poutine.trace(sampler).get_trace(sequences, lengths),
+    }
+    times = {name: timed(fn) for name, fn in queries.items()}
+    for plate_size in range(8, 33, 8):
+        xs = einsum_example.make_operands(Q_EQUATION, Q_PLATES, plate_size, Q_DIM, "cuda")
+        for method, fn in (("logprob", einsum_example.logprob), ("gradient", einsum_example.gradient)):
+            times[f"ubersum {method} {plate_size}"] = einsum_example.time_fn(
+                fn, Q_EQUATION, *xs, iters=10, plates=Q_PLATES) * 1e3
+    print("  ms a call: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    profiles = {}
+    for name in ("compute_marginals", "infer_discrete t=1"):
+        print(f"  {name}, one more call:")
+        wall, busy, _, kernels = profile_run(torch, queries[name], top=5)
+        k1_ms = sum(e.self_device_time_total for e in kernels if "lme_" in e.key) / 1e3
+        print(f"    K1 kernels {k1_ms:.3f} device ms of {busy:.3f} busy ({100 * busy / wall:.1f}% of the wall)")
+        profiles[name] = {"wall_ms": wall, "busy_ms": busy, "k1_ms": k1_ms}
+    pyro.clear_param_store()
+    return {"marginals": marg_launches, "draws": draw_launches, "times": times, "profiles": profiles}
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -2642,6 +2975,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if not os.path.isdir(os.path.join(HERE, "pyro_tpu_torch")):
+        print("chip_smoke: pyro_tpu_torch not found beside this script", file=sys.stderr)
+        return 1
     sys.path.insert(0, HERE)
     import pyro_tpu_torch
 
@@ -2687,6 +3023,7 @@ def main():
     k5 = phase_k5(torch, gl)
     k5_launches = phase_gamma_slice(torch, gl)["launches"]
     phase_dmm(torch, lm, ms, gl)
+    phase_queries(torch, lm)
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"

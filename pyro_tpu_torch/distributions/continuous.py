@@ -11,7 +11,7 @@ from ..settings import get_default_device
 from . import constraints
 from .distribution import Distribution
 from .multivariate import _standard_gamma
-from .util import broadcast_shape, clamp_probs
+from .util import as_float, broadcast_shape, clamp_probs
 
 
 def _param(value, like=None):
@@ -31,8 +31,10 @@ class Beta(Distribution):
     has_rsample = True
 
     def __init__(self, concentration1, concentration0):
-        c1 = torch.as_tensor(concentration1, dtype=torch.get_default_dtype())
-        c0 = torch.as_tensor(concentration0, dtype=torch.get_default_dtype(), device=c1.device)
+        c1 = as_float(concentration1)
+        c0 = as_float(concentration0, device=c1.device)
+        dtype = torch.promote_types(c1.dtype, c0.dtype)
+        c1, c0 = c1.to(dtype), c0.to(dtype)
         shape = broadcast_shape(c1.shape, c0.shape)
         self.concentration1, self.concentration0 = c1.expand(shape), c0.expand(shape)
         super().__init__(shape)

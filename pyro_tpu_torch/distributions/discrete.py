@@ -8,7 +8,7 @@ import torch.nn.functional as F
 
 from . import constraints
 from .distribution import Distribution
-from .util import broadcast_shape, lazy_property, logits_to_probs, probs_to_logits
+from .util import as_float, broadcast_shape, lazy_property, logits_to_probs, probs_to_logits
 
 
 def _one_of(probs, logits):
@@ -29,8 +29,8 @@ class Bernoulli(Distribution):
 
     def __init__(self, probs=None, logits=None):
         _one_of(probs, logits)
-        self._probs = None if probs is None else torch.as_tensor(probs, dtype=torch.get_default_dtype())
-        self._logits = None if logits is None else torch.as_tensor(logits, dtype=torch.get_default_dtype())
+        self._probs = None if probs is None else as_float(probs)
+        self._logits = None if logits is None else as_float(logits)
         super().__init__((self._probs if probs is not None else self._logits).shape)
 
     @lazy_property
@@ -72,12 +72,12 @@ class Categorical(Distribution):
     def __init__(self, probs=None, logits=None):
         _one_of(probs, logits)
         if probs is not None:
-            probs = torch.as_tensor(probs, dtype=torch.get_default_dtype())
+            probs = as_float(probs)
             self._probs = probs / probs.sum(-1, keepdim=True)
             self._logits = None
             param = self._probs
         else:
-            self._logits = torch.as_tensor(logits, dtype=torch.get_default_dtype())
+            self._logits = as_float(logits)
             self._probs = None
             param = self._logits
         self._num_events = param.shape[-1]

@@ -9,7 +9,7 @@ import torch
 
 from . import constraints
 from .distribution import Distribution
-from .util import broadcast_shape, clamp_probs, lazy_property
+from .util import as_float, broadcast_shape, clamp_probs, lazy_property
 
 
 def _standard_gamma(concentration, generator):
@@ -31,7 +31,7 @@ class Dirichlet(Distribution):
     has_rsample = True
 
     def __init__(self, concentration):
-        self.concentration = torch.as_tensor(concentration, dtype=torch.get_default_dtype())
+        self.concentration = as_float(concentration)
         super().__init__(self.concentration.shape[:-1], self.concentration.shape[-1:])
 
     def rsample(self, generator=None, sample_shape=()):

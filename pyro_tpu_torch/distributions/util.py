@@ -8,6 +8,15 @@ from typing import Sequence
 import torch
 
 
+def as_float(value, device=None):
+    """A distribution parameter as a float tensor on ``device`` (where
+    given): a floating tensor keeps its own dtype (float64 stays float64
+    under a float32 default), anything else takes the default dtype."""
+    if isinstance(value, torch.Tensor) and value.is_floating_point():
+        return value if device is None else value.to(device)
+    return torch.as_tensor(value, dtype=torch.get_default_dtype(), device=device)
+
+
 def is_identically_zero(x) -> bool:
     """True if ``x`` is the literal number zero."""
     return isinstance(x, (int, float)) and x == 0

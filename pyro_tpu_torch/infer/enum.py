@@ -1,11 +1,13 @@
-"""Importance-trace construction, the SVI hot path (counterpart of
-``get_importance_trace`` in ``pyro_tpu/infer/enum.py``)."""
+"""Importance-trace construction, the SVI hot path, and enumeration's
+configuration and queue steps (counterpart of ``pyro_tpu/infer/enum.py``)."""
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 from .. import poutine
+from ..poutine.plate_messenger import _Subsample
 from ..poutine.util import prune_subsample_sites
 from ..util import check_model_guide_match, check_site_shape, is_validation_enabled
 
@@ -34,3 +36,73 @@ def get_importance_trace(max_plate_nesting: Optional[float], model, guide, args,
                 if site["type"] == "sample":
                     check_site_shape(site, int(max_plate_nesting))
     return model_trace, guide_trace
+
+
+def _check_sequential_num_samples(infer):
+    if infer.get("enumerate") == "sequential" and infer.get("num_samples") is not None:
+        raise ValueError(
+            'enumerate="sequential" with num_samples is not supported: the queue expands the whole support, '
+            "which a num_samples weight of 1/num_samples would mis-count; use one of the two"
+        )
+
+
+def config_enumerate(guide=None, default: str = "parallel", expand: bool = False, num_samples=None,
+                     tmc: str = "diagonal"):
+    """Mark every discrete sample site of ``guide`` (a model too) for
+    enumeration by ``default`` ("parallel", "sequential" or "flat"), unless
+    the site says otherwise.  With ``num_samples`` every unobserved site,
+    continuous ones included, takes that many draws in place of its support
+    (sampled enumeration, with the ``tmc`` strategy "diagonal" or
+    "mixture")."""
+    if guide is None:
+        return functools.partial(config_enumerate, default=default, expand=expand, num_samples=num_samples, tmc=tmc)
+    if default not in (None, "sequential", "parallel", "flat"):
+        raise ValueError(f"invalid default value: {default}")
+    _check_sequential_num_samples({"enumerate": default, "num_samples": num_samples})
+
+    def config_fn(msg):
+        if msg["type"] != "sample" or msg["is_observed"] or isinstance(msg["fn"], _Subsample):
+            return {}
+        if num_samples is not None:
+            return {
+                "enumerate": msg["infer"].get("enumerate", default),
+                "num_samples": msg["infer"].get("num_samples", num_samples),
+                "expand": msg["infer"].get("expand", expand),
+                "tmc": msg["infer"].get("tmc", tmc),
+            }
+        if not getattr(msg["fn"], "has_enumerate_support", False):
+            return {}
+        config = {"enumerate": msg["infer"].get("enumerate", default)}
+        if expand:
+            config["expand"] = True
+        return config
+
+    return poutine.infer_config(guide, config_fn=config_fn)
+
+
+def iter_discrete_escape(trace, msg) -> bool:
+    """Whether ``msg`` is a sequentially enumerated sample site that the
+    partial ``trace`` has not fixed yet: the queue stops the guide there."""
+    return (
+        msg["type"] == "sample"
+        and not msg["is_observed"]
+        and msg["infer"].get("enumerate") == "sequential"
+        and msg["name"] not in trace
+    )
+
+
+def iter_discrete_extend(trace, site):
+    """The partial ``trace`` extended by each value of the escaped ``site``'s
+    support, one trace a value, each site recording the support's size as
+    ``_enum_total`` for the DiCE weights."""
+    _check_sequential_num_samples(site["infer"])
+    values = site["fn"].enumerate_support(expand=site["infer"].get("expand", False))
+    enum_total = int(values.shape[0])
+    extended = []
+    for value in values:
+        ext_site = dict(site, infer=dict(site["infer"], _enum_total=enum_total), value=value)
+        ext_site.pop("continuation", None)
+        tr = trace.copy()
+        tr.add_node(site["name"], **ext_site)
+        extended.append(tr)
+    return extended

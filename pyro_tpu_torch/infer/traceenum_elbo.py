@@ -5,28 +5,38 @@ tensor variable elimination, arXiv:1902.03210).
 Model-side enumerated variables are summed out exactly by
 ``contract_tensor_tree`` (vectorized Markov chains first, by the scan of
 ``ops/markov_product.py``); every other cost is weighed by DiCE factors, so
-one surrogate gives both the ELBO and its gradient.
-
-Parallel enumeration only: a sequential site raises
-``NotImplementedError`` (the queue of ``_iter_trace_pairs`` waits), and
-``compute_marginals`` is not ported yet (ROADMAP.md Queue 1 item 4).
+one surrogate gives both the ELBO and its gradient.  A guide site marked
+``"sequential"`` is enumerated by a queue of trace pairs, one a value
+(``_iter_trace_pairs``); a site with ``num_samples`` takes that many draws
+in place of its support.  ``compute_marginals`` gives the posterior
+marginal of each model-enumerated site, one per plate slice, by the adjoint
+of one contraction (``ops/einsum_adjoint.py``).
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from collections import OrderedDict
+from queue import LifoQueue
 
 import torch
 
 from .. import poutine
+from ..distributions.discrete import Bernoulli, Categorical
 from ..ops import packed
 from ..ops.contract import contract_tensor_tree
+from ..ops.einsum_adjoint import adjoint_marginals, marginal_of_dims
 from ..ops.markov_product import eliminate_markov_chains
 from ..ops.rings import LogRing
 from ..poutine.enum_messenger import EnumMessenger
+from ..poutine.handlers import EscapeMessenger
+from ..poutine.runtime import NonlocalExit
+from ..poutine.trace_struct import Trace
 from ..poutine.util import prune_subsample_sites
 from ..util import check_model_guide_match, check_site_shape, is_validation_enabled
 from .elbo import ELBO
+from .enum import iter_discrete_escape, iter_discrete_extend
 from .util import Dice
 
 
@@ -114,7 +124,15 @@ def _compute_model_factors(model_trace, guide_trace):
                 scales.append(site["scale"])
     for t, sites_t in enum_sites.items():
         for site in sites_t:
-            log_factors.setdefault(t, []).append(site["packed"]["unscaled_log_prob"])
+            log_prob = site["packed"]["unscaled_log_prob"]
+            num_samples = site["infer"].get("num_samples")
+            if num_samples is not None:
+                # drawn from its own distribution: a draw's weight p/q is 1
+                # in value and a score term in gradient, and the draws are
+                # averaged
+                value = log_prob.value - log_prob.value.detach() - math.log(num_samples)
+                log_prob = packed.PackedTensor(value, log_prob.dims)
+            log_factors.setdefault(t, []).append(log_prob)
             scales.append(site["scale"])
     scale = _get_common_scale(scales)
     return marginal_costs, log_factors, ordering, enum_dims, scale
@@ -142,22 +160,45 @@ def _compute_dice_elbo(model_trace, guide_trace):
     return Dice(guide_trace, ordering).compute_expectation(costs)
 
 
+class _SequentialEscape(Exception):
+    """A sequentially enumerated guide site stopped the guide: carries the
+    partial trace (the sites run so far) and the site's message."""
+
+    def __init__(self, partial_trace, site):
+        super().__init__(site.get("name"))
+        self.partial_trace = partial_trace
+        self.site = site
+
+
 class TraceEnum_ELBO(ELBO):
     """The ELBO with every model site marked ``infer={"enumerate":
-    "parallel"}`` summed out exactly.  ``max_plate_nesting`` must cover the
+    "parallel"}`` summed out exactly, and every guide site so marked (or
+    ``"sequential"``) enumerated.  ``max_plate_nesting`` must cover the
     model's plates: enumeration dims are allocated left of it."""
 
-    def _get_trace_pair(self, model, guide, args, kwargs, generator):
+    def _get_trace_pair(self, model, guide, args, kwargs, generator, queue_trace=None):
+        """Run the guide, then the model replayed against it, both under
+        enumeration.  With ``queue_trace`` (a partial trace that fixes some
+        sequential sites) the guide replays it, and a sequential site it
+        does not fix raises ``_SequentialEscape``."""
+        # the seed handler is innermost, so that sampled enumeration draws
+        # from the generator; the EnumMessenger sees each site before replay
+        # marks it done, so every branch of the queue walks the same dims
         first_dim = -1 - int(self.max_plate_nesting)
-        # the EnumMessenger is innermost, so that it sees each site before
-        # replay marks it done
-        guide_fn = EnumMessenger(first_available_dim=first_dim)(guide)
-        if generator is not None:
-            guide_fn = poutine.seed(guide_fn, rng_seed=generator)
-        guide_trace = poutine.trace(guide_fn).get_trace(*args, **kwargs)
-        model_fn = poutine.replay(EnumMessenger()(model), trace=guide_trace)  # continues the dim allocation
-        if generator is not None:
-            model_fn = poutine.seed(model_fn, rng_seed=generator)
+        guide_fn = guide if generator is None else poutine.seed(guide, rng_seed=generator)
+        guide_fn = EnumMessenger(first_available_dim=first_dim)(guide_fn)
+        if queue_trace is not None:
+            guide_fn = EscapeMessenger(functools.partial(iter_discrete_escape, queue_trace))(
+                poutine.replay(guide_fn, trace=queue_trace)
+            )
+        tracer = poutine.trace(guide_fn)
+        try:
+            guide_trace = tracer.get_trace(*args, **kwargs)
+        except NonlocalExit as escape:
+            escape.reset_stack()
+            raise _SequentialEscape(tracer.msngr.get_trace(), escape.site) from None
+        model_fn = model if generator is None else poutine.seed(model, rng_seed=generator)
+        model_fn = poutine.replay(EnumMessenger()(model_fn), trace=guide_trace)  # continues the dim allocation
         model_trace = poutine.trace(model_fn).get_trace(*args, **kwargs)
 
         guide_trace = prune_subsample_sites(guide_trace)
@@ -176,16 +217,104 @@ class TraceEnum_ELBO(ELBO):
         guide_trace.pack_tensors(model_trace.plate_to_symbol)
         return model_trace, guide_trace
 
+    def _iter_trace_pairs(self, model, guide, args, kwargs, generator):
+        """One (model, guide) trace pair for each combination of the values
+        of the guide's sequential sites, from a LIFO queue of partial
+        traces; exactly one pair when there is no sequential site."""
+        queue = LifoQueue()
+        queue.put(Trace())
+        while not queue.empty():
+            partial = queue.get()
+            try:
+                yield self._get_trace_pair(model, guide, args, kwargs, generator, queue_trace=partial)
+            except _SequentialEscape as escape:
+                for extended in iter_discrete_extend(escape.partial_trace, escape.site):
+                    queue.put(extended)
+
     def differentiable_loss(self, model, guide, *args, generator=None, **kwargs):
         """-ELBO, as a tensor whose gradient is the surrogate's."""
         self._setup(model, guide, args, kwargs)
         elbo = 0.0
         for _ in range(self.num_particles):
-            model_trace, guide_trace = self._get_trace_pair(model, guide, args, kwargs, generator)
-            elbo = elbo + _compute_dice_elbo(model_trace, guide_trace) / self.num_particles
+            for model_trace, guide_trace in self._iter_trace_pairs(model, guide, args, kwargs, generator):
+                elbo = elbo + _compute_dice_elbo(model_trace, guide_trace) / self.num_particles
         return -elbo
 
     def loss(self, model, guide, *args, generator=None, **kwargs):
         """-ELBO, without a graph."""
         with torch.no_grad():
             return self.differentiable_loss(model, guide, *args, generator=generator, **kwargs)
+
+    def compute_marginals(self, model, guide, *args, generator=None, **kwargs):
+        """The posterior marginal of each model-enumerated site given the
+        guide's draw, by site name: a ``Categorical`` (a ``Bernoulli`` for a
+        Bernoulli site) over the rightmost dim, whose batch shape is the
+        site's plates, each slice normalised on its own."""
+        self._setup(model, guide, args, kwargs)
+        model_trace, guide_trace = self._get_trace_pair(model, guide, args, kwargs, generator)
+        return _compute_marginals(model_trace, guide_trace)
+
+
+def _site_plates(trace, site):
+    """A site's plate symbols and sizes, leftmost dim first."""
+    frames = sorted((f for f in site["cond_indep_stack"] if f.dim is not None), key=lambda f: f.dim)
+    return "".join(trace.plate_to_symbol[f.name] for f in frames), [f.subsample_size for f in frames]
+
+
+def _compute_marginals(model_trace, guide_trace):
+    """Each model-enumerated site's marginal from the gradient of log Z by a
+    zero probe factor over the site's plates and its own dim, placed at the
+    site's ordinal: every site's marginals, one per plate slice, from one
+    forward contraction and one backward pass."""
+    if any(site["type"] == "markov_chain" and site["value"] for site in model_trace.nodes.values()):
+        raise NotImplementedError(
+            "compute_marginals does not support vectorized_markov; use pyro.markov (unrolled) for marginals"
+        )
+    for name, site in guide_trace.nodes.items():
+        if site["type"] == "sample" and site["infer"].get("enumerate") == "sequential":
+            raise NotImplementedError(
+                f"compute_marginals does not support the sequentially enumerated guide site '{name}': "
+                'mark it enumerate="parallel"'
+            )
+    _, log_factors, ordering, sum_dims, _ = _compute_model_factors(model_trace, guide_trace)
+    probes = OrderedDict()
+    for name, site in model_trace.nodes.items():
+        if site["type"] != "sample" or name in guide_trace.nodes or site["infer"].get("_enumerate_dim") is None:
+            continue
+        symbol = site["infer"]["_enumerate_symbol"]
+        plates, sizes = _site_plates(model_trace, site)
+        value = site["value"]
+        size = value.shape[value.ndim - site["fn"].event_dim + site["infer"]["_enumerate_dim"]]
+        log_prob = site["packed"]["unscaled_log_prob"].value
+        probe = packed.PackedTensor(log_prob.new_zeros(sizes + [size]), plates + symbol)
+        log_factors.setdefault(ordering[name], []).append(probe)
+        probes[name] = (site, probe)
+    if not probes:
+        return OrderedDict()
+    _, marginal_tree = adjoint_marginals(log_factors, sum_dims)
+    marginal_of = {
+        id(term): marginal
+        for terms, marginals in zip(log_factors.values(), marginal_tree.values())
+        for term, marginal in zip(terms, marginals)
+    }
+
+    marginals = OrderedDict()
+    for name, (site, probe) in probes.items():
+        probs = marginal_of_dims(marginal_of[id(probe)], {site["infer"]["_enumerate_symbol"]}, sum_dims)
+        logits = torch.log(probs.value.clamp(min=torch.finfo(probs.value.dtype).tiny))
+        logits = packed.unpack(packed.PackedTensor(logits, probs.dims), model_trace.symbol_to_dim)
+        # the batch shape of the site's plates: a plate of size 1 keeps its dim
+        batch = [1] * -min((f.dim for f in site["cond_indep_stack"] if f.dim is not None), default=0)
+        for f in site["cond_indep_stack"]:
+            if f.dim is not None:
+                batch[f.dim] = f.subsample_size
+        logits = logits.movedim(site["infer"]["_enumerate_dim"], -1).reshape(batch + [-1])
+        logits = logits - logits.logsumexp(-1, keepdim=True)
+        fn = site["fn"]
+        while hasattr(fn, "base_dist"):
+            fn = fn.base_dist
+        if isinstance(fn, Bernoulli):
+            marginals[name] = Bernoulli(logits=logits[..., 1] - logits[..., 0])
+        else:
+            marginals[name] = Categorical(logits=logits)
+    return marginals

@@ -4,6 +4,7 @@ TraceEnum_ELBO."""
 
 from __future__ import annotations
 
+import math
 from collections import defaultdict
 
 import torch
@@ -41,22 +42,34 @@ class MultiFrameTensor(dict):
 
 
 def compute_site_dice_factor(site):
-    """A guide site's DiCE log factor.  Only a non-reparameterised site
-    carries a score-function factor: a reparameterised one's gradient
-    already flows pathwise through the costs.  An enumerated site's factor
-    is its (undetached) log_prob; a sampled one's is ``score -
-    score.detach()``, zero in value.  (Sampled enumeration, whose factor
-    has a log normaliser, is not ported.)"""
+    """A guide site's DiCE log factor and log denominator.
+
+    Only a non-reparameterised site carries a score-function factor: a
+    reparameterised one's gradient already flows pathwise through the
+    costs.  An enumerated site's factor is its (undetached) log_prob; a
+    sampled one's is ``score - score.detach()``, zero in value.  A site
+    enumerated with ``num_samples`` folds ``-log(num_samples)`` into its
+    factor, so that the contraction averages the draws.  A sequential site
+    has the log of its support's size (``_enum_total``) as its denominator:
+    each of the queue's branches repeats the costs outside its plates."""
     score_function = site["packed"]["score_parts"].score_function
+    log_prob = site["packed"]["log_prob"]
     if site["infer"].get("enumerate"):
-        if site["infer"].get("num_samples") is not None or site["infer"]["enumerate"] == "sequential":
-            raise NotImplementedError(
-                "sampled and sequential enumeration are not ported yet; see ROADMAP.md Queue 1 item 4"
-            )
-        return site["packed"]["log_prob"] if is_identically_zero(score_function) else score_function
+        num_samples = site["infer"].get("num_samples")
+        if num_samples is not None:
+            if site["infer"]["enumerate"] == "sequential":
+                raise ValueError(
+                    f"site '{site['name']}': enumerate=\"sequential\" with num_samples is not supported"
+                )
+            if is_identically_zero(score_function):
+                return PackedTensor(torch.full_like(log_prob.value, -math.log(num_samples)), log_prob.dims), 0.0
+            value = score_function.value - score_function.value.detach() - math.log(num_samples)
+            return PackedTensor(value, score_function.dims), 0.0
+        log_denom = math.log(site["infer"].get("_enum_total", 1)) if site["infer"]["enumerate"] == "sequential" else 0.0
+        return (log_prob if is_identically_zero(score_function) else score_function), log_denom
     if is_identically_zero(score_function):
-        return PackedTensor(torch.zeros((), device=site["packed"]["log_prob"].value.device), "")
-    return PackedTensor(score_function.value - score_function.value.detach(), score_function.dims)
+        return PackedTensor(torch.zeros((), device=log_prob.value.device), ""), 0.0
+    return PackedTensor(score_function.value - score_function.value.detach(), score_function.dims), 0.0
 
 
 class Dice:
@@ -66,17 +79,23 @@ class Dice:
     each marginal one log-space contraction."""
 
     def __init__(self, guide_trace, ordering):
+        self.log_denom = defaultdict(float)
         self.log_probs = defaultdict(list)
         for name, site in guide_trace.nodes.items():
             if site["type"] == "sample" and not site["infer"].get("_do_not_score"):
-                self.log_probs[ordering[name]].append(compute_site_dice_factor(site))
+                log_prob, log_denom = compute_site_dice_factor(site)
+                self.log_probs[ordering[name]].append(log_prob)
+                if log_denom:
+                    self.log_denom[ordering[name]] += log_denom
 
     def compute_expectation(self, costs):
         """The sum over ordinals and cost terms of each cost times the
-        marginal probability of its dims."""
+        marginal probability of its dims, divided by the branch counts of
+        the sequential sites whose plates the cost's ordinal lacks."""
         expected_cost = 0.0
         for ordinal, cost_terms in costs.items():
             log_factors = [term for t, terms in self.log_probs.items() if t <= ordinal for term in terms]
+            scale = math.exp(-sum(d for t, d in self.log_denom.items() if not t <= ordinal))
             factor_dims = set()
             for f in log_factors:
                 factor_dims |= set(f.dims)
@@ -99,5 +118,6 @@ class Dice:
                         prob = PackedTensor(torch.ones((), device=cost.value.device), "")
                     prob_cache[key] = prob
                 c, p = broadcast_all(cost, prob_cache[key])
-                expected_cost = expected_cost + (c.value * p.value).sum()
+                term = (c.value * p.value).sum()
+                expected_cost = expected_cost + scale * term
         return expected_cost

@@ -1,6 +1,7 @@
 """Tensor variable elimination over plated factor trees (counterpart of
-``contract_tensor_tree`` and ``contract_to_tensor`` in
-``pyro_tpu/ops/contract.py``; the paper is arXiv:1902.03210).
+``pyro_tpu/ops/contract.py``; the paper is arXiv:1902.03210):
+``contract_tensor_tree``, ``contract_to_tensor``, the plate-aware log-space
+einsum ``ubersum`` and its plate-unrolling reference ``naive_ubersum``.
 
 Ordinals are frozensets of plate symbols; sum dims are enumeration
 symbols; terms are ``PackedTensor``s.
@@ -8,13 +9,14 @@ symbols; terms are ``PackedTensor``s.
 
 from __future__ import annotations
 
+import itertools
 from collections import OrderedDict, defaultdict
 from typing import Dict, List, Set
 
 import torch
 
 from ..settings import get_default_device
-from .packed import PackedTensor
+from .packed import PackedTensor, align
 from .rings import LogRing
 
 
@@ -175,3 +177,118 @@ def contract_to_tensor(tensor_tree, sum_dims, target_ordinal=None, target_dims=N
         contracted_terms = [PackedTensor(torch.zeros((), device=get_default_device()), "")]
     term = ring.sumproduct(contracted_terms, set())
     return ring.broadcast(term, target_ordinal)
+
+
+def _validate_sizes(inputs, operands):
+    """Each symbol's size, the same in every operand that carries it."""
+    sizes: Dict[str, int] = {}
+    for inp, op in zip(inputs, operands):
+        for d, n in zip(inp, op.shape):
+            old = sizes.setdefault(d, n)
+            if old != n:
+                raise ValueError(f"Dimension size mismatch at dim '{d}': {n} vs {old}")
+    return sizes
+
+
+def ubersum(equation: str, *operands, plates: str = ""):
+    """The plate-aware log-space einsum: ``equation`` names each operand's
+    dims and one or more comma-separated outputs; a dim in ``plates`` is a
+    plate (its slices multiply, so it is summed in log space where an output
+    drops it), every other dim is summed out by logsumexp.  Returns one
+    tensor per output."""
+    inputs, outputs = equation.split("->")
+    inputs, outputs = inputs.split(","), outputs.split(",")
+    _validate_sizes(inputs, operands)
+    terms = [PackedTensor(x, dims) for x, dims in zip(operands, inputs)]
+    plate_set = set(plates)
+    results = []
+    for output in outputs:
+        tensor_tree: "OrderedDict" = OrderedDict()
+        sum_dims = set()
+        for term in terms:
+            tensor_tree.setdefault(frozenset(d for d in term.dims if d in plate_set), []).append(term)
+            sum_dims |= set(term.dims) - plate_set
+        term = contract_to_tensor(
+            tensor_tree,
+            sum_dims,
+            target_ordinal=frozenset(d for d in output if d in plate_set),
+            target_dims=set(output) - plate_set,
+        )
+        results.append(align(term, output).value)
+    return tuple(results)
+
+
+def _naive_log_einsum(equation: str, *operands):
+    """A flat (plate-free) log-space einsum by greedy variable elimination,
+    each step a broadcast sum and a logsumexp."""
+    inputs, output = equation.split("->")
+    terms = [(inp, op) for inp, op in zip(inputs.split(","), operands)]
+
+    def broadcast_sum(group):
+        dims = "".join(dict.fromkeys("".join(gdims for gdims, _ in group)))
+        total = sum(align(PackedTensor(v, gdims), dims).value for gdims, v in group)
+        sizes = {d: n for gdims, v in group for d, n in zip(gdims, v.shape)}
+        return dims, total.expand([sizes[d] for d in dims])
+
+    elim = {d for dims, _ in terms for d in dims} - set(output)
+    while elim:
+        best = min(sorted(elim), key=lambda d: len({x for dims, _ in terms if d in dims for x in dims}))
+        dims, merged = broadcast_sum([t for t in terms if best in t[0]])
+        terms = [t for t in terms if best not in t[0]] + [(dims.replace(best, ""), merged.logsumexp(dims.index(best)))]
+        elim.remove(best)
+    if not terms:
+        return torch.zeros(())
+    dims, total = broadcast_sum(terms)
+    return total.permute([dims.index(d) for d in output])
+
+
+def naive_ubersum(equation: str, *operands, plates: str = ""):
+    """The reference for ``ubersum``, by unrolling the plates: every slice
+    of every operand becomes an operand of its own, with fresh symbols for
+    its plate-local dims, and a flat log-space einsum runs for each index of
+    the output's plates."""
+    inputs_str, outputs_str = equation.split("->")
+    outputs = outputs_str.split(",")
+    if len(outputs) > 1:
+        return tuple(naive_ubersum(inputs_str + "->" + out, *operands, plates=plates)[0] for out in outputs)
+    (output,) = outputs
+    inputs = inputs_str.split(",")
+    plate_set = set(plates)
+    sizes = _validate_sizes(inputs, operands)
+    if not plate_set:
+        return (_naive_log_einsum(equation, *operands),)
+
+    # a sum dim's plate context: the plates that every operand carrying it has
+    dim_to_ordinal: dict = {}
+    for dims in map(set, inputs):
+        for d in dims - plate_set:
+            dim_to_ordinal[d] = dim_to_ordinal.get(d, dims & plate_set) & dims
+    output_plates = set(output) & plate_set
+    for d in output:
+        if d not in plate_set:
+            if d not in dim_to_ordinal:
+                raise ValueError(f"output dim {d!r} is neither a plate nor present in any input")
+            _check_plates_are_sensible({d}, dim_to_ordinal[d] - output_plates)
+
+    symbols: dict = {}
+
+    def unroll(d, index):
+        key = (d, tuple(index[p] for p in sorted(dim_to_ordinal.get(d, ()))))
+        return symbols.setdefault(key, chr(0x4E00 + len(symbols)))
+
+    flat_inputs, flat_operands = [], []
+    for inp, op in zip(inputs, operands):
+        local = [d for d in inp if d in plate_set]
+        for index in itertools.product(*(range(sizes[d]) for d in local)):
+            at = dict(zip(local, index))
+            flat_inputs.append("".join(unroll(d, at) for d in inp if d not in plate_set))
+            flat_operands.append(op[tuple(at.get(d, slice(None)) for d in inp)])
+
+    out_plates = [d for d in output if d in plate_set]
+    result = operands[0].new_zeros([sizes[d] for d in output])
+    for index in itertools.product(*(range(sizes[d]) for d in out_plates)):
+        at = dict(zip(out_plates, index))
+        flat_output = "".join(unroll(d, at) for d in output if d not in plate_set)
+        value = _naive_log_einsum(",".join(flat_inputs) + "->" + flat_output, *flat_operands)
+        result[tuple(at.get(d, slice(None)) for d in output)] = value
+    return (result,)

@@ -1,17 +1,20 @@
 from .enum_messenger import EnumMessenger
-from .handlers import block, condition, mask, replay, scale, seed, trace
+from .handlers import EscapeMessenger, block, condition, infer_config, mask, replay, scale, seed, trace
 from .messenger import Messenger
-from .runtime import am_i_wrapped, apply_stack
+from .runtime import NonlocalExit, am_i_wrapped, apply_stack
 from .trace_struct import Trace
 
 __all__ = [
     "EnumMessenger",
+    "EscapeMessenger",
     "Messenger",
+    "NonlocalExit",
     "Trace",
     "am_i_wrapped",
     "apply_stack",
     "block",
     "condition",
+    "infer_config",
     "mask",
     "replay",
     "scale",

@@ -1,5 +1,5 @@
-"""Parallel enumeration of discrete sites, and ``pyro.markov`` (counterpart
-of ``pyro_tpu/poutine/enum_messenger.py``).
+"""Parallel and sampled enumeration of discrete sites, and ``pyro.markov``
+(counterpart of ``pyro_tpu/poutine/enum_messenger.py``).
 
 An enumerated site's value is its whole support, laid along a dim to the
 left of every plate dim; the dim allocation depends only on the order of
@@ -14,20 +14,62 @@ from collections import Counter
 from contextlib import ExitStack
 from typing import Dict, Iterable, List, Optional, Set
 
+import torch
+
 from ..distributions.distribution import Distribution
 from .messenger import Messenger
 from .plate_messenger import _Subsample
 from .runtime import _ENUM_ALLOCATOR
 
 
+def _tmc_sample(msg):
+    """``num_samples`` draws of the site in a new leftmost dim, each batch
+    dim that is not a plate thinned to one ancestor a draw: a fat draw over
+    an upstream site's draws would make every draw depend on every upstream
+    combination.  The ``"diagonal"`` strategy (the default) pairs draw k
+    with ancestor k; ``"mixture"`` picks each draw's ancestor uniformly.
+    Draws come from the site's generator (``msg["rng_key"]``)."""
+    fn = msg["fn"]
+    num_samples = msg["infer"]["num_samples"]
+    strategy = msg["infer"].get("tmc", "diagonal")
+    if strategy not in ("diagonal", "mixture"):
+        raise ValueError(f"{strategy} not a valid TMC strategy")
+    generator = msg["rng_key"]
+    # plate dims keep their extent; every other batch dim is thinned to 1
+    batch_shape = [1] * len(fn.batch_shape)
+    for f in msg["cond_indep_stack"]:
+        if f.dim is not None:
+            batch_shape[f.dim] = f.subsample_size
+    fat = fn.sample(generator, (num_samples,))
+    target_shape = (num_samples,) + tuple(batch_shape) + tuple(fn.event_shape)
+    thin = fat
+    for i in range(len(fn.batch_shape)):
+        axis = 1 + i  # after the leading draws' dim
+        size = thin.shape[axis]
+        if size <= 1 or batch_shape[i] != 1:
+            continue
+        if strategy == "diagonal":
+            ancestor = torch.arange(num_samples, device=thin.device) % size
+        else:
+            ancestor = torch.randint(size, (num_samples,), generator=generator,
+                                     device=thin.device if generator is None else generator.device)
+        index = ancestor.reshape((num_samples,) + (1,) * (thin.ndim - 1))
+        thin = torch.take_along_dim(thin, index.expand(thin.shape[:axis] + (1,) + thin.shape[axis + 1:]), dim=axis)
+    assert thin.shape == target_shape, (tuple(thin.shape), target_shape)
+    return thin
+
+
 def enumerate_site(msg):
-    """The site's support with its cardinality in a fresh leftmost dim."""
+    """The site's support with its cardinality in a fresh leftmost dim, or,
+    with ``infer["num_samples"]``, that many draws there (``_tmc_sample``)."""
     dist = msg["fn"]
-    if msg["infer"].get("num_samples") is not None:
-        raise NotImplementedError(
-            "sampled enumeration (num_samples, TMC) is not ported yet; see ROADMAP.md Queue 1 item 4"
-        )
-    value = dist.enumerate_support(expand=msg["infer"].get("expand", False))
+    num_samples = msg["infer"].get("num_samples")
+    if num_samples is None:
+        value = dist.enumerate_support(expand=msg["infer"].get("expand", False))
+    elif num_samples > 1:
+        value = _tmc_sample(msg)
+    else:
+        raise ValueError(f"invalid num_samples: {num_samples}")
     assert value.ndim == 1 + len(dist.batch_shape) + len(dist.event_shape)
     return value
 
@@ -63,11 +105,8 @@ class EnumMessenger(Messenger):
                     param_dims.update(self._value_dims.get(name, {}))
             self._markov_depths[msg["name"]] = msg["infer"]["_markov_depth"]
         self._param_dims[msg["name"]] = param_dims
+        # a "sequential" site is left to the queue of TraceEnum_ELBO
         if msg["is_observed"] or msg["infer"].get("enumerate") != "parallel":
-            if msg["infer"].get("enumerate") == "sequential":
-                raise NotImplementedError(
-                    "sequential enumeration is not ported yet; see ROADMAP.md Queue 1 item 4"
-                )
             return
 
         value = enumerate_site(msg)

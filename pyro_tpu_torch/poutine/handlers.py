@@ -1,5 +1,6 @@
 """Core effect handlers (counterpart of ``pyro_tpu/poutine/handlers.py``):
-trace, replay, block, seed, mask, scale and condition.
+trace, replay, block, seed, mask, scale, condition, infer_config, and the
+escape that stops a model at a site.
 
 Each handler is dual-use: ``trace(fn)(*args)`` or ``with trace() as t: ...``.
 """
@@ -13,6 +14,7 @@ import torch
 
 from ..settings import get_default_device
 from .messenger import Messenger
+from .runtime import NonlocalExit
 from .trace_struct import Trace
 
 
@@ -34,6 +36,9 @@ class TraceMessenger(Messenger):
 
     def get_trace(self) -> Trace:
         return self.trace
+
+    def _reset(self):
+        self.trace = Trace()
 
     def _postprocess_message(self, msg):
         if msg["type"] in ("sample", "param", "markov_chain") and (
@@ -117,6 +122,8 @@ class BlockMessenger(Messenger):
     """Hide sites from handlers above this one: those ``hide_fn`` selects,
     those ``expose_fn`` does not select, or (with neither) all."""
 
+    _is_block = True
+
     def __init__(self, hide_fn: Optional[Callable] = None, expose_fn: Optional[Callable] = None):
         super().__init__()
         if not (hide_fn is None or expose_fn is None):
@@ -161,6 +168,41 @@ class ScaleMessenger(Messenger):
         msg["scale"] = self.scale * msg["scale"]
 
 
+class InferConfigMessenger(Messenger):
+    """Update each sample and param site's ``infer`` dict with what
+    ``config_fn(msg)`` returns."""
+
+    def __init__(self, config_fn: Callable):
+        super().__init__()
+        self.config_fn = config_fn
+
+    def _pyro_sample(self, msg):
+        msg["infer"] = {**msg["infer"], **self.config_fn(msg)}
+
+    def _pyro_param(self, msg):
+        msg["infer"] = {**msg["infer"], **self.config_fn(msg)}
+
+
+class EscapeMessenger(Messenger):
+    """Stop the model at the first sample site ``escape_fn(msg)`` selects:
+    the site is hidden from the handlers above and, once the handlers below
+    have seen it, raises ``NonlocalExit`` carrying its message."""
+
+    def __init__(self, escape_fn: Callable):
+        super().__init__()
+        self.escape_fn = escape_fn
+
+    def _pyro_sample(self, msg):
+        if self.escape_fn(msg):
+            msg["done"] = True
+            msg["stop"] = True
+
+            def cont(m):
+                raise NonlocalExit(m)
+
+            msg["continuation"] = cont
+
+
 def _make_handler(msngr_cls, name):
     def handler(fn=None, *args, **kwargs):
         if fn is not None and not callable(fn):
@@ -180,3 +222,4 @@ block = _make_handler(BlockMessenger, "block")
 mask = _make_handler(MaskMessenger, "mask")
 scale = _make_handler(ScaleMessenger, "scale")
 seed = _make_handler(SeedMessenger, "seed")
+infer_config = _make_handler(InferConfigMessenger, "infer_config")

@@ -42,6 +42,9 @@ class Messenger:
         elif self in _PYRO_STACK:
             del _PYRO_STACK[_PYRO_STACK.index(self):]
 
+    def _reset(self) -> None:
+        """Drop any state kept for the run that a ``NonlocalExit`` stopped."""
+
     def _process_message(self, msg: Dict[str, Any]) -> None:
         method = getattr(self, "_pyro_{}".format(msg["type"]), None)
         if method is not None:

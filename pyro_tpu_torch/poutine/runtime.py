@@ -103,6 +103,24 @@ class _EnumAllocator:
 _ENUM_ALLOCATOR = _EnumAllocator()
 
 
+class NonlocalExit(Exception):
+    """Raised by ``EscapeMessenger`` to stop a model at a site; carries the
+    site's message."""
+
+    def __init__(self, site: Dict[str, Any], *args, **kwargs) -> None:
+        super().__init__(*args, **kwargs)
+        self.site = site
+
+    def reset_stack(self) -> None:
+        """Reset the handlers left on the stack.  Unwinding has already
+        popped those between the raise and the catch, so only the outer
+        ones remain: each is reset, up to a block that hides the site."""
+        for frame in reversed(_PYRO_STACK):
+            frame._reset()
+            if getattr(frame, "_is_block", False) and frame.hide_fn(self.site):
+                break
+
+
 def new_message(type: str, name: Optional[str], fn: Optional[Callable], args: tuple, kwargs: dict,
                 value: Any = None, **extra: Any) -> Dict[str, Any]:
     msg: Dict[str, Any] = {

@@ -197,3 +197,40 @@ def test_enumerate_support_matches_jax(case, expand):
     actual = ENUMERABLE[case](tdist, _torch).enumerate_support(expand=expand).numpy()
     assert actual.shape == expected.shape
     np.testing.assert_array_equal(actual, expected)
+
+
+@pytest.mark.parametrize("name", ["Bernoulli-probs", "Bernoulli-logits", "Categorical-probs", "Categorical-logits",
+                                  "Beta", "Dirichlet"])
+def test_float64_parameters_keep_their_dtype(name):
+    """A float64 parameter stays float64 under the float32 default dtype, so
+    a float64 model computes in float64 throughout (a float32 cast here kept
+    the DMM's float64 gradients at float32 rounding); its log_prob equals the
+    same distribution's built under the float64 default."""
+    rng = np.random.default_rng(4)
+    p = torch.tensor(rng.uniform(0.1, 0.9, size=(3, 4)), dtype=torch.float64)
+    build = {
+        "Bernoulli-probs": lambda x: (tdist.Bernoulli(probs=x), torch.ones(3, 4, dtype=torch.float64)),
+        "Bernoulli-logits": lambda x: (tdist.Bernoulli(logits=x), torch.zeros(3, 4, dtype=torch.float64)),
+        "Categorical-probs": lambda x: (tdist.Categorical(probs=x), torch.tensor([0, 1, 3])),
+        "Categorical-logits": lambda x: (tdist.Categorical(logits=x), torch.tensor([2, 1, 0])),
+        "Beta": lambda x: (tdist.Beta(x, 2 * x), 0.5 * torch.ones(3, 4, dtype=torch.float64)),
+        "Dirichlet": lambda x: (tdist.Dirichlet(x), (x / x.sum(-1, keepdim=True)).detach()),
+    }[name]
+    d, value = build(p)
+    lp = d.log_prob(value)
+    assert torch.get_default_dtype() == torch.float32 and lp.dtype == torch.float64
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        d64, _ = build(p)
+        expected = d64.log_prob(value)
+    finally:
+        torch.set_default_dtype(old)
+    assert torch.equal(lp, expected)
+
+
+def test_beta_takes_one_dtype_for_both_concentrations():
+    c64 = torch.tensor([0.5, 2.0], dtype=torch.float64)
+    for d in (tdist.Beta(c64, 2.0), tdist.Beta(c64.float(), c64), tdist.Beta(1.5, c64)):
+        assert d.concentration1.dtype == d.concentration0.dtype == torch.float64
+        assert d.log_prob(torch.tensor([0.3, 0.6], dtype=torch.float64)).dtype == torch.float64
