@@ -197,7 +197,31 @@ Phases (any failure exits non-zero):
      of each query (``ubersum`` at plate sizes 8-32), and one profiled call
      of ``compute_marginals`` and of ``infer_discrete`` with its busy share
      and K1's device ms;
-  19. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+  19. slice 17, the Gaussian-process time series through K4 (the card's
+     name and power limit on the phase's first line): ``examples/timeseries_gp.py``
+     at its widths (obs 2, T=80, nu 1.5, imgp and lcmgp), 300 SVI steps on
+     the card (finite losses, the last below the first, K4b launched) against
+     the port's CPU run of the same steps from the same parameters (the last
+     loss and the one-step forecast); the four models at the EEG shape
+     (14 channels, 14,980 steps, numpy seed 0): IndependentMaternGP (n=2,
+     K4b over 14 channels with stride 0 over time), LinearlyCoupledMaternGP
+     with 4 GPs (n=8, K4b), DependentMaternGP (n=28, K4a) and
+     GenericLGSSMWithGPNoiseModel with a z-state of 4 (n=32, K4a): ``log_prob``
+     with its K4 launches counted, and the first step's loss and gradients,
+     against float64 through the plain levels on the card (the smallest
+     Cholesky pivot of the initial and transition covariances printed), 5
+     SVI steps with their launches, ms a step over 20 steps after a
+     warm-up, one profiled step (device operations, busy share, K4 device
+     ms); a DependentMaternGP draw of 14,980 steps through K4c, channels 0
+     and 1 correlated through the Wiener factor and then not; the six
+     Normal-family guides (AutoNormal, AutoDiagonalNormal,
+     AutoMultivariateNormal, AutoLowRankMultivariateNormal, AutoIAFNormal,
+     Parameterized's "Normal") on IndependentMaternGP at the EEG shape with
+     Gamma(2, 2) priors on its length and kernel scales, 10 steps each:
+     finite losses, K4b launched each way, every parameter and draw on the
+     card, -ELBO at one latent value against the port's CPU run, ``median``
+     and ``quantiles`` on the card;
+  20. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
      backward on each route, K4a-c, K4a and K4b backward, K2g forward and
      backward on each route, K5a and K5b), the card's name and power
      limit, then the result line.
@@ -260,7 +284,15 @@ gradients); ubersum's value rtol 1e-5 against the CPU run; the MAP path's
 joint log density rtol 1e-5 against the float64 CPU run's; each draw frequency within
 5 sqrt(p(1-p)/256) + 1/256 of its marginal p; sequential enumeration rtol
 1e-5; the sampled
-loss's mean within 4 standard errors of the CPU run's.  Without a CUDA
+loss's mean within 4 standard errors of the CPU run's.  The GP time
+series: the example's last loss rtol 1e-4 and its forecast atol 1e-3
+against the CPU run's (300 float32 Adam steps on each device); at the EEG
+shape, log_prob rtol 1e-5 (each channel's, for IndependentMaternGP) and
+the first step's loss rtol 1e-5 against float64, each gradient within 1e-3
+times its largest entry of float64's (as a training step's above); the
+draw's channel 0-1 correlation above 0.4 with the coupled factor and within
+0.25 of 0 without (as the JAX package's test); the guides' -ELBO at one
+latent value rtol 1e-5 against the CPU run.  Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result.
 """
@@ -2927,6 +2959,310 @@ def phase_queries(torch, lm):
     return {"marginals": marg_launches, "draws": draw_launches, "times": times, "profiles": profiles}
 
 
+# -- slice 17: Gaussian-process time series through K4, the Normal-family guides -------
+
+GP_EXAMPLE_STEPS = 300  # examples/timeseries_gp.py's default
+GP_FORECAST_ATOL = 1e-3  # the card's one-step forecast against the CPU run's, after 300 float32 Adam steps each
+GP_LOSS_RTOL = 1e-4  # the card's last loss of those 300 steps against the CPU run's
+GP_EEG_T, GP_EEG_CHANNELS = 14_980, 14
+GP_EEG_MODELS = {"imgp": "contract", "lcmgp": "contract", "dmgp": "halving", "lgssmgp": "halving"}
+GP_TIMED_STEPS, GP_WARM_STEPS = 20, 2
+GP_GUIDES = ("AutoNormal", "AutoDiagonalNormal", "AutoMultivariateNormal", "AutoLowRankMultivariateNormal",
+             "AutoIAFNormal", "Parameterized")
+GP_GUIDE_STEPS = 10
+GP_ELBO_RTOL = 1e-5  # the ELBO at one latent value on the card against the CPU run's
+# the guide's own term of it, log q(z) (with the per-site -log|J|), held on
+# its own: the model's term (about 2.4e5 at the EEG shape) would hide it
+GP_GUIDE_LP_RTOL, GP_GUIDE_LP_ATOL = 1e-5, 1e-4
+K4_KEYS = ("halving", "contract", "mids", "halving_bwd", "contract_bwd")
+
+
+def elbo_at_latent(poutine, model, guide, cond, data):
+    """The two terms of -ELBO at one latent value, log q(z) and
+    log p(data, z): the guide run with its sites ``cond`` conditioned, the
+    model conditioned on the values the guide's sites then take."""
+    guide_trace = poutine.trace(poutine.condition(guide, data=cond)).get_trace(data)
+    values = {name: site["value"] for name, site in guide_trace.nodes.items()
+              if site["type"] == "sample" and not site["infer"].get("is_auxiliary")}
+    model_trace = poutine.trace(poutine.condition(model, data=values)).get_trace(data)
+    return float(guide_trace.log_prob_sum()), float(model_trace.log_prob_sum())
+
+
+def smallest_pivot(torch, hmm):
+    """The smallest diagonal entry of the Cholesky factors of a GaussianHMM's
+    initial covariance and transition noise covariance (recovered from the
+    information form: the noise's precision is the lower right block of the
+    transition factor's), and whether one of them failed."""
+    hmm = getattr(hmm, "base_dist", hmm)
+    n = hmm.hidden_dim
+    pivots, failed = [], False
+    for precision in (hmm._init.precision, hmm._trans.precision[..., n:, n:]):
+        L, info = torch.linalg.cholesky_ex(torch.linalg.inv(precision))
+        failed = failed or bool((info != 0).any()) or not bool(L.isfinite().all())
+        pivots.append(float(L.diagonal(dim1=-2, dim2=-1).min()))
+    return min(pivots), failed
+
+
+def _gp_example_run(torch, model, device, data, init=None):
+    """``examples/timeseries_gp.py`` at its defaults on ``device``: its
+    losses over 300 steps, the one-step forecast, the seconds taken, the
+    initial params and the K4b launches."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import timeseries_gp as example
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+    from pyro_tpu_torch.params import param_store_from_jax
+
+    pyro.set_default_device(device)
+    try:
+        pyro.clear_param_store()
+        gp = example.make_gp(model, name="gp")
+        gp.get_dist()
+        store = pyro.get_param_store()
+        if init is None:
+            init = {k: store[k].detach().cpu().numpy().copy() for k in store.get_all_unconstrained()}
+        else:
+            param_store_from_jax(init)
+        window = data.shape[0] - 1
+        targets = data[:window].to(device)
+        svi = example.make_svi(example.make_model(gp))
+        gl.reset_counts()
+        t0 = time.perf_counter()
+        losses = svi.run_steps(GP_EXAMPLE_STEPS, targets).tolist()
+        seconds = time.perf_counter() - t0
+        contract = gl.launches["contract"]
+        with torch.no_grad():
+            forecast = example.one_step_forecast(gp, targets).double().cpu()
+        return losses, forecast, seconds, init, contract
+    finally:
+        pyro.set_default_device("cuda")
+
+
+def _gp_guide(torch, name):
+    """IndependentMaternGP at the EEG shape with Gamma(2, 2) priors on its
+    length and kernel scales, its model, and the guide ``name`` over it."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import distributions as dist
+    from pyro_tpu_torch.examples import timeseries_gp as example
+    from pyro_tpu_torch.infer import autoguide
+
+    gp = example.make_gp("imgp", "eeg", name="gp")
+    device = pyro.get_default_device()
+    for param in ("length_scale", "kernel_scale"):
+        two = torch.full((GP_EEG_CHANNELS,), 2.0, device=device)
+        gp.set_prior(param, dist.Gamma(two, two).to_event(1))
+
+    def model(t):
+        gp.set_mode("model")
+        pyro.factor("log_prob", gp.log_prob(t))
+
+    if name != "Parameterized":
+        return gp, model, getattr(autoguide, name)(model)
+    gp.autoguide("length_scale", "Normal")
+    gp.autoguide("kernel_scale", "Normal")
+
+    def guide(t):
+        gp.set_mode("guide")
+        return {"length_scale": gp.length_scale, "kernel_scale": gp.kernel_scale}
+
+    return gp, model, guide
+
+
+def phase_gp(torch, gl, smi):
+    """Phase 19: the GP time series of examples/timeseries_gp.py at its
+    widths (300 steps, the forecast against the CPU run), the four models at
+    the EEG shape through K4 (log_prob and the first step's gradients
+    against float64 through the plain levels on the card, launches per call
+    and step, ms a step, one profiled step), a DependentMaternGP draw through
+    K4c with its cross-channel correlation, and the six Normal-family guides
+    on IndependentMaternGP at the EEG shape."""
+    print(f"phase 19: GP time series through K4 and the Normal-family guides ({smi})")
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.examples import timeseries_gp as example
+    from pyro_tpu_torch.infer import SVI, Trace_ELBO
+    from pyro_tpu_torch.optim import Adam
+    from pyro_tpu_torch.params import param_store_from_jax
+
+    out = {}
+    # 1. the example at its own widths, on the card and on the CPU
+    data = torch.tensor(example.synthetic_series(0, 81, 2))
+    for model in ("imgp", "lcmgp"):
+        losses, forecast, seconds, init, contract = _gp_example_run(torch, model, "cuda", data)
+        losses_cpu, forecast_cpu, seconds_cpu, _, _ = _gp_example_run(torch, model, "cpu", data, init)
+        err = max_err(forecast, forecast_cpu)
+        rel = abs(losses[-1] - losses_cpu[-1]) / abs(losses_cpu[-1])
+        truth = data[-1].double()
+        print(f"  example {model} (T=80, obs 2): {GP_EXAMPLE_STEPS} steps on the card in {seconds:.3f} s "
+              f"({1e3 * seconds / GP_EXAMPLE_STEPS:.3f} ms a step; the CPU {1e3 * seconds_cpu / GP_EXAMPLE_STEPS:.3f}), "
+              f"{contract} K4b launches ({contract / GP_EXAMPLE_STEPS:.1f} a step); loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} (CPU {losses_cpu[-1]:.4f}, rel {rel:.3g}); forecast {forecast.tolist()} "
+              f"(CPU {forecast_cpu.tolist()}, max abs diff {err:.3g}; error to the held-out step "
+              f"{(forecast - truth).abs().tolist()})")
+        check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0], f"{model}: losses {losses[:3]}...")
+        check(contract > 0, f"{model}: no K4b launch in {GP_EXAMPLE_STEPS} steps")
+        check(rel <= GP_LOSS_RTOL and err <= GP_FORECAST_ATOL,
+              f"{model}: the card's run is off the CPU's (loss rel {rel:.3g}, forecast {err:.3g})")
+
+    # 2. the four models at the EEG shape
+    series = example.synthetic_series(0, GP_EEG_T, GP_EEG_CHANNELS)
+    targets = torch.tensor(series, device="cuda")
+    targets64 = torch.tensor(series, dtype=torch.float64, device="cuda")
+    for model, kind in GP_EEG_MODELS.items():
+        pyro.clear_param_store()
+        gp = example.make_gp(model, "eeg", name="gp")
+        gl.reset_counts()
+        loss32, g32 = _loss_and_grads(torch, example.make_model(gp), targets)
+        torch.cuda.synchronize()
+        step_counts = {k: gl.launches[k] for k in K4_KEYS}
+        store = pyro.get_param_store()
+        params64 = {k: store[k].detach().double().cpu().numpy() for k in g32}
+        with torch.no_grad():
+            lp32, call_counts = counted(torch, gl, f"{model} log_prob", lambda: gp.log_prob(targets), K4_KEYS)
+            hmm = gp.get_dist(duration=GP_EEG_T)
+            pivot, failed = smallest_pivot(torch, hmm)
+        n = getattr(hmm, "base_dist", hmm).hidden_dim
+        pyro.clear_param_store()
+        with default_dtype(torch, torch.float64), plain_levels(gl):
+            gp64 = example.make_gp(model, "eeg", name="gp")
+            gp64.get_dist()
+            param_store_from_jax(params64)
+            with torch.no_grad():
+                lp64 = gp64.log_prob(targets64)
+            loss64, g64 = _loss_and_grads(torch, example.make_model(gp64), targets64)
+        lp_rel = float(((lp32.double() - lp64).abs() / lp64.abs()).max())
+        rel = abs(loss32 - loss64) / abs(loss64)
+        print(f"  {model} at {GP_EEG_T}.{GP_EEG_CHANNELS} (state dim n={n}): log_prob {float(lp32.sum())!r} against "
+              f"float64 {float(lp64.sum())!r} (largest rel diff {lp_rel:.3g}), launches a call {call_counts}; first "
+              f"step's loss rel diff {rel:.3g}, its launches {step_counts}; smallest pivot of the precisions "
+              f"{pivot:.3g}{' (a factorisation failed)' if failed else ''}")
+        check(not failed and lp_rel <= GHMM_RTOL and rel <= TRAIN_LOSS_RTOL,
+              f"{model}: log_prob rel {lp_rel:.3g}, loss rel {rel:.3g} against float64; pivot {pivot:.3g}")
+        check(call_counts[kind] > 0 and step_counts[kind] > 0 and step_counts[f"{kind}_bwd"] > 0,
+              f"{model}: no {kind} launch: {call_counts}, {step_counts}")
+        check_grads(model, g32, g64, TRAIN_GRAD_TOL)
+
+        pyro.clear_param_store()
+        gp = example.make_gp(model, "eeg", name="gp")
+        svi = example.make_svi(example.make_model(gp))
+        losses, per_step = [], []
+        for _ in range(TRAIN_STEPS):
+            gl.reset_counts()
+            losses.append(svi.step(targets))
+            torch.cuda.synchronize()
+            per_step.append({k: v for k, v in gl.launches.items() if v})
+        check(all(math.isfinite(l) for l in losses), f"{model}: losses {losses}")
+        for _ in range(GP_WARM_STEPS):
+            svi.step(targets)
+        ms = []
+        for _ in range(GP_TIMED_STEPS):
+            t0 = time.perf_counter()
+            svi.step(targets)  # reads the loss: synced
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        ms.sort()
+        mean = sum(ms) / len(ms)
+        print(f"    {TRAIN_STEPS} steps: losses {[round(l, 3) for l in losses]}, launches a step {per_step[-1]}; "
+              f"{GP_TIMED_STEPS} steps after {GP_WARM_STEPS} more: mean {mean:.3f} ms a step, median "
+              f"{ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, max {ms[-1]:.3f}")
+        wall, busy, ops, kernels = profile_run(torch, lambda: svi.step(targets), top=4)
+        k4_ms = sum(e.self_device_time_total for e in kernels if kernel_name(e).startswith("gl_")) / 1e3
+        print(f"    profiled step: {ops} device operations, busy {100 * busy / wall:.1f}%, K4 kernels {k4_ms:.4f} "
+              f"device ms")
+        out[model] = {"step_ms": mean, "busy_share": busy / wall, "ops": ops, "k4_ms": k4_ms,
+                      "call_launches": call_counts, "step_launches": per_step[-1]}
+
+    # a DependentMaternGP draw of the whole length through K4c: channels 0
+    # and 1 correlated through the Wiener factor, then not
+    pyro.clear_param_store()
+    gp = example.make_gp("dmgp", "eeg", name="gp")
+    gp.get_dist()
+    store = pyro.get_param_store()
+    tril = torch.eye(GP_EEG_CHANNELS, device="cuda")
+    tril[1, :2] = torch.tensor([0.95, 0.31])
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    corrs, mids_err, mids_levels = [], 0.0, 0
+    for factor in (tril, torch.eye(GP_EEG_CHANNELS, device="cuda")):
+        param_store_from_jax({"gp.wiener_noise_tril": factor.cpu().numpy()})
+        with torch.no_grad(), record_levels(gl, "level_mids") as mids:
+            x, counts = counted(torch, gl, "dmgp rsample", lambda: gp.get_dist(duration=GP_EEG_T).rsample(gen),
+                                K4_KEYS)
+        check(tuple(x.shape) == (GP_EEG_T, GP_EEG_CHANNELS) and bool(x.isfinite().all()) and counts["mids"] > 0,
+              f"dmgp rsample: shape {tuple(x.shape)}, launches {counts}")
+        corrs.append(float(torch.corrcoef(x.T.double())[0, 1]))
+        # K4c at every level of this draw (n=28, one shared L and P_mk)
+        # against its plain version on the recorded inputs
+        check(mids, "dmgp rsample: no K4c level was recorded")
+        with torch.no_grad():
+            for i, args in enumerate(mids):
+                mids_err = max(mids_err, check_k4_level(f"dmgp mids level {i}", (gl._mids_cuda(*args),),
+                                                        (gl.level_mids_plain(*args),)))
+        mids_levels += len(mids)
+        del mids
+    print(f"  dmgp draw of {GP_EEG_T} steps: channel 0-1 correlation {corrs[0]:.3f} with the coupled Wiener factor "
+          f"(above 0.4 wanted), {corrs[1]:.3f} with the identity (within 0.25 of 0 wanted); K4c against its plain "
+          f"version at the {mids_levels} levels of the two draws: max abs err {mids_err:.3g}")
+    check(corrs[0] > 0.4 and abs(corrs[1]) < 0.25, f"dmgp draw correlations {corrs}")
+    out["dmgp_rsample_launches"] = counts
+
+    # 3. the guides on IndependentMaternGP at the EEG shape
+    for name in GP_GUIDES:
+        pyro.clear_param_store()
+        gp, model, guide = _gp_guide(torch, name)
+        svi = SVI(model, guide, Adam({"lr": 0.01}), Trace_ELBO())
+        gl.reset_counts()
+        t0 = time.perf_counter()
+        losses = [svi.step(targets) for _ in range(GP_GUIDE_STEPS)]
+        seconds = time.perf_counter() - t0
+        steps_counts = {k: v for k, v in gl.launches.items() if v}
+        store = pyro.get_param_store()
+        leaves = store.get_all_unconstrained()
+        guide_trace = poutine.trace(guide).get_trace(targets)
+        sites = {k: s["value"] for k, s in guide_trace.nodes.items() if s["type"] == "sample"}
+        off = sorted(k for k, v in {**leaves, **sites}.items() if v.device.type != "cuda")
+        check(all(math.isfinite(l) for l in losses) and not off, f"{name}: losses {losses}, off the card {off}")
+        check(steps_counts.get("contract", 0) > 0 and steps_counts.get("contract_bwd", 0) > 0,
+              f"{name}: no K4b launch each way in {GP_GUIDE_STEPS} steps: {steps_counts}")
+        latent = [k for k in sites if k.startswith("_")]
+        cond = {k: sites[k].detach() for k in (latent or sites)}
+        summary = ""
+        if name not in ("AutoIAFNormal", "Parameterized"):
+            with torch.no_grad():
+                median, quantiles = guide.median(targets), guide.quantiles([0.1, 0.5, 0.9], targets)
+            on_card = all(v.device.type == "cuda" for v in (*median.values(), *quantiles.values()))
+            check(on_card and sorted(median) == sorted(quantiles), f"{name}: median/quantiles off the card")
+            summary = (f"; median length_scale[:3] {median['gp.length_scale'][:3].tolist()}, its 0.1-0.9 quantiles "
+                       f"on the card")
+        with torch.no_grad():
+            guide_lp, model_lp = elbo_at_latent(poutine, model, guide, cond, targets)
+        pyro.set_default_device("cpu")
+        try:
+            pyro.clear_param_store()
+            gp_cpu, model_cpu, guide_cpu = _gp_guide(torch, name)
+            Trace_ELBO().loss(model_cpu, guide_cpu, targets.cpu())  # registers the params
+            cpu_store = pyro.get_param_store()
+            with torch.no_grad():
+                for k, v in leaves.items():
+                    cpu_store.get_unconstrained(k).copy_(v.detach().cpu())
+                guide_lp_cpu, model_lp_cpu = elbo_at_latent(poutine, model_cpu, guide_cpu,
+                                                            {k: v.cpu() for k, v in cond.items()}, targets.cpu())
+        finally:
+            pyro.clear_param_store()
+            pyro.set_default_device("cuda")
+        elbo_card, elbo_cpu = guide_lp - model_lp, guide_lp_cpu - model_lp_cpu
+        rel = abs(elbo_card - elbo_cpu) / abs(elbo_cpu)
+        guide_err = abs(guide_lp - guide_lp_cpu)
+        print(f"  {name}: {GP_GUIDE_STEPS} steps in {seconds:.3f} s, losses {losses[0]:.3f} -> {losses[-1]:.3f}, "
+              f"launches {steps_counts}; every param and draw on the card; -ELBO at one latent value "
+              f"{elbo_card!r} (CPU {elbo_cpu!r}, rel {rel:.3g}), its guide term log q(z) {guide_lp!r} (CPU "
+              f"{guide_lp_cpu!r}, abs diff {guide_err:.3g}){summary}")
+        check(rel <= GP_ELBO_RTOL, f"{name}: -ELBO at a fixed latent rel {rel:.3g} from the CPU run's")
+        check(guide_err <= GP_GUIDE_LP_RTOL * abs(guide_lp_cpu) + GP_GUIDE_LP_ATOL,
+              f"{name}: log q(z) at a fixed latent {guide_lp!r} against the CPU run's {guide_lp_cpu!r}")
+    pyro.clear_param_store()
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -3024,6 +3360,7 @@ def main():
     k5_launches = phase_gamma_slice(torch, gl)["launches"]
     phase_dmm(torch, lm, ms, gl)
     phase_queries(torch, lm)
+    phase_gp(torch, gl, smi)
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"

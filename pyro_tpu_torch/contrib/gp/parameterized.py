@@ -3,9 +3,10 @@
 
 Attributes registered as parameters become ``pyro.param`` sites (with
 their constraints) or, given a prior, ``pyro.sample`` sites with a
-per-site guide.  Definitions are kept per instance and materialised
-through the effect runtime on every access, so a model that reads them
-trains under ``SVI``.
+per-site guide: a Delta, or with ``autoguide(name, "Normal")`` a Normal in
+the unconstrained space pushed through the prior's bijection.  Definitions
+are kept per instance and materialised through the effect runtime on every
+access, so a model that reads them trains under ``SVI``.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ from typing import Dict, Optional
 import torch
 
 from ...distributions import constraints
+from ...distributions.continuous import Normal
 from ...distributions.delta import Delta
+from ...distributions.distribution import TransformedDistribution
 from ...distributions.transforms import biject_to
 from ...primitives import param as pyro_param
 from ...primitives import sample as pyro_sample
@@ -83,11 +86,10 @@ class Parameterized:
         if self._mode == "model":
             return pyro_sample(full, prior)
         guide_type = self._guides.get(name, "Delta")
-        if guide_type != "Delta":
-            raise NotImplementedError(
-                f"the '{guide_type}' autoguide of {full} needs TransformedDistribution and "
-                "constraints.softplus_positive, not ported yet (ROADMAP.md Queue 1 item 7)"
-            )
         t = biject_to(prior.support)
         loc = pyro_param(f"{full}_map", t.inv(init))
-        return pyro_sample(full, Delta(t(loc), event_dim=prior.event_dim))
+        if guide_type == "Delta":
+            return pyro_sample(full, Delta(t(loc), event_dim=prior.event_dim))
+        scale = pyro_param(f"{full}_scale", torch.full_like(loc, 0.1), constraint=constraints.softplus_positive)
+        base = Normal(loc, scale).to_event(loc.ndim)
+        return pyro_sample(full, TransformedDistribution(base, t))

@@ -1,7 +1,14 @@
-"""Time-series models (counterpart of ``pyro_tpu/contrib/timeseries``):
-so far ``GenericLGSSM``."""
+"""Time-series models (counterpart of ``pyro_tpu/contrib/timeseries``)."""
 
 from .base import TimeSeriesModel
-from .lgssm import GenericLGSSM
+from .gp import DependentMaternGP, IndependentMaternGP, LinearlyCoupledMaternGP
+from .lgssm import GenericLGSSM, GenericLGSSMWithGPNoiseModel
 
-__all__ = ["GenericLGSSM", "TimeSeriesModel"]
+__all__ = [
+    "GenericLGSSMWithGPNoiseModel",
+    "DependentMaternGP",
+    "GenericLGSSM",
+    "IndependentMaternGP",
+    "LinearlyCoupledMaternGP",
+    "TimeSeriesModel",
+]

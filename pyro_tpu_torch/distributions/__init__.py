@@ -2,9 +2,9 @@ from . import constraints, flows, transforms
 from .continuous import Beta, Gamma, HalfCauchy, Normal
 from .delta import Delta, Unit
 from .discrete import Bernoulli, Categorical
-from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution
+from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution, TransformedDistribution
 from .hmm import DiscreteHMM, GammaGaussianHMM, GaussianHMM, GaussianMRF, IndependentHMM
-from .multivariate import Dirichlet, MultivariateNormal
+from .multivariate import Dirichlet, LowRankMultivariateNormal, MultivariateNormal
 from .neural_markov import NormalMarkovChain
 from .transforms import StickBreakingTransform, biject_to, transform_to
 
@@ -24,11 +24,13 @@ __all__ = [
     "HalfCauchy",
     "Independent",
     "IndependentHMM",
+    "LowRankMultivariateNormal",
     "MaskedDistribution",
     "MultivariateNormal",
     "Normal",
     "NormalMarkovChain",
     "StickBreakingTransform",
+    "TransformedDistribution",
     "Unit",
     "biject_to",
     "constraints",

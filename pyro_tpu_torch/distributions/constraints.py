@@ -93,6 +93,27 @@ class _IntegerInterval(Constraint):
         return (value % 1 == 0) & (value >= self.lower_bound) & (value <= self.upper_bound)
 
 
+class _LowerCholesky(Constraint):
+    """Lower-triangular matrices with a positive diagonal."""
+
+    event_dim = 2
+
+    def check(self, value):
+        lower = (value.tril() == value).flatten(-2).all(-1)
+        return lower & (value.diagonal(dim1=-2, dim2=-1) > 0).all(-1)
+
+
+class _SoftplusPositive(_GreaterThan):
+    """``positive``, reached from the reals by softplus rather than exp."""
+
+    def __init__(self):
+        super().__init__(0.0)
+
+
+class _SoftplusLowerCholesky(_LowerCholesky):
+    """``lower_cholesky``, with a softplus diagonal."""
+
+
 class _Simplex(Constraint):
     event_dim = 1
 
@@ -108,6 +129,9 @@ positive = _GreaterThan(0.0)
 unit_interval = _Interval(0.0, 1.0)
 integer_interval = _IntegerInterval
 simplex = _Simplex()
+lower_cholesky = _LowerCholesky()
+softplus_positive = _SoftplusPositive()
+softplus_lower_cholesky = _SoftplusLowerCholesky()
 independent = _IndependentConstraint
 
 __all__ = [
@@ -116,9 +140,12 @@ __all__ = [
     "dependent",
     "independent",
     "integer_interval",
+    "lower_cholesky",
     "positive",
     "real",
     "real_vector",
     "simplex",
+    "softplus_lower_cholesky",
+    "softplus_positive",
     "unit_interval",
 ]

@@ -80,6 +80,22 @@ class Normal(Distribution):
         log_scale = torch.log(self.scale)
         return -((value - self.loc) ** 2) / (2 * var) - log_scale - 0.5 * math.log(2 * math.pi)
 
+    @property
+    def mean(self):
+        return self.loc
+
+    @property
+    def variance(self):
+        return self.scale**2
+
+    def cdf(self, value):
+        # erfc keeps the lower tail's relative accuracy, which float32
+        # ``torch.special.ndtr`` loses (all of it by -6 standard deviations)
+        return 0.5 * torch.special.erfc((self.loc - value) / (self.scale * math.sqrt(2.0)))
+
+    def icdf(self, q):
+        return self.loc + self.scale * torch.special.ndtri(q)
+
     def expand(self, batch_shape, _instance=None):
         batch_shape = tuple(batch_shape)
         return Normal(self.loc.expand(batch_shape), self.scale.expand(batch_shape))

@@ -2,7 +2,8 @@
 ``pyro_tpu/distributions/distribution.py``).
 
 Shapes follow the torch.distributions contract: ``batch_shape`` +
-``event_shape``, with ``expand``/``to_event``/``mask`` wrappers.  Sampling
+``event_shape``, with ``expand``/``to_event``/``mask`` wrappers and
+``TransformedDistribution``.  Sampling
 takes an optional ``torch.Generator``: ``d.sample(generator, sample_shape)``,
 also reachable as ``d(rng_key=generator, sample_shape=...)`` from the effect
 runtime.
@@ -247,3 +248,66 @@ class ExpandedDistribution(Distribution):
 
     def expand(self, batch_shape, _instance=None):
         return ExpandedDistribution(self.base_dist, tuple(batch_shape))
+
+
+class TransformedDistribution(Distribution):
+    """A base distribution pushed through ``transforms`` in order (one
+    ``Transform`` or a list); ``log_prob`` inverts them and adds each
+    ``-log|det J|`` summed over the event dims it covers."""
+
+    arg_constraints: Dict[str, constraints.Constraint] = {}
+
+    def __init__(self, base_distribution: Distribution, transforms):
+        from .transforms import Transform
+
+        self.transforms = [transforms] if isinstance(transforms, Transform) else list(transforms)
+        shape = base_distribution.shape()
+        event_dim = base_distribution.event_dim
+        for t in self.transforms:
+            shape = t.forward_shape(shape)
+            event_dim = max(event_dim, t.domain.event_dim) + t.codomain.event_dim - t.domain.event_dim
+        cut = len(shape) - event_dim
+        self.base_dist = base_distribution
+        super().__init__(shape[:cut], shape[cut:])
+
+    @property
+    def has_rsample(self):  # type: ignore[override]
+        return self.base_dist.has_rsample
+
+    @property
+    def support(self):  # type: ignore[override]
+        if not self.transforms:
+            return self.base_dist.support
+        support = self.transforms[-1].codomain
+        if self.event_dim > support.event_dim:
+            support = constraints.independent(support, self.event_dim - support.event_dim)
+        return support
+
+    def _push(self, x):
+        for t in self.transforms:
+            x = t(x)
+        return x
+
+    def sample(self, generator=None, sample_shape=()):
+        return self._push(self.base_dist.sample(generator, sample_shape))
+
+    def rsample(self, generator=None, sample_shape=()):
+        return self._push(self.base_dist.rsample(generator, sample_shape))
+
+    def log_prob(self, value):
+        event_dim = self.event_dim
+        lp = 0.0
+        y = value
+        for t in reversed(self.transforms):
+            x = t._inverse(y)
+            event_dim += t.domain.event_dim - t.codomain.event_dim
+            lp = lp - sum_rightmost(t.log_abs_det_jacobian(x, y), event_dim - t.domain.event_dim)
+            y = x
+        return lp + sum_rightmost(self.base_dist.log_prob(y), event_dim - self.base_dist.event_dim)
+
+    def expand(self, batch_shape, _instance=None):
+        # the transforms act on event dims: leading batch dims expand, the
+        # base's batch dims absorbed into the event stay
+        batch_shape = tuple(batch_shape)
+        base = self.base_dist.expand(batch_shape + self.base_dist.batch_shape[len(self.batch_shape):])
+        return TransformedDistribution(base, self.transforms)

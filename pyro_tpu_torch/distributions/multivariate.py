@@ -1,5 +1,6 @@
-"""Dirichlet and MultivariateNormal (counterpart of the part of
-``pyro_tpu/distributions/multivariate.py`` this package uses)."""
+"""Dirichlet, MultivariateNormal and LowRankMultivariateNormal
+(counterpart of the part of ``pyro_tpu/distributions/multivariate.py`` this
+package uses)."""
 
 from __future__ import annotations
 
@@ -118,4 +119,76 @@ class MultivariateNormal(Distribution):
         return MultivariateNormal(
             self.loc.expand(batch_shape + (n,)),
             scale_tril=self._unbroadcast_scale_tril.expand(batch_shape + (n, n)),
+        )
+
+
+class LowRankMultivariateNormal(Distribution):
+    """An MVN with covariance ``cov_factor @ cov_factor.T + diag(cov_diag)``,
+    scored by the Woodbury identity and the matrix determinant lemma through
+    the Cholesky factor of the capacitance ``I + W^T D^-1 W`` (rank x rank).
+    Draws take a ``torch.Generator``."""
+
+    arg_constraints = {
+        "loc": constraints.real_vector,
+        "cov_factor": constraints.independent(constraints.real, 2),
+        "cov_diag": constraints.independent(constraints.positive, 1),
+    }
+    support = constraints.real_vector
+    has_rsample = True
+
+    def __init__(self, loc, cov_factor, cov_diag):
+        loc = as_float(loc, device=cov_factor.device)
+        event_shape = loc.shape[-1:]
+        batch_shape = broadcast_shape(loc.shape[:-1], cov_factor.shape[:-2], cov_diag.shape[:-1])
+        self.loc = loc.expand(batch_shape + event_shape)
+        self.cov_factor = cov_factor.expand(batch_shape + cov_factor.shape[-2:])
+        self.cov_diag = cov_diag.expand(batch_shape + event_shape)
+        super().__init__(batch_shape, event_shape)
+
+    @lazy_property
+    def _capacitance_tril(self):
+        W = self.cov_factor
+        K = W.transpose(-1, -2) @ (W / self.cov_diag.unsqueeze(-1))
+        return torch.linalg.cholesky(K + torch.eye(K.shape[-1], dtype=K.dtype, device=K.device))
+
+    def rsample(self, generator=None, sample_shape=()):
+        shape = tuple(sample_shape) + self.batch_shape
+        like = dict(generator=generator, dtype=self.loc.dtype, device=self.loc.device)
+        eps_W = torch.randn(shape + self.cov_factor.shape[-1:], **like)
+        eps_D = torch.randn(shape + self.event_shape, **like)
+        return self.loc + (self.cov_factor @ eps_W.unsqueeze(-1)).squeeze(-1) + self.cov_diag.sqrt() * eps_D
+
+    def log_prob(self, value):
+        diff = value - self.loc
+        Dinv_diff = diff / self.cov_diag
+        Wt_Dinv_diff = (self.cov_factor * Dinv_diff.unsqueeze(-1)).sum(-2)
+        Ct = self._capacitance_tril
+        batch = torch.broadcast_shapes(Ct.shape[:-2], Wt_Dinv_diff.shape[:-1])
+        r = Ct.shape[-1]
+        y = torch.linalg.solve_triangular(
+            Ct.expand(batch + (r, r)), Wt_Dinv_diff.expand(batch + (r,)).unsqueeze(-1), upper=False
+        ).squeeze(-1)
+        mahalanobis = (diff * Dinv_diff).sum(-1) - (y**2).sum(-1)
+        log_det = self.cov_diag.log().sum(-1) + 2 * Ct.diagonal(dim1=-2, dim2=-1).log().sum(-1)
+        return -0.5 * (self.event_shape[0] * math.log(2 * math.pi) + log_det + mahalanobis)
+
+    @property
+    def mean(self):
+        return self.loc
+
+    @property
+    def variance(self):
+        return (self.cov_factor**2).sum(-1) + self.cov_diag
+
+    @lazy_property
+    def covariance_matrix(self):
+        W = self.cov_factor
+        return W @ W.transpose(-1, -2) + torch.diag_embed(self.cov_diag)
+
+    def expand(self, batch_shape, _instance=None):
+        batch_shape = tuple(batch_shape)
+        n, r = self.cov_factor.shape[-2:]
+        return LowRankMultivariateNormal(
+            self.loc.expand(batch_shape + (n,)), self.cov_factor.expand(batch_shape + (n, r)),
+            self.cov_diag.expand(batch_shape + (n,)),
         )

@@ -1,7 +1,8 @@
 """Bijective transforms and the ``biject_to``/``transform_to`` registries
 (the part of ``pyro_tpu/distributions/transforms.py`` this package uses).
 The param store keeps unconstrained values and maps them through
-``transform_to(constraint)`` on access."""
+``transform_to(constraint)`` on access; autoguides and
+``TransformedDistribution`` push draws through them."""
 
 from __future__ import annotations
 
@@ -42,8 +43,59 @@ class Transform:
     def inverse_shape(self, shape):
         return tuple(shape)
 
+    def with_cache(self, cache_size=1):
+        """A view that remembers its last ``(x, y)``, so a value it produced
+        is inverted by lookup (a flow scored at its own draw needs no
+        inverse pass)."""
+        return self if cache_size == 0 else _CachedTransform(self)
+
     def __repr__(self):
         return self.__class__.__name__ + "()"
+
+
+class _CachedTransform(Transform):
+    """``base`` with the last ``(x, y)`` pair remembered by identity: the
+    inverse of the very ``y`` it returned is the ``x`` it was given."""
+
+    def __init__(self, base: Transform):
+        self._base = base
+        self._cached_x_y = None
+
+    @property
+    def domain(self):  # type: ignore[override]
+        return self._base.domain
+
+    @property
+    def codomain(self):  # type: ignore[override]
+        return self._base.codomain
+
+    def __call__(self, x):
+        cached = self._cached_x_y
+        if cached is not None and cached[0] is x:
+            return cached[1]
+        y = self._base(x)
+        self._cached_x_y = (x, y)
+        return y
+
+    def _inverse(self, y):
+        cached = self._cached_x_y
+        if cached is not None and cached[1] is y:
+            return cached[0]
+        x = self._base._inverse(y)
+        self._cached_x_y = (x, y)
+        return x
+
+    def log_abs_det_jacobian(self, x, y):
+        return self._base.log_abs_det_jacobian(x, y)
+
+    def forward_shape(self, shape):
+        return self._base.forward_shape(shape)
+
+    def inverse_shape(self, shape):
+        return self._base.inverse_shape(shape)
+
+    def __repr__(self):
+        return f"Cached({self._base!r})"
 
 
 class _InverseTransform(Transform):
@@ -132,6 +184,57 @@ class ExpTransform(Transform):
 
     def log_abs_det_jacobian(self, x, y):
         return x
+
+
+class SoftplusTransform(Transform):
+    codomain = constraints.softplus_positive
+
+    def __call__(self, x):
+        return F.softplus(x)
+
+    def _inverse(self, y):
+        return y + torch.log(-torch.expm1(-y))  # log(exp(y) - 1)
+
+    def log_abs_det_jacobian(self, x, y):
+        return -F.softplus(-x)
+
+
+class LowerCholeskyTransform(Transform):
+    """Unconstrained matrices to lower Cholesky factors: the strict lower
+    triangle kept, the diagonal through exp."""
+
+    domain = constraints.independent(constraints.real, 2)
+    codomain = constraints.lower_cholesky
+
+    def _diag(self, d):
+        return torch.exp(d)
+
+    def _diag_inverse(self, d):
+        return torch.log(d)
+
+    def __call__(self, x):
+        return x.tril(-1) + torch.diag_embed(self._diag(x.diagonal(dim1=-2, dim2=-1)))
+
+    def _inverse(self, y):
+        return y.tril(-1) + torch.diag_embed(self._diag_inverse(y.diagonal(dim1=-2, dim2=-1)))
+
+    def log_abs_det_jacobian(self, x, y):
+        return x.diagonal(dim1=-2, dim2=-1).sum(-1)
+
+
+class SoftplusLowerCholeskyTransform(LowerCholeskyTransform):
+    """As ``LowerCholeskyTransform``, the diagonal through softplus."""
+
+    codomain = constraints.softplus_lower_cholesky
+
+    def _diag(self, d):
+        return F.softplus(d)
+
+    def _diag_inverse(self, d):
+        return d + torch.log(-torch.expm1(-d))
+
+    def log_abs_det_jacobian(self, x, y):
+        return -F.softplus(-x.diagonal(dim1=-2, dim2=-1)).sum(-1)
 
 
 class SigmoidTransform(Transform):
@@ -239,6 +342,24 @@ def _biject_to_independent(constraint):
 @transform_to.register(constraints.positive)
 def _transform_to_positive(constraint):
     return ExpTransform()
+
+
+@biject_to.register(constraints.softplus_positive)
+@transform_to.register(constraints.softplus_positive)
+def _transform_to_softplus_positive(constraint):
+    return SoftplusTransform()
+
+
+@biject_to.register(constraints.lower_cholesky)
+@transform_to.register(constraints.lower_cholesky)
+def _transform_to_lower_cholesky(constraint):
+    return LowerCholeskyTransform()
+
+
+@biject_to.register(constraints.softplus_lower_cholesky)
+@transform_to.register(constraints.softplus_lower_cholesky)
+def _transform_to_softplus_lower_cholesky(constraint):
+    return SoftplusLowerCholeskyTransform()
 
 
 @biject_to.register(constraints.unit_interval)

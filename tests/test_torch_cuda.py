@@ -25,7 +25,9 @@ the float64 plain version within 1e-4 times the largest entry of each
 output; GaussianHMM on the card against
 the port's float64 CPU run, log_prob rtol 1e-4 with atol 1e-3, the
 filter's mean and the posterior mean rtol and atol 1e-3; a training step's
-loss rtol 1e-5 and gradients within 1e-3 times their largest entry.  K5,
+loss rtol 1e-5 and gradients within 1e-3 times their largest entry (also
+an IndependentMaternGP step at the EEG shape, 14 channels of 14,980 steps,
+with K4a and K4b held at the GP models' state dims n = 1, 2 and 28).  K5,
 the gamma-Gaussian levels, as K4, with alpha' exact; GammaGaussianHMM on the
 card against the port's float64 CPU run, log_prob rtol 1e-4 with atol 1e-3,
 the filter's Gamma rtol 1e-4 and its mean and covariance rtol and atol
@@ -1436,3 +1438,113 @@ def test_pairwise_fallback_on_the_card(cuda, case):
     assert sorted(g32) == sorted(g64)
     for k in g64:
         torch.testing.assert_close(g32[k], g64[k], rtol=1e-4, atol=1e-5 * float(g64[k].abs().max()))
+
+
+# -- the GP time series' state dims: n of 1 and 2 (IndependentMaternGP at nu 0.5
+# and 1.5) and 28 (DependentMaternGP at 14 channels) ----------------------------------
+
+GP_DIMS = [1, 2, 28]
+
+
+@pytest.mark.parametrize("n", GP_DIMS)
+def test_k4a_forward_and_backward_at_the_gp_state_dims(cuda, n):
+    """K4a with its tape, then its backward from that tape, against the
+    plain versions at 14 rows of 749 pairs (DependentMaternGP's chain of
+    14,980 steps is one row of 7490 pairs at its first level)."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    R, m = 14, 749
+    gen = torch.Generator(device="cuda").manual_seed(100 + n)
+    P = _spd(gen, (), 2 * n, cuda)
+    info = torch.randn(R, 2 * m, 2 * n, generator=gen, device=cuda)
+    logZ = torch.randn(R, 2 * m, generator=gen, device=cuda)
+    out_k = gl.halving_level(P, info, logZ, tape=True)
+    out_p = gl.halving_level_plain(P, info, logZ, tape=True)
+    for a, b in zip(out_k, out_p):
+        _assert_near(a, b)
+    _, _, _, L, ib = out_k
+    grads = (torch.randn(2 * n, 2 * n, generator=gen, device=cuda), torch.randn(R, m, 2 * n, generator=gen, device=cuda),
+             torch.randn(R, m, generator=gen, device=cuda))
+    before = gl.launches["halving_bwd"]
+    back_k = gl._halving_bwd_cuda(P, L, ib, *grads)
+    back_p = gl.halving_level_bwd_plain(P, L, ib, *grads)
+    torch.cuda.synchronize()
+    assert gl.launches["halving_bwd"] == before + 1
+    _assert_near(_sym(back_k[0]), _sym(back_p[0]))
+    for a, b in zip(back_k[1:], back_p[1:]):
+        _assert_near(a, b)
+
+
+@pytest.mark.parametrize("n", GP_DIMS)
+def test_k4b_forward_and_backward_at_the_gp_state_dims(cuda, n):
+    """K4b at IndependentMaternGP's layout, 14 channels each with one
+    precision read with stride 0 over an odd 7491 steps, with its tape, then
+    its backward from that tape, against the plain versions."""
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    R, t = 14, 7491
+    gen = torch.Generator(device="cuda").manual_seed(200 + n)
+    P, info, logZ = _contract_inputs(gen, R, t, n, "stride0_time", cuda)
+    before = gl.launches["contract"]
+    *out_k, tape = gl.contract_pairs(P, info, logZ, tape=True)
+    *out_p, _ = gl.contract_pairs_plain(P, info, logZ, tape=True)
+    assert gl.launches["contract"] == before + 1
+    for a, b in zip(out_k, out_p):
+        _assert_near(a, b)
+    t_out = t - t // 2
+    grads = (torch.randn(R, t_out, 2 * n, 2 * n, generator=gen, device=cuda),
+             torch.randn(R, t_out, 2 * n, generator=gen, device=cuda), torch.randn(R, t_out, generator=gen, device=cuda))
+    back_k = gl._contract_bwd_cuda(t, *tape, *grads)
+    back_p = gl.contract_pairs_bwd_plain(t, *tape, *grads)
+    torch.cuda.synchronize()
+    _assert_near(_sym(back_k[0]), _sym(back_p[0]))
+    for a, b in zip(back_k[1:], back_p[1:]):
+        _assert_near(a, b)
+
+
+def test_independent_matern_gp_step_at_the_eeg_shape(cuda):
+    """One maximum-likelihood step of IndependentMaternGP (nu 1.5) on the
+    synthetic series of the EEG shape (14 channels, 14,980 steps) through
+    K4b and its backward, against the port's float64 CPU run: loss rtol
+    1e-5, each gradient within 1e-3 times its largest entry."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.examples import timeseries_gp as example
+    from pyro_tpu_torch.infer import Trace_ELBO
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    series = example.synthetic_series(0, 14_980, 14)
+    out = []
+    pyro.clear_param_store()
+    try:
+        for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            pyro.set_default_device(device)
+            pyro.clear_param_store()
+            gp = example.make_gp("imgp", "eeg", name="gp")
+            if dtype == torch.float64:
+                from pyro_tpu_torch.params import param_store_from_jax
+
+                gp.get_dist()
+                param_store_from_jax({k: v.astype(np.float64) for k, v in init.items()})
+            else:
+                gp.get_dist()
+                init = {k: pyro.get_param_store()[k].detach().cpu().numpy()
+                        for k in pyro.get_param_store().get_all_unconstrained()}
+            gl.reset_counts()
+            with poutine.trace(param_only=True) as capture:
+                loss = Trace_ELBO().differentiable_loss(example.make_model(gp), lambda *a: None,
+                                                        torch.tensor(series, dtype=dtype, device=device))
+            loss.backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert gl.launches["contract"] > 0 and gl.launches["contract_bwd"] > 0, dict(gl.launches)
+            store = pyro.get_param_store()
+            out.append((float(loss.detach()), {k: store.get_unconstrained(k).grad.detach().double().cpu()
+                                               for k in capture.trace.param_nodes()}))
+    finally:
+        pyro.clear_param_store()
+        pyro.set_default_device("cuda")
+    (loss32, g32), (loss64, g64) = out
+    assert loss32 == pytest.approx(loss64, rel=1e-5)
+    for k in g64:
+        torch.testing.assert_close(g32[k], g64[k], rtol=0, atol=1e-3 * float(g64[k].abs().max()))

@@ -23,8 +23,10 @@ and within what:
     batch 2, T=37, hidden 3, obs 2 against its JAX twin built from the JAX
     package's public API: loss rtol 1e-5, gradients within 1e-4 * max|grad|;
 (e) ``factor`` and ``Unit``, and ``Parameterized.set_prior`` with the Delta
-    guide, against the JAX package: densities rtol 1e-6, ELBO rtol 1e-5,
-    gradients within 1e-5 * max|grad|.
+    and the "Normal" guide, against the JAX package: densities rtol 1e-6,
+    ELBO rtol 1e-5, gradients within 1e-5 * max|grad|; the "Normal"
+    guide's errors (a discrete prior, an unknown parameter) as the JAX
+    package's.
 
 The JAX side runs under ``jax.jit`` where it is more than a few ops (its
 eager ops compile one by one).
@@ -40,6 +42,7 @@ import pyro_tpu as jpyro
 import pyro_tpu.distributions as jdist
 import pyro_tpu_torch as pyro
 import pyro_tpu_torch.distributions as tdist
+from pyro_tpu import poutine as jpoutine
 from pyro_tpu.contrib.gp.parameterized import Parameterized as JParameterized
 from pyro_tpu.contrib.timeseries import GenericLGSSM as JGenericLGSSM
 from pyro_tpu.distributions import constraints as jconstraints
@@ -448,11 +451,64 @@ def test_parameterized_set_prior_with_delta_guide_matches_jax():
 
 
 def test_parameterized_normal_autoguide_raises():
-    m = _TScaled()
-    m.set_prior("scale", tdist.HalfCauchy(torch.ones(3)).to_event(1))
-    m.autoguide("scale", "Normal")
-    m.set_mode("guide")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        poutine.trace(lambda: m.scale).get_trace()
+    """The errors the "Normal" per-site guide keeps, as the JAX package's:
+    a prior with a discrete support has no bijection to draw through
+    (NotImplementedError in both packages), and a prior for an unknown
+    parameter is a KeyError."""
+    tm, jm = _TScaled(), _JScaled()
+    tm.set_prior("scale", tdist.Bernoulli(torch.full((3,), 0.5)).to_event(1))
+    jm.set_prior("scale", jdist.Bernoulli(jnp.full((3,), 0.5)).to_event(1))
+    for m, poutine_mod in ((tm, poutine), (jm, jpoutine)):
+        m.autoguide("scale", "Normal")
+        m.set_mode("guide")
+        with pytest.raises(NotImplementedError):
+            poutine_mod.trace(lambda: m.scale).get_trace()  # noqa: B023
     with pytest.raises(KeyError):
-        m.set_prior("not_a_param", tdist.HalfCauchy(torch.ones(3)))
+        tm.set_prior("not_a_param", tdist.HalfCauchy(torch.ones(3)))
+
+
+def test_parameterized_normal_autoguide_matches_jax():
+    """The "Normal" per-site guide against the JAX package's (it raised
+    before the port had ``TransformedDistribution``).  At one fixed value of the site, -ELBO
+    = log q(scale) - log p(data, scale) (the guide conditioned there, the
+    model conditioned on it: the JAX replay refuses a conditioned guide
+    site) rtol 1e-5, gradients within 1e-5 * max|grad|."""
+    fixed = np.array([1.2, 0.6, 2.5], np.float32)
+    tm, jm = _TScaled(), _JScaled()
+    tm.set_prior("scale", tdist.HalfCauchy(torch.ones(3)).to_event(1))
+    jm.set_prior("scale", jdist.HalfCauchy(jnp.ones(3)).to_event(1))
+    tm.autoguide("scale", "Normal")
+    jm.autoguide("scale", "Normal")
+    tmodel, tguide = _scaled_model_and_guide(tm, pyro, tdist)
+    jmodel, jguide = _scaled_model_and_guide(jm, jpyro, jdist)
+
+    def loss_at(poutine_mod, model, guide, value, data):
+        guide_trace = poutine_mod.trace(poutine_mod.condition(guide, data={"Scaled.scale": value})).get_trace(data)
+        model_trace = poutine_mod.trace(poutine_mod.condition(model, data={"Scaled.scale": value})).get_trace(data)
+        return guide_trace.log_prob_sum() - model_trace.log_prob_sum()
+
+    data_j = jnp.asarray(SCALED_DATA)
+    JTrace_ELBO().loss(jmodel, jguide, data_j, rng_key=jax.random.key(0))  # registers the params
+    jstore = jpyro.get_param_store()
+    assert sorted(jstore.keys()) == ["Scaled.loc", "Scaled.scale_map", "Scaled.scale_scale"]
+
+    def loss_fn(p):
+        with ParamsMessenger(p):
+            return loss_at(jpoutine, jmodel, jguide, jnp.asarray(fixed), data_j)
+
+    loss_j, grads_j = jax.jit(jax.value_and_grad(loss_fn))(jstore.get_all_unconstrained())
+
+    data_t = torch.tensor(SCALED_DATA)
+    Trace_ELBO().loss(tmodel, tguide, data_t)  # registers the params; the guide draws through the transform
+    guide_trace = poutine.trace(tguide).get_trace(data_t)
+    site = guide_trace.nodes["Scaled.scale"]
+    assert isinstance(site["fn"], tdist.TransformedDistribution) and bool((site["value"] > 0).all())
+    param_store_from_jax({k: np.asarray(v) for k, v in jstore.items()})
+    with poutine.trace(param_only=True) as capture:
+        loss_t = loss_at(poutine, tmodel, tguide, torch.tensor(fixed), data_t)
+    loss_t.backward()
+    store = pyro.get_param_store()
+    assert sorted(capture.trace.param_nodes()) == ["Scaled.loc", "Scaled.scale_map", "Scaled.scale_scale"]
+    assert float(loss_t.detach()) == pytest.approx(float(loss_j), rel=1e-5)
+    for name, expected in grads_j.items():
+        _near(store.get_unconstrained(name).grad.numpy(), expected, scale=1e-5, atol=0)
