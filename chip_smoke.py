@@ -221,7 +221,27 @@ Phases (any failure exits non-zero):
      finite losses, K4b launched each way, every parameter and draw on the
      card, -ELBO at one latent value against the port's CPU run, ``median``
      and ``quantiles`` on the card;
-  20. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+  20. slice 18, NUTS through the kernels (the card's name and power limit
+     on the phase's first line): model_1 at ``20.32.51.16``
+     (``synthetic_sequences`` seed 0), its hidden states summed out of the
+     MCMC potential: the vmapped potential and gradient of 8 chains at
+     fixed unconstrained points (numpy seed 0) against the port's CPU run
+     in float64 (and in float32, the rounding reference), exactly 9 K1
+     launches each way, each against the plain version at its folded
+     operands; NUTS with 8 chains (``max_tree_depth`` 6, printed as a cut;
+     a probe and the time of a full-depth tree set the iteration counts
+     toward 60 s), the leaf captured, finite draws on their supports, ESS
+     and split r_hat, iterations/s, ESS/s, a replayed leaf's ms beside one
+     eager potential-and-gradient call, one profiled replay (busy share,
+     K1's device ms and launches by kernel name: 9 forward and 9 backward),
+     the graphed leaf against the eager leaf over a depth-3 subtree; then
+     model_1v (the chain under ``vectorized_markov``) through K2 the same
+     way (its potential against float64, one K2 launch each way, each
+     against the plain scan at the folded rows, 2 + 2 NUTS iterations with
+     the leaf captured); and ``vmap(grad(GaussianHMM.log_prob))`` at the
+     ``lgssm`` shape over 4 chains' parameters through K4b against the
+     plain levels in float64 on the card;
+  21. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
      backward on each route, K4a-c, K4a and K4b backward, K2g forward and
      backward on each route, K5a and K5b), the card's name and power
      limit, then the result line.
@@ -292,7 +312,15 @@ the first step's loss rtol 1e-5 against float64, each gradient within 1e-3
 times its largest entry of float64's (as a training step's above); the
 draw's channel 0-1 correlation above 0.4 with the coupled factor and within
 0.25 of 0 without (as the JAX package's test); the guides' -ELBO at one
-latent value rtol 1e-5 against the CPU run.  Without a CUDA
+latent value rtol 1e-5 against the CPU run.  NUTS through the kernels: the
+card's potential and gradient no further from float64 than three times
+the CPU's own float32 run, plus 1e-6 of the largest (float32 rounds
+model_1's log Z, about 2.7e4 over 8 chains, at a few 1e-3); K1 inside the
+call atol 1e-4 plus 1e-6 of its largest log value forward (two ulps at
+1e2), its gradients and K2's as K1's and the main path's K2's above; the
+graphed subtree within 1e-5 of each field's largest entry of the eager
+one; the vmapped ``lgssm`` log_prob and gradients as a training step's
+above.  Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result.
 """
@@ -3263,6 +3291,386 @@ def phase_gp(torch, gl, smi):
     return out
 
 
+# -- slice 18: NUTS with the enumerated potential -----------------------------------
+
+NE_CHAINS = 8  # chains of NUTS on model_1 and model_1v at 20.32.51.16
+NE_ITERS, NE_MIN, NE_PROBE, NE_BUDGET_S = 150, 10, 3, 60.0  # warmup and samples each; probe iterations; seconds
+# NUTS's tree depth in phase 20, cut from the default 10: early-warmup trees
+# of model_1 ran to the full depth, 900 leaves an iteration of 8.7 ms each
+NE_TREE_DEPTH = 6
+NE_1V_ITERS = 2  # model_1v's warmup and samples, each
+NE_F32_FACTOR = 3.0  # the card's potential and gradient against float64: at most this times the CPU's float32 run's
+NE_LGSSM_CHAINS = 4
+
+
+@contextlib.contextmanager
+def record_calls(module, names):
+    """Within the block, every call of ``module.<name>`` for each name:
+    {name: [(args, result), ...]}."""
+    calls = {name: [] for name in names}
+    saved = {name: getattr(module, name) for name in names}
+
+    def recorder(name, fn):
+        def call(*args):
+            out = fn(*args)
+            calls[name].append((args, out))
+            return out
+        return call
+
+    for name in names:
+        setattr(module, name, recorder(name, saved[name]))
+    try:
+        yield calls
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+def _flat_potential(torch, model, model_args, nesting, device):
+    """The vmapped potential and gradient of ``model`` over flat unconstrained
+    vectors (C, D) on ``device``."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.infer.mcmc.util import _ravel_fns, batched_potential_and_grad, get_potential_fn
+
+    pyro.set_default_device(device)
+    potential, _, transforms, proto, _ = get_potential_fn(
+        model, model_args, generator=torch.Generator(device=device).manual_seed(0), max_plate_nesting=nesting)
+    ravel, unravel = _ravel_fns({k: t.inv(proto.nodes[k]["value"]) for k, t in transforms.items()})
+    return batched_potential_and_grad(lambda f: potential(unravel(f)))
+
+
+def _potential_against_cpu(torch, label, model, model_args, nesting, z):
+    """The card's vmapped potential and gradient at ``z`` (C, D) against the
+    port's CPU run in float64 (and in float32, the rounding reference);
+    returns the card's (pe, grad)."""
+    import pyro_tpu_torch as pyro
+
+    card_pg = _flat_potential(torch, model, model_args, nesting, "cuda")
+    pe, grad = card_pg(z)
+    torch.cuda.synchronize()
+    cpu = {}
+    try:
+        for dtype in (torch.float64, torch.float32):
+            with default_dtype(torch, dtype):
+                cpu_args = tuple(a.cpu() if isinstance(a, torch.Tensor) else a for a in model_args)
+                cpu_pg = _flat_potential(torch, model, cpu_args, nesting, "cpu")
+                cpu[dtype] = cpu_pg(z.cpu().to(dtype))
+    finally:
+        pyro.set_default_device("cuda")
+    (pe64, g64), (pe32c, g32c) = cpu[torch.float64], cpu[torch.float32]
+    pe_err = float((pe.double().cpu() - pe64).abs().max())
+    pe_ref = float((pe32c.double() - pe64).abs().max())
+    g_err = float((grad.double().cpu() - g64).abs().max())
+    g_ref = float((g32c.double() - g64).abs().max())
+    g_scale = float(g64.abs().max())
+    print(f"  {label}: potential {float(pe64.abs().max()):.1f} at most; card {pe_err:.3g} from float64 "
+          f"(the CPU's float32 run {pe_ref:.3g}); gradient (max {g_scale:.1f}) {g_err:.3g} from float64 (CPU float32 "
+          f"{g_ref:.3g})")
+    check(pe_err <= NE_F32_FACTOR * pe_ref + 1e-6 * float(pe64.abs().max()),
+          f"{label}: the card's potential is {pe_err} from float64, over {NE_F32_FACTOR} x the CPU float32's {pe_ref}")
+    check(g_err <= NE_F32_FACTOR * g_ref + 1e-6 * g_scale,
+          f"{label}: the card's gradient is {g_err} from float64, over {NE_F32_FACTOR} x the CPU float32's {g_ref}")
+    return pe, grad
+
+
+def _check_k1_calls(torch, lm, calls):
+    """Each K1 launch recorded inside the vmapped call against the plain
+    version at the same (folded) operands."""
+    worst_f, worst_b, shapes = 0.0, 0.0, set()
+    for (x, y), (out, _, _) in calls["_forward_cuda"]:
+        shapes.add((tuple(x.shape), tuple(y.shape)))
+        want = lm._logmatmulexp_raw(x, y)
+        err = max_err(out, want)
+        worst_f = max(worst_f, err)
+        # float32 rounds a log value v at 6e-8 |v|: atol 1e-4 plus 1e-6 of the largest
+        check(err <= 1e-4 + 1e-6 * float(want.abs().max()),
+              f"K1 forward inside the vmapped potential at {tuple(x.shape)} @ {tuple(y.shape)}: {err}")
+    for (x, y, out, xs, ys, g), (dx, dy) in calls["_backward_cuda"]:
+        for got, want, name in zip((dx, dy), lm._logmatmulexp_bwd(x, y, out, g), ("dx", "dy")):
+            scale = float(want.abs().max())
+            err = float((got - want).abs().max())
+            worst_b = max(worst_b, err / (scale + 1e-30))
+            check(bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5 * scale)),
+                  f"K1 backward {name} inside the vmapped potential at {tuple(x.shape)}: {err} (max {scale})")
+    print(f"  K1 inside the vmapped call: {len(calls['_forward_cuda'])} forward and {len(calls['_backward_cuda'])} "
+          f"backward launches, operands {sorted(shapes)}; against the plain version: forward max abs err "
+          f"{worst_f:.3g}, backward {worst_b:.3g} of max|grad|")
+    return worst_f
+
+
+def _check_k2_calls(torch, ms, calls):
+    """Each K2 launch recorded inside the vmapped call against the plain
+    version at the same (folded) operands: the forward, and the gradients
+    of all its inputs by autograd of the plain scan."""
+    worst_f, worst_b = 0.0, 0.0
+    for (alpha0, A, R, L, plan), (out, _) in calls["_forward_cuda"]:
+        want = ms.markov_scan_plain(alpha0, A, R, L)
+        err = float((out - want).abs().max())
+        worst_f = max(worst_f, err)
+        check(err <= 1e-4 + 1e-6 * float(want.abs().max()), f"K2 forward inside the vmapped potential: {err}")
+        print(f"    K2 forward at B={alpha0.shape[0]} (folded chains), S={alpha0.shape[1]}, T'={R.shape[0]}, "
+              f"A {tuple(A.shape)}")
+    for (A, L, saved, g), grads in calls["_backward_cuda"]:
+        fwd = next(args for args, (_, s) in calls["_forward_cuda"] if s[1].data_ptr() == saved[1].data_ptr())
+        leaves = [t.detach().requires_grad_() for t in fwd[:3]] + ([fwd[3].detach().requires_grad_()]
+                                                                      if fwd[3] is not None else [])
+        with torch.enable_grad():
+            out = ms.markov_scan_plain(*leaves[:3], leaves[3] if len(leaves) > 3 else None)
+            want = torch.autograd.grad(out, leaves, g)
+        for got, w, name in zip(grads, want, ("dalpha0", "dA", "dR", "dL")):
+            scale = float(w.abs().max())
+            err = float((got - w).abs().max())
+            worst_b = max(worst_b, err / (scale + 1e-30))
+            check(bool(torch.allclose(got, w, rtol=1e-3, atol=1e-4 * scale)),
+                  f"K2 backward {name} inside the vmapped potential: {err} (max {scale})")
+    print(f"  K2 inside the vmapped call: {len(calls['_forward_cuda'])} forward and {len(calls['_backward_cuda'])} "
+          f"backward launches; against the plain version: forward max abs err {worst_f:.3g}, backward "
+          f"{worst_b:.3g} of max|grad|")
+    return worst_f
+
+
+def lgssm_log_prob(dist, targets, trans_matrix, obs_matrix, log_trans_var, log_obs_scale, log_init_var):
+    """``GenericLGSSM.get_dist(T).log_prob(targets)`` as a function of its
+    parameters (the positive ones by their logs)."""
+    import torch
+
+    n = trans_matrix.shape[-1]
+    zeros = trans_matrix.new_zeros(n)
+    init = dist.MultivariateNormal(zeros, covariance_matrix=torch.diag(log_init_var.exp()))
+    trans = dist.MultivariateNormal(zeros[None], covariance_matrix=torch.diag(log_trans_var.exp())[None])
+    obs_scale = log_obs_scale.exp()
+    obs = dist.Normal(obs_scale.new_zeros(obs_scale.shape)[None], obs_scale[None]).to_event(1)
+    hmm = dist.GaussianHMM(init, trans_matrix[None], trans, obs_matrix[None], obs, duration=targets.shape[0])
+    return hmm.log_prob(targets)
+
+
+def _lgssm_vmap_grad(torch, gl):
+    """vmap(grad(GaussianHMM.log_prob)) at the lgssm shape (obs 4, state 16,
+    T=4000; K4b) over 4 chains' parameters, through the kernels in float32
+    against the plain levels in float64 on the card."""
+    import numpy as np
+
+    import pyro_tpu_torch.distributions as dist
+    from pyro_tpu_torch.examples import lgssm
+
+    rng = np.random.default_rng(0)
+    C, n, m = NE_LGSSM_CHAINS, lgssm.STATE_DIM, lgssm.OBS_DIM
+    params = [np.eye(n) + 0.03 * rng.standard_normal((C, n, n)), 0.3 * rng.standard_normal((C, n, m)),
+              np.log(0.1) + 0.1 * rng.standard_normal((C, n)), np.log(0.2) + 0.1 * rng.standard_normal((C, m)),
+              0.1 * rng.standard_normal((C, n))]
+    fn = torch.func.vmap(torch.func.grad_and_value(
+        lambda *p, targets: lgssm_log_prob(dist, targets, *p), argnums=(0, 1, 2, 3, 4)))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        targets = lgssm.make_targets(0, dtype)
+        args = [torch.tensor(p, dtype=dtype, device="cuda") for p in params]
+        gl.reset_counts()
+        if dtype == torch.float32:
+            grads, lp = fn(*args, targets=targets)
+            torch.cuda.synchronize()
+            launches = dict(gl.launches)
+        else:
+            with plain_levels(gl):
+                grads, lp = fn(*args, targets=targets)
+        out[dtype] = (lp, grads)
+    (lp32, g32), (lp64, g64) = out[torch.float32], out[torch.float64]
+    lp_err = float((lp32.double() - lp64).abs().max() / lp64.abs().max())
+    print(f"  vmap(grad(GaussianHMM.log_prob)) at the lgssm shape, {C} chains, T={lgssm.make_targets(0).shape[0]}: "
+          f"log_prob {[round(float(v), 3) for v in lp64]}, rel err {lp_err:.3g}; K4 launches {launches}")
+    check(lp_err <= TRAIN_LOSS_RTOL, f"lgssm vmapped log_prob rel err {lp_err} against float64")
+    names = ("trans_matrix", "obs_matrix", "log_trans_var", "log_obs_scale", "log_init_var")
+    for name, a, b in zip(names, g32, g64):
+        scale = float(b.abs().max())
+        err = float((a.double() - b).abs().max())
+        print(f"    d/d{name}: {err:.3g} of max {scale:.3g}")
+        check(err <= TRAIN_GRAD_TOL * scale, f"lgssm vmapped gradient {name}: {err} over {TRAIN_GRAD_TOL} x {scale}")
+    check(launches["contract"] > 0 and launches["contract_bwd"] == launches["contract"],
+          f"K4b under vmap(grad): launches {launches}")
+
+
+def phase_nuts_enum(torch, lm, ms, gl, smi):
+    """Phase 20: NUTS over model_1's enumerated potential (K1 inside the
+    captured leaf), model_1v's (K2), and vmap(grad) through K4b."""
+    print(f"phase 20: NUTS with the enumerated potential, model_1 at {M1_B}.{M1_T}.{D}.{M1_S}, {NE_CHAINS} chains "
+          f"({smi})")
+    import numpy as np
+
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import hmm as example
+    from pyro_tpu_torch.infer import MCMC, NUTS
+    from pyro_tpu_torch.infer.mcmc.nuts import _Leaves
+    from pyro_tpu_torch.ops.stats import effective_sample_size, split_gelman_rubin
+
+    pyro.set_default_device("cuda")
+    args = example.parse_args(["--model", "1", "--hidden-dim", str(M1_S), "--num-sequences", str(M1_B),
+                               "--max-length", str(M1_T), "--data-dim", str(D)])
+    sequences, lengths = example.synthetic_sequences(0, M1_B, M1_T, D)
+    model_args = (sequences, lengths, args)
+    dims = M1_S * (M1_S - 1) + M1_S * D
+    z = torch.tensor(np.random.default_rng(0).uniform(-1.5, 1.5, (NE_CHAINS, dims)).astype(np.float32),
+                     device="cuda")
+
+    # the vmapped potential and gradient at fixed points, with K1 inside it
+    lm.launches.update(forward=0, backward=0)
+    with record_calls(lm, ("_forward_cuda", "_backward_cuda")) as calls:
+        _potential_against_cpu(torch, "model_1 potential", example.model_1, model_args, 2, z)
+    counts = dict(lm.launches)
+    print(f"  K1 launches in one vmapped potential-and-gradient call of {NE_CHAINS} chains: {counts}")
+    check(counts == {"forward": 9, "backward": 9}, f"model_1's vmapped potential launched K1 {counts}, not 9 + 9")
+    _check_k1_calls(torch, lm, calls)
+
+    # NUTS: a probe sets the iteration counts
+    class TimedNUTS(NUTS):
+        def sample_step(self, state, generator):
+            if state.i == self._num_warmup:
+                torch.cuda.synchronize()
+                self.warmup_end = time.perf_counter()
+            return super().sample_step(state, generator)
+
+    generator = torch.Generator(device="cuda").manual_seed(0)
+    print(f"  CUT: max_tree_depth {NE_TREE_DEPTH} instead of 10 (trees of the default depth ran 900 leaves an "
+          f"iteration early in warmup)")
+    probe = NUTS(example.model_1, max_plate_nesting=2, max_tree_depth=NE_TREE_DEPTH)
+    t0 = time.perf_counter()
+    MCMC(probe, num_samples=1, warmup_steps=NE_PROBE, num_chains=NE_CHAINS).run(*model_args, generator=generator)
+    torch.cuda.synchronize()
+    per_iter = (time.perf_counter() - t0) / (NE_PROBE + 1)
+    b = next(iter(probe._leaf_buffers.values()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        b.graph.replay()
+    torch.cuda.synchronize()
+    full_tree_s = (2 ** NE_TREE_DEPTH) * (time.perf_counter() - t0) / 5
+    # the probe's early trees are shallow (and its first iteration holds the
+    # set-up and the capture); a later tree may run to the full depth, with
+    # the host's work between leaves (some 20% more on the first runs)
+    n = max(NE_MIN, min(NE_ITERS, int(NE_BUDGET_S / (2 * 1.2 * full_tree_s))))
+    print(f"  probe: {NE_PROBE + 1} iterations (with the set-up and the leaf's capture) at {per_iter:.3f} s each, "
+          f"{probe.counts['leapfrogs'] / (NE_PROBE + 1):.1f} leaves each; a tree of the full depth {full_tree_s:.3f} s")
+    if n < NE_ITERS:
+        print(f"  CUT: {n} warmup iterations and {n} samples instead of {NE_ITERS} and {NE_ITERS}, to stay near "
+              f"{NE_BUDGET_S} s")
+    kernel = TimedNUTS(example.model_1, max_plate_nesting=2, max_tree_depth=NE_TREE_DEPTH)
+    mcmc = MCMC(kernel, num_samples=n, warmup_steps=n, num_chains=NE_CHAINS)
+    lm.launches.update(forward=0, backward=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcmc.run(*model_args, generator=generator)
+    samples = mcmc.get_samples(group_by_chain=True)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    run_launches = dict(lm.launches)
+    run_s, sample_s = t1 - t0, t1 - kernel.warmup_end
+    leaves = kernel.counts["leapfrogs"]
+    check(all(b.graph is not None for b in kernel._leaf_buffers.values()), "the NUTS leaf was not captured")
+    check(run_launches["forward"] > 0 and run_launches["backward"] > 0, f"K1 not launched by the run: {run_launches}")
+    print(f"  K1 launches over the run (the wrapper counts a graph's capture, not its replays): {run_launches}")
+    total_ess, counted = 0.0, 0
+    for site, v in samples.items():
+        check(bool(torch.isfinite(v).all()), f"non-finite draws of {site}")
+        flat = v.reshape(v.shape[:2] + (-1,))
+        # an entry that one chain never changed (a probability clamped at the
+        # float32 floor) has no autocorrelation there: its ESS is NaN
+        varied = (flat.std(1) > 0).all(0)
+        ess = effective_sample_size(flat[..., varied])
+        r_hat = split_gelman_rubin(flat[..., varied])
+        total_ess += float(ess.sum())
+        counted += int(varied.sum())
+        print(f"  {site} {tuple(v.shape[2:])}: {int(varied.sum())} of {flat.shape[-1]} entries varied in every "
+              f"chain: ESS min {float(ess.min()):.1f} median {float(ess.median()):.1f}, split r_hat max "
+              f"{float(r_hat.max()):.3f} median {float(r_hat.median()):.3f} (the chains may settle in different "
+              f"labellings of the hidden states)")
+    check(bool(((samples["probs_x"].sum(-1) - 1).abs() < 1e-4).all()), "probs_x off the simplex")
+    accept = float(mcmc._diagnostics_extra["accept_prob"].mean())
+    print(f"  {n} + {n} iterations in {run_s:.2f} s ({2 * n / run_s:.2f} iterations/s; sampling {sample_s:.2f} s), "
+          f"{leaves} leaves ({leaves / (2 * n):.1f} an iteration), mean accept probability after warmup {accept:.3f}")
+    print(f"  ESS per second (probs_x and probs_y, summed over the {counted} entries that varied, over the run's "
+          f"wall time): {total_ess / run_s:.2f}")
+
+    # a replayed leaf against one eager potential-and-gradient call of the same chains
+    b = next(iter(kernel._leaf_buffers.values()))
+    b.graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        b.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    leaf_ms = start.elapsed_time(end) / 10
+    state = mcmc.last_state
+    kernel._potential_and_grad(state.z)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        kernel._potential_and_grad(state.z)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3 / 3
+    print(f"  a replayed leaf {leaf_ms:.3f} ms (CUDA events, 10 replays); one eager potential-and-gradient call of "
+          f"the same {NE_CHAINS} chains {eager_ms:.3f} ms (host clock)")
+    wall, busy, ops, events = profile_run(torch, b.graph.replay, top=6)
+    k1_events = [e for e in events if "lme_" in e.key]
+    by_name = {kernel_name(e): e.count for e in k1_events}
+    k1_ms = sum(e.self_device_time_total for e in k1_events) / 1e3
+    fwd = sum(c for name, c in by_name.items() if name.startswith("lme_max"))
+    bwd = sum(c for name, c in by_name.items() if name.startswith("lme_stats"))
+    print(f"  profiled leaf: busy {100 * busy / wall:.1f}%, K1 {k1_ms:.3f} device ms, K1 kernels {by_name}: "
+          f"{fwd} forward and {bwd} backward launches")
+    check(fwd == 9 and bwd == 9, f"the replayed leaf ran K1 {fwd} forward and {bwd} backward, not 9 + 9")
+
+    # the graphed leaf against the same leaf run eagerly, a depth-3 subtree from the last state
+    class EagerNUTS(NUTS):
+        def _leaves(self, C, n_dim, like):
+            return self._leaf_buffers.setdefault((C, n_dim), _Leaves(C, n_dim, self.max_tree_depth, like))
+
+    eager = EagerNUTS(example.model_1, max_plate_nesting=2)
+    eager.setup(0, *model_args, generator=torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    r = torch.randn(state.z.shape, generator=gen, device="cuda")
+    inv, step = state.adapt.inverse_mass_diag, state.adapt.step_size
+    energy0 = state.potential_energy + 0.5 * (inv * r * r).sum(-1)
+    direction = torch.where(torch.rand(step.shape, generator=gen, device="cuda") < 0.5, 1.0, -1.0)
+    trees = [k._build_subtree(3, state.z, r, state.z_grad, energy0, direction, step, inv,
+                              torch.Generator(device="cuda").manual_seed(6))[0] for k in (kernel, eager)]
+    worst = 0.0
+    for name, a, c in zip(trees[0]._fields, *trees):
+        a, c = a.double(), c.double()
+        finite = torch.isfinite(c)
+        check(bool((torch.isfinite(a) == finite).all()), f"graphed model_1 subtree: {name} finite where eager is not")
+        scale = float(c[finite].abs().max()) if bool(finite.any()) else 0.0
+        err = float((a - c)[finite].abs().max()) if bool(finite.any()) else 0.0
+        worst = max(worst, err / (scale + 1e-30))
+        check(err <= 1e-5 * scale + 1e-6, f"graphed model_1 subtree: {name} is {err} from the eager leaf's")
+    print(f"  graphed leaf against the eager leaf, depth-3 subtree: largest difference {worst:.3g} of a field's "
+          f"largest entry")
+
+    # model_1v through K2 under the same NUTS
+    args_v = example.parse_args(["--model", "1v", "--hidden-dim", str(M1_S), "--num-sequences", str(M1_B),
+                                 "--max-length", str(M1_T), "--data-dim", str(D)])
+    model_v_args = (sequences, lengths, args_v)
+    ms.reset_counts()
+    with record_calls(ms, ("_forward_cuda", "_backward_cuda")) as calls:
+        _potential_against_cpu(torch, "model_1v potential", example.model_1v, model_v_args, 3, z)
+    print(f"  K2 launches in one vmapped call: {ms.launches}, by route {ms.route_launches}")
+    check(ms.launches == {"forward": 1, "backward": 1}, f"model_1v's vmapped potential launched K2 {ms.launches}")
+    _check_k2_calls(torch, ms, calls)
+    ms.reset_counts()
+    kernel_v = NUTS(example.model_1v, max_plate_nesting=3, max_tree_depth=NE_TREE_DEPTH)
+    t0 = time.perf_counter()
+    mcmc_v = MCMC(kernel_v, num_samples=NE_1V_ITERS, warmup_steps=NE_1V_ITERS, num_chains=NE_CHAINS)
+    mcmc_v.run(*model_v_args, generator=torch.Generator(device="cuda").manual_seed(1))
+    samples_v = mcmc_v.get_samples()
+    torch.cuda.synchronize()
+    check(all(bool(torch.isfinite(v).all()) for v in samples_v.values()), "non-finite model_1v draws")
+    check(all(b.graph is not None for b in kernel_v._leaf_buffers.values()), "the model_1v leaf was not captured")
+    check(ms.launches["forward"] > 0 and ms.launches["backward"] > 0, f"K2 not launched by NUTS: {ms.launches}")
+    print(f"  model_1v: {NE_1V_ITERS} + {NE_1V_ITERS} iterations in {time.perf_counter() - t0:.2f} s with the set-up, "
+          f"{kernel_v.counts['leapfrogs']} leaves; K2 launches {ms.launches} (captured once)")
+
+    _lgssm_vmap_grad(torch, gl)
+    return {"leaf_ms": leaf_ms, "iterations": n, "run_s": run_s}
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -3361,6 +3769,7 @@ def main():
     phase_dmm(torch, lm, ms, gl)
     phase_queries(torch, lm)
     phase_gp(torch, gl, smi)
+    phase_nuts_enum(torch, lm, ms, gl, smi)
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"

@@ -1,5 +1,5 @@
 from . import constraints, flows, transforms
-from .continuous import Beta, Gamma, HalfCauchy, Normal
+from .continuous import Beta, Gamma, HalfCauchy, Normal, Uniform
 from .delta import Delta, Unit
 from .discrete import Bernoulli, Categorical
 from .distribution import Distribution, ExpandedDistribution, Independent, MaskedDistribution, TransformedDistribution
@@ -31,6 +31,7 @@ __all__ = [
     "NormalMarkovChain",
     "StickBreakingTransform",
     "TransformedDistribution",
+    "Uniform",
     "Unit",
     "biject_to",
     "constraints",

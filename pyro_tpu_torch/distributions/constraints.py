@@ -127,6 +127,7 @@ real = _Real()
 real_vector = _IndependentConstraint(_Real(), 1)
 positive = _GreaterThan(0.0)
 unit_interval = _Interval(0.0, 1.0)
+interval = _Interval
 integer_interval = _IntegerInterval
 simplex = _Simplex()
 lower_cholesky = _LowerCholesky()
@@ -140,6 +141,7 @@ __all__ = [
     "dependent",
     "independent",
     "integer_interval",
+    "interval",
     "lower_cholesky",
     "positive",
     "real",

@@ -1,4 +1,4 @@
-"""Beta, Normal, HalfCauchy and Gamma (counterpart of the part of
+"""Beta, Normal, HalfCauchy, Gamma and Uniform (counterpart of the part of
 ``pyro_tpu/distributions/continuous.py`` this package uses)."""
 
 from __future__ import annotations
@@ -154,3 +154,36 @@ class Gamma(Distribution):
     def expand(self, batch_shape, _instance=None):
         batch_shape = tuple(batch_shape)
         return Gamma(self.concentration.expand(batch_shape), self.rate.expand(batch_shape))
+
+
+class Uniform(Distribution):
+    has_rsample = True
+
+    def __init__(self, low=0.0, high=1.0):
+        low = as_float(low)
+        high = as_float(high, device=low.device)
+        dtype = torch.promote_types(low.dtype, high.dtype)
+        shape = broadcast_shape(low.shape, high.shape)
+        self.low, self.high = low.to(dtype).expand(shape), high.to(dtype).expand(shape)
+        super().__init__(shape)
+
+    @property
+    def support(self):
+        return constraints.interval(self.low, self.high)
+
+    def rsample(self, generator=None, sample_shape=()):
+        shape = self.shape(sample_shape)
+        u = torch.rand(shape, generator=generator, dtype=self.low.dtype, device=self.low.device)
+        return self.low + (self.high - self.low) * u
+
+    def log_prob(self, value):
+        inside = (value >= self.low) & (value <= self.high)
+        return torch.where(inside, -torch.log(self.high - self.low), -torch.inf)
+
+    def expand(self, batch_shape, _instance=None):
+        batch_shape = tuple(batch_shape)
+        return Uniform(self.low.expand(batch_shape), self.high.expand(batch_shape))
+
+    @property
+    def mean(self):
+        return (self.low + self.high) / 2

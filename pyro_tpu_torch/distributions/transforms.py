@@ -251,6 +251,26 @@ class SigmoidTransform(Transform):
         return -F.softplus(-x) - F.softplus(x)
 
 
+class IntervalTransform(Transform):
+    """The reals -> (low, high): low + (high - low) sigmoid(x), the JAX
+    package's composition of the sigmoid and an affine map."""
+
+    def __init__(self, low, high):
+        super().__init__()
+        self.low, self.high = low, high
+        self.codomain = constraints.interval(low, high)
+
+    def __call__(self, x):
+        return self.low + (self.high - self.low) * torch.sigmoid(x)
+
+    def _inverse(self, y):
+        u = clamp_probs((y - self.low) / (self.high - self.low))
+        return torch.log(u) - torch.log1p(-u)
+
+    def log_abs_det_jacobian(self, x, y):
+        return torch.log(torch.as_tensor(self.high - self.low)).expand(x.shape) - F.softplus(-x) - F.softplus(x)
+
+
 def _offset(x):
     """K - k for k = 0 .. K-1 along the last dim of ``x`` (K = x.shape[-1])."""
     return x.shape[-1] + 1 - torch.cumsum(torch.ones_like(x), dim=-1)
@@ -362,10 +382,13 @@ def _transform_to_softplus_lower_cholesky(constraint):
     return SoftplusLowerCholeskyTransform()
 
 
-@biject_to.register(constraints.unit_interval)
-@transform_to.register(constraints.unit_interval)
-def _transform_to_unit_interval(constraint):
-    return SigmoidTransform()
+@biject_to.register(constraints.interval)
+@transform_to.register(constraints.interval)
+def _transform_to_interval(constraint):
+    low, high = constraint.lower_bound, constraint.upper_bound
+    if isinstance(low, (int, float)) and isinstance(high, (int, float)) and (low, high) == (0, 1):
+        return SigmoidTransform()
+    return IntervalTransform(low, high)
 
 
 @biject_to.register(constraints.simplex)

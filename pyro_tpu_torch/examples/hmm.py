@@ -124,7 +124,7 @@ def model_1v(sequences, lengths, args, include_prior=True):
         )
         probs_y = pyro.sample(
             "probs_y",
-            dist.Beta(torch.tensor(0.1, device=device), torch.tensor(0.9, device=device))
+            dist.Beta(torch.full((), 0.1, device=device), torch.full((), 0.9, device=device))
             .expand((args.hidden_dim, data_dim))
             .to_event(2),
         )
@@ -164,7 +164,7 @@ def model_1vt(sequences, lengths, args, include_prior=True):
         )
         probs_y = pyro.sample(
             "probs_y",
-            dist.Beta(torch.tensor(0.1, device=device, dtype=dtype), torch.tensor(0.9, device=device, dtype=dtype))
+            dist.Beta(torch.full((), 0.1, device=device, dtype=dtype), torch.full((), 0.9, device=device, dtype=dtype))
             .expand((args.hidden_dim, data_dim))
             .to_event(2),
         )
@@ -202,7 +202,7 @@ def model_1(sequences, lengths, args, include_prior=True):
         )
         probs_y = pyro.sample(
             "probs_y",
-            dist.Beta(torch.tensor(0.1, device=device), torch.tensor(0.9, device=device))
+            dist.Beta(torch.full((), 0.1, device=device), torch.full((), 0.9, device=device))
             .expand((args.hidden_dim, data_dim))
             .to_event(2),
         )

@@ -11,7 +11,7 @@ from .guides import (
     AutoNormal,
     AutoNormalizingFlow,
 )
-from .initialization import init_to_feasible, init_to_median
+from .initialization import init_to_feasible, init_to_median, init_to_uniform, init_to_value
 
 __all__ = [
     "AutoCallable",
@@ -27,4 +27,6 @@ __all__ = [
     "AutoNormalizingFlow",
     "init_to_feasible",
     "init_to_median",
+    "init_to_uniform",
+    "init_to_value",
 ]

@@ -36,3 +36,23 @@ def init_to_median(site=None, num_samples: int = 15):
         return samples.median(dim=0).values
     except (NotImplementedError, ValueError):
         return init_to_feasible(site)
+
+
+def init_to_uniform(site=None, radius: float = 2.0):
+    """A uniform draw in [-radius, radius) of the unconstrained space."""
+    if site is None:
+        return functools.partial(init_to_uniform, radius=radius)
+    t = biject_to(site["fn"].support)
+    u = t.inv(site["fn"].sample(_generator(0)))
+    noise = torch.rand(u.shape, generator=_generator(16), dtype=u.dtype, device=u.device)
+    return t(-radius + 2 * radius * noise)
+
+
+def init_to_value(site=None, values=None, fallback=init_to_uniform):
+    """The value given for the site by name, else ``fallback``'s."""
+    if site is None:
+        return functools.partial(init_to_value, values=values, fallback=fallback)
+    values = values or {}
+    if site["name"] in values:
+        return torch.as_tensor(values[site["name"]])
+    return fallback(site)

@@ -6,9 +6,12 @@ momenta and gradients are (C, D); step sizes, energies and flags are (C,).
 The JAX package ``vmap``s one chain's step; here the step is written for
 the batch, and a chain that has finished its trajectory keeps its state
 through ``torch.where``.  The iteration counter is a Python int shared by
-all chains, so the warmup schedule (dual-averaged step size, and a diagonal
-mass matrix from Welford's variance over the slow windows) is decided on
-the host.  The potential and its gradient for all chains come from one
+all chains, so the warmup schedule (dual-averaged step size, and a mass
+matrix from Welford's statistics over the slow windows: a diagonal, or with
+``full_mass`` the dense covariance) is decided on the host.  The inverse
+mass is (C, D), or (C, D, D) with ``full_mass``; every use of it (the
+momentum draw, the kinetic energy, the leapfrog's M^-1 r, the U-turn check)
+takes either.  The potential and its gradient for all chains come from one
 ``torch.func.vmap(torch.func.grad_and_value(potential))``.
 """
 
@@ -23,12 +26,12 @@ import torch
 from ...ops.dual_averaging import DAState, da_init, da_step
 from ...ops.welford import WelfordState, welford_covariance, welford_init, welford_update
 from .mcmc_kernel import MCMCKernel
-from .util import _find_valid_initial_params, _ravel_fns, batched_potential_and_grad, initialize_model
+from .util import _ravel_fns, batched_potential_and_grad, initialize_model
 
 
 class AdaptState(NamedTuple):
     step_size: torch.Tensor  # (C,)
-    inverse_mass_diag: torch.Tensor  # (C, D)
+    inverse_mass_diag: torch.Tensor  # (C, D), or (C, D, D) with full_mass
     da: DAState
     welford: WelfordState
 
@@ -46,24 +49,39 @@ class HMCState(NamedTuple):
     adapt: AdaptState
 
 
-def _leapfrog(z, r, z_grad, step_size, inverse_mass_diag, potential_and_grad):
+def _velocity(inverse_mass, r):
+    """M^-1 r: ``inverse_mass`` is a diagonal (..., D), with r's number of
+    dims, or a dense (..., D, D), with one more; it broadcasts against r."""
+    if inverse_mass.ndim > r.ndim:
+        return (inverse_mass @ r.unsqueeze(-1)).squeeze(-1)
+    return inverse_mass * r
+
+
+def _leapfrog(z, r, z_grad, step_size, inverse_mass, potential_and_grad):
     """One velocity-Verlet step of every chain; ``step_size`` broadcasts
     against (C, D)."""
     r = r - 0.5 * step_size * z_grad
-    z = z + step_size * inverse_mass_diag * r
+    # the diagonal's product in the JAX package's order, for the same rounding
+    z = z + (step_size * _velocity(inverse_mass, r) if inverse_mass.ndim > r.ndim else step_size * inverse_mass * r)
     pe, z_grad = potential_and_grad(z)
     r = r - 0.5 * step_size * z_grad
     return z, r, pe, z_grad
 
 
-def _kinetic(r, inverse_mass_diag):
-    return 0.5 * (inverse_mass_diag * r * r).sum(-1)
+def _kinetic(r, inverse_mass):
+    return 0.5 * (_velocity(inverse_mass, r) * r).sum(-1)
 
 
-def _sample_momentum(generator, inverse_mass_diag):
-    eps = torch.randn(inverse_mass_diag.shape, generator=generator, dtype=inverse_mass_diag.dtype,
-                      device=inverse_mass_diag.device)
-    return eps * torch.rsqrt(inverse_mass_diag)
+def _sample_momentum(generator, inverse_mass):
+    """r ~ Normal(0, M) per chain, for an inverse mass (C, D) diagonal or
+    (C, D, D) dense: eps / sqrt(M^-1), or L^-T eps with M^-1 = L L^T."""
+    dense = inverse_mass.ndim == 3
+    shape = inverse_mass.shape[:-1] if dense else inverse_mass.shape
+    eps = torch.randn(shape, generator=generator, dtype=inverse_mass.dtype, device=inverse_mass.device)
+    if dense:
+        L = torch.linalg.cholesky(inverse_mass)
+        return torch.linalg.solve_triangular(L.transpose(-1, -2), eps.unsqueeze(-1), upper=True).squeeze(-1)
+    return eps * torch.rsqrt(inverse_mass)
 
 
 def build_adaptation_schedule(num_warmup: int):
@@ -121,12 +139,15 @@ def find_reasonable_step_size(potential_and_grad, z, pe, z_grad, inverse_mass_di
 
 class HMC(MCMCKernel):
     """HMC with a fixed trajectory length (or number of steps) over a batch
-    of chains.  ``counts`` holds the leapfrog passes over the batch and the
+    of chains, on a model or, without one, on ``potential_fn`` (a function
+    of a dict of unconstrained values, which then needs ``init_params``).
+    ``counts`` holds the leapfrog passes over the batch and the
     device-to-host syncs of the transitions since it was last reset."""
 
     def __init__(
         self,
-        model,
+        model=None,
+        potential_fn=None,
         step_size: float = 1.0,
         trajectory_length: Optional[float] = None,
         num_steps: Optional[int] = None,
@@ -134,10 +155,14 @@ class HMC(MCMCKernel):
         adapt_mass_matrix: bool = True,
         full_mass: bool = False,
         target_accept_prob: float = 0.8,
+        max_plate_nesting: Optional[int] = None,
+        init_strategy="uniform",
+        init_values=None,
     ):
-        if full_mass:
-            raise NotImplementedError("full_mass is not ported yet; see ROADMAP.md Queue 1 item 5")
+        if model is None and potential_fn is None:
+            raise ValueError("HMC requires a model or a potential_fn")
         self.model = model
+        self._given_potential_fn = potential_fn
         self.step_size = step_size
         if trajectory_length is None and num_steps is None:
             trajectory_length = 2 * math.pi
@@ -145,13 +170,18 @@ class HMC(MCMCKernel):
         self.num_steps = num_steps
         self.adapt_step_size = adapt_step_size
         self.adapt_mass_matrix = adapt_mass_matrix
+        self.full_mass = full_mass
         self.target_accept_prob = target_accept_prob
+        self.max_plate_nesting = max_plate_nesting
+        self.init_strategy = init_strategy
+        self.init_values = init_values
         self.counts = {"leapfrogs": 0, "host_syncs": 0}
         # filled by setup()
         self.potential_fn: Optional[Callable] = None  # flat (D,) -> scalar
         self.postprocess_fn: Optional[Callable] = None
         self._potential_and_grad: Optional[Callable] = None  # (C, D) -> ((C,), (C, D))
         self._ravel = self._unravel = None
+        self._draw_initial = None
         self._num_dims = 0
         self._num_warmup = 0
 
@@ -162,23 +192,38 @@ class HMC(MCMCKernel):
 
     # -- setup ------------------------------------------------------------
     def setup(self, warmup_steps, *args, generator=None, init_params=None, **kwargs):
-        """Trace the model on its arguments and build the potential of a
-        flat (D,) vector and of a batch (C, D)."""
+        """Trace the model on its arguments (or take ``potential_fn``) and
+        build the potential of a flat (D,) vector and of a batch (C, D)."""
         self._num_warmup = warmup_steps
-        info = initialize_model(self.model, args, kwargs, init_params=init_params, generator=generator)
-        self.postprocess_fn = info.postprocess_fn
-        nodes = info.prototype_trace.nodes
-        prototype = {name: t.inv(nodes[name]["value"]) for name, t in info.transforms.items()}
+        if self.model is not None:
+            info = initialize_model(self.model, args, kwargs, init_strategy=self.init_strategy,
+                                    init_params=init_params, init_values=self.init_values, generator=generator,
+                                    max_plate_nesting=self.max_plate_nesting)
+            dict_potential, self.postprocess_fn = info.potential_fn, info.postprocess_fn
+            nodes = info.prototype_trace.nodes
+            prototype = {name: t.inv(nodes[name]["value"]) for name, t in info.transforms.items()}
+            self._draw_initial = info.draw_initial
+        else:
+            if init_params is None:
+                raise ValueError("potential_fn mode requires init_params")
+            dict_potential, self.postprocess_fn = self._given_potential_fn, lambda z, **kw: z
+            prototype = init_params
+            self._draw_initial = None
         self._ravel, self._unravel = _ravel_fns(prototype)
         self._num_dims = self._ravel(prototype).shape[-1]
-        self.potential_fn = lambda flat: info.potential_fn(self._unravel(flat))
+        self._initial_flat = None if init_params is None else self._ravel(init_params)
+        self.potential_fn = lambda flat: dict_potential(self._unravel(flat))
         self._potential_and_grad = batched_potential_and_grad(self.potential_fn)
         self._adapt_mass_at, self._in_slow_window = build_adaptation_schedule(warmup_steps)
         return self
 
     def _draw_init(self, generator, num_chains: int):
-        """A valid uniform draw in [-2, 2) per chain: (C, D)."""
-        return _find_valid_initial_params(self._potential_and_grad, self._num_dims, generator, num_chains)[0]
+        """A valid starting point per chain, (C, D), of the kernel's
+        ``init_strategy`` and ``init_values``; in ``potential_fn`` mode the
+        ``init_params`` for every chain."""
+        if self._draw_initial is None:
+            return self._initial_flat.expand(num_chains, self._num_dims).to(torch.get_default_dtype())
+        return self._draw_initial(generator, num_chains)
 
     def init_state(self, generator, initial_flat) -> HMCState:
         """The state of every chain at ``initial_flat`` (C, D), with a step
@@ -186,6 +231,8 @@ class HMC(MCMCKernel):
         z = initial_flat
         pe, z_grad = self._potential_and_grad(z)
         inverse_mass_diag = torch.ones_like(z)
+        if self.full_mass:
+            inverse_mass_diag = torch.diag_embed(inverse_mass_diag)
         if self.adapt_step_size:
             step_size = find_reasonable_step_size(
                 self._potential_and_grad, z, pe, z_grad, inverse_mass_diag, generator, self.target_accept_prob
@@ -193,7 +240,7 @@ class HMC(MCMCKernel):
         else:
             step_size = torch.full_like(pe, self.step_size)
         da = da_init(torch.log(10.0 * step_size))
-        welford = welford_init(z.shape[-1], batch_shape=pe.shape, device=z.device)
+        welford = welford_init(z.shape[-1], diagonal=not self.full_mass, batch_shape=pe.shape, device=z.device)
         zero = torch.zeros_like(pe)
         zero_int = torch.zeros(pe.shape, dtype=torch.int64, device=z.device)
         return HMCState(0, z, pe, z_grad, pe, zero_int, zero, zero, torch.zeros_like(pe, dtype=torch.bool),
@@ -252,7 +299,8 @@ class HMC(MCMCKernel):
                 welford = welford_update(welford, z_new)
             if self._adapt_mass_at[i]:
                 inverse_mass_diag = welford_covariance(welford)
-                welford = welford_init(z_new.shape[-1], batch_shape=step_size.shape, device=z_new.device)
+                welford = welford_init(z_new.shape[-1], diagonal=not self.full_mass, batch_shape=step_size.shape,
+                                       device=z_new.device)
                 if self.adapt_step_size:
                     da = da_init(torch.log(10.0 * step_size))
         return AdaptState(step_size, inverse_mass_diag, da, welford)

@@ -29,7 +29,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from .hmc import HMC, HMCState, _kinetic, _leapfrog, _sample_momentum
+from .hmc import HMC, HMCState, _kinetic, _leapfrog, _sample_momentum, _velocity
 
 
 class _TreeState(NamedTuple):
@@ -71,12 +71,12 @@ def _trailing_ones(x: int) -> int:
     return _popcount(x & ~(x + 1))
 
 
-def _is_turning(inverse_mass_diag, r_left, r_right, r_sum):
+def _is_turning(inverse_mass, r_left, r_right, r_sum):
     """Generalized U-turn criterion: the velocity at either end of the
     trajectory has a non-positive projection on its momentum sum.  Reduces
     the last dim."""
-    v_left = inverse_mass_diag * r_left
-    v_right = inverse_mass_diag * r_right
+    v_left = _velocity(inverse_mass, r_left)
+    v_right = _velocity(inverse_mass, r_right)
     return ((v_left * r_sum).sum(-1) <= 0) | ((v_right * r_sum).sum(-1) <= 0)
 
 
@@ -87,7 +87,7 @@ class _Leaves:
     each leaf's flags (first, even, popcount(k >> 1) and the first
     checkpoint an odd leaf completes)."""
 
-    def __init__(self, C: int, n_dim: int, max_depth: int, like):
+    def __init__(self, C: int, n_dim: int, max_depth: int, like, dense: bool = False):
         opts = {"dtype": like.dtype, "device": like.device}
         vec, mat = torch.zeros(C, **opts), torch.zeros(C, n_dim, **opts)
         self.tree = _TreeState(
@@ -100,7 +100,8 @@ class _Leaves:
         self.r_sum_ckpts = torch.zeros_like(self.r_ckpts)
         self.signed_step = torch.full((C, 1), 0.1, **opts)
         self.energy0 = vec.clone()
-        self.inverse_mass_diag = torch.ones(C, n_dim, **opts)
+        self.inverse_mass_diag = torch.eye(n_dim, **opts).expand(C, n_dim, n_dim).clone() if dense else \
+            torch.ones(C, n_dim, **opts)
         self.u = torch.full((1 << max_depth, C), 0.5, **opts)
         self.k = torch.zeros(1, dtype=torch.long, device=like.device)
         flags = []
@@ -115,22 +116,30 @@ class _Leaves:
 class NUTS(HMC):
     def __init__(
         self,
-        model,
+        model=None,
+        potential_fn=None,
         step_size: float = 1.0,
         adapt_step_size: bool = True,
         adapt_mass_matrix: bool = True,
         full_mass: bool = False,
         max_tree_depth: int = 10,
         target_accept_prob: float = 0.8,
+        max_plate_nesting=None,
+        init_strategy="uniform",
+        init_values=None,
     ):
         super().__init__(
             model,
+            potential_fn=potential_fn,
             step_size=step_size,
             num_steps=1,
             adapt_step_size=adapt_step_size,
             adapt_mass_matrix=adapt_mass_matrix,
             full_mass=full_mass,
             target_accept_prob=target_accept_prob,
+            max_plate_nesting=max_plate_nesting,
+            init_strategy=init_strategy,
+            init_values=init_values,
         )
         self.max_tree_depth = max_tree_depth
         self._leaf_buffers = {}
@@ -141,12 +150,13 @@ class NUTS(HMC):
 
     # -- subtree builder ----------------------------------------------------
     def _leaves(self, C: int, n_dim: int, like) -> "_Leaves":
-        """The buffers for batches of C chains in n_dim dims, made once; on
-        a CUDA device the leaf is captured as a graph over them."""
-        key = (C, n_dim, like.device, like.dtype)
+        """The buffers for batches of C chains in n_dim dims (with a dense
+        inverse mass under ``full_mass``), made once; on a CUDA device the
+        leaf is captured as a graph over them."""
+        key = (C, n_dim, like.device, like.dtype, self.full_mass)
         b = self._leaf_buffers.get(key)
         if b is None:
-            b = self._leaf_buffers[key] = _Leaves(C, n_dim, self.max_tree_depth, like)
+            b = self._leaf_buffers[key] = _Leaves(C, n_dim, self.max_tree_depth, like, self.full_mass)
             if like.is_cuda:
                 # warm up on a side stream, then capture; both run on the
                 # buffers' benign initial values, which every subtree resets

@@ -70,7 +70,8 @@ from typing import NamedTuple
 
 import torch
 
-from . import cuda_build, linalg_small
+from . import cuda_build, func_rules, linalg_small
+from .func_rules import logical_ndim
 
 # Launches of the K4 and K5 kernels, counted by the wrappers.
 launches = {"halving": 0, "contract": 0, "mids": 0, "halving_bwd": 0, "contract_bwd": 0, "gamma_halving": 0,
@@ -719,52 +720,150 @@ def _taped_not_differentiated(name, *grads):
         )
 
 
-class _Halving(torch.autograd.Function):
+def _no_second_derivative(name):
+    raise NotImplementedError(f"{name}: no second derivative")
+
+
+class _HalvingBackward(torch.autograd.Function):
+    """K4a's backward, as a Function whose vmap rule runs it once an
+    example: the shared P's gradient is a sum over every row of a level, so
+    the examples' rows cannot share one launch."""
+
     @staticmethod
-    def forward(ctx, P, info, logZ, keep, cuda):
+    def forward(P, L, ib, g_P, g_info, g_logZ, cuda):
+        return (_halving_bwd_cuda if cuda else halving_level_bwd_plain)(P, L, ib, g_P, g_info, g_logZ)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _no_second_derivative("halving_level")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return func_rules.loop(_HalvingBackward.apply, info, in_dims, args)
+
+
+class _Halving(torch.autograd.Function):
+    """K4a: one launch a level (with ``keep``, the tape for the backward);
+    under vmap once an example, as each example has its own shared P."""
+
+    @staticmethod
+    def forward(P, info, logZ, keep, cuda):
+        return (_halving_cuda if cuda else halving_level_plain)(P, info, logZ, keep)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        P, _, _, keep, cuda = inputs
         ctx.set_materialize_grads(False)
         ctx.cuda = cuda
-        P_out, info_out, logZ_out, L, ib = (_halving_cuda if cuda else halving_level_plain)(P, info, logZ, keep)
         if keep:
-            ctx.save_for_backward(P, L, ib)
-        return P_out, info_out, logZ_out, L, ib
+            ctx.save_for_backward(P, output[3], output[4])
 
     @staticmethod
     def backward(ctx, g_P, g_info, g_logZ, g_L, g_ib):
         _taped_not_differentiated("halving_level", g_L, g_ib)
         P, L, ib = ctx.saved_tensors
-        bwd = _halving_bwd_cuda if ctx.cuda else halving_level_bwd_plain
-        return *bwd(P, L, ib, g_P, g_info, g_logZ), None, None
+        return *_HalvingBackward.apply(P, L, ib, g_P, g_info, g_logZ, ctx.cuda), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return func_rules.loop(_Halving.apply, info, in_dims, args)
+
+
+def _contract_backward(t, L, P_mk, i_m, g_P, g_info, g_logZ, cuda):
+    """K4b's backward over any leading dims (those of the tape), as rows."""
+    lead = L.shape[:-3]
+    k, R = len(lead), math.prod(lead)
+
+    def rows(x):  # the leading batch dims as one
+        return None if x is None else x.reshape(R, *x.shape[k:])
+
+    bwd = _contract_bwd_cuda if cuda else contract_pairs_bwd_plain
+    grads = bwd(t, *map(rows, (L, P_mk, i_m)), *map(rows, (g_P, g_info, g_logZ)))
+    return tuple(g.reshape(*lead, *g.shape[1:]) for g in grads)
+
+
+def _fold_lead(info, in_dims, args, inner):
+    """Operands of a level (``inner`` trailing dims each, the rest leading
+    batch dims) with the mapped dim first and every operand expanded (as a
+    stride-0 view, no copy) to the mapped size and the broadcast lead: the
+    examples become leading rows of one launch."""
+    C = info.batch_size
+    lead = torch.broadcast_shapes(*(func_rules.logical_shape(a, d)[: logical_ndim(a, d) - k]
+                                    for a, d, k in zip(args, in_dims, inner) if a is not None))
+    out = []
+    for a, d, k in zip(args, in_dims, inner):
+        if a is not None:
+            a = func_rules.front(a, d, C, len(lead) + k, expand=True)
+            a = a.expand(C, *lead, *a.shape[a.ndim - k:])
+        out.append(a)
+    return out
+
+
+class _ContractBackward(torch.autograd.Function):
+    """K4b's backward, as a Function whose vmap rule folds the examples
+    into the tape's leading rows: one launch."""
+
+    @staticmethod
+    def forward(t, L, P_mk, i_m, g_P, g_info, g_logZ, cuda):
+        return _contract_backward(t, L, P_mk, i_m, g_P, g_info, g_logZ, cuda)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _no_second_derivative("contract_pairs")
+
+    @staticmethod
+    def vmap(info, in_dims, t, L, P_mk, i_m, g_P, g_info, g_logZ, cuda):
+        folded = _fold_lead(info, in_dims[1:7], (L, P_mk, i_m, g_P, g_info, g_logZ), (3, 3, 2, 3, 2, 1))
+        return _ContractBackward.apply(t, *folded, cuda), (0, 0, 0)
 
 
 class _Contract(torch.autograd.Function):
+    """K4b: one launch a level (with ``keep``, the tape: L, P_mk, i_m);
+    under vmap the examples are folded into the leading rows."""
+
     @staticmethod
-    def forward(ctx, P, info, logZ, keep, cuda):
-        ctx.set_materialize_grads(False)
-        ctx.cuda, ctx.t, ctx.lead = cuda, P.shape[-3], logZ.shape[:-1]
+    def forward(P, info, logZ, keep, cuda):
         P_out, info_out, logZ_out, saved = (_contract_cuda if cuda else contract_pairs_plain)(P, info, logZ, keep)
-        saved = saved or (None, None, None)
+        return P_out, info_out, logZ_out, *(saved or (None, None, None))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        P, _, _, keep, cuda = inputs
+        ctx.set_materialize_grads(False)
+        ctx.cuda, ctx.t = cuda, P.shape[-3]
         if keep:
-            ctx.save_for_backward(*saved)
-        return P_out, info_out, logZ_out, *saved
+            ctx.save_for_backward(*output[3:])
 
     @staticmethod
     def backward(ctx, g_P, g_info, g_logZ, g_L, g_Pmk, g_im):
         _taped_not_differentiated("contract_pairs", g_L, g_Pmk, g_im)
-        bwd = _contract_bwd_cuda if ctx.cuda else contract_pairs_bwd_plain
-        k, R = len(ctx.lead), math.prod(ctx.lead)
+        return *_ContractBackward.apply(ctx.t, *ctx.saved_tensors, g_P, g_info, g_logZ, ctx.cuda), None, None
 
-        def rows(x):  # the leading batch dims as one
-            return None if x is None else x.reshape(R, *x.shape[k:])
-
-        grads = bwd(ctx.t, *map(rows, ctx.saved_tensors), *map(rows, (g_P, g_info, g_logZ)))
-        return *(g.reshape(*ctx.lead, *g.shape[1:]) for g in grads), None, None
+    @staticmethod
+    def vmap(info, in_dims, P, info_, logZ, keep, cuda):
+        outs = _Contract.apply(*_fold_lead(info, in_dims[:3], (P, info_, logZ), (3, 2, 1)), keep, cuda)
+        return outs, tuple(None if o is None else 0 for o in outs)
 
 
 class _MidsCUDA(torch.autograd.Function):
+    """K4c's launch; its backward raises (Queue 2).  Under vmap once an
+    example."""
+
     @staticmethod
-    def forward(ctx, cur, L, P_mk, i_m, eps):
+    def forward(cur, L, P_mk, i_m, eps):
         return _mids_cuda(cur, L, P_mk, i_m, eps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
 
     @staticmethod
     def backward(ctx, g):
@@ -773,15 +872,22 @@ class _MidsCUDA(torch.autograd.Function):
             "on the card is K4c's backward, ROADMAP.md Queue 2"
         )
 
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return func_rules.loop(_MidsCUDA.apply, info, in_dims, args)
+
 
 class _GammaLevelCUDA(torch.autograd.Function):
     """A K5 launch, whose backward raises: no path of the JAX package trains
-    a gamma-Gaussian model yet."""
+    a gamma-Gaussian model yet.  Under vmap once an example."""
 
     @staticmethod
-    def forward(ctx, name, kernel, *args):
-        ctx.name = name
+    def forward(name, kernel, *args):
         return kernel(*args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.name = inputs[0]
 
     @staticmethod
     def backward(ctx, *grads):
@@ -789,6 +895,10 @@ class _GammaLevelCUDA(torch.autograd.Function):
             f"{ctx.name}: the CUDA kernel has no backward yet; training a gamma-Gaussian model "
             "on the card is K5's backward, ROADMAP.md Queue 2"
         )
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return func_rules.loop(_GammaLevelCUDA.apply, info, in_dims, args)
 
 
 def _on_cuda(*tensors):

@@ -35,6 +35,16 @@ def vindex(tensor, args):
     assert len(args) == tensor.ndim
     if any(a is Ellipsis for a in args):
         raise NotImplementedError("Non-leading Ellipsis is not supported")
+    # a 0-dim index tensor selects its dim here: plain indexing would read it
+    # on the host as an int, a device-to-host sync a CUDA graph cannot hold
+    for i in reversed(range(len(args))):
+        if isinstance(args[i], torch.Tensor) and args[i].ndim == 0:
+            if i >= len(args) - old_event_dim:
+                old_event_dim -= 1
+            tensor = tensor.index_select(i, args[i].reshape(1)).squeeze(i)
+            args = args[:i] + args[i + 1:]
+    if not args:
+        return tensor
 
     # in simple cases standard advanced indexing broadcasts correctly
     is_standard = True

@@ -19,11 +19,13 @@ import math
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, func_rules
+from .func_rules import logical_ndim, per_example
 
 # Launches of the CUDA kernels, counted by the wrapper: a forward launch runs
 # two kernels (the maxima, then the product), a backward launch three (the
-# per-class shifts, then the dx and the dy products).
+# per-class shifts, then the dx and the dy products).  A launch captured in a
+# CUDA graph counts once, at its capture: the graph's replays are not counted.
 launches = {"forward": 0, "backward": 0}
 # Operands the wrapper made contiguous because their column stride was not 1.
 copies = {"forward": 0, "backward": 0}
@@ -110,21 +112,72 @@ def _logmatmulexp_bwd(x, y, out, g):
     return _unbroadcast(dx, x.shape), _unbroadcast(dy, y.shape)
 
 
-class _LogMatMulExpPlain(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, y):
-        out = _logmatmulexp_raw(x, y)
-        ctx.save_for_backward(x, y, out)
-        return out
+def _functions(forward_impl, backward_impl, route):
+    """The pair of ``torch.autograd.Function``s of one route of K1: the
+    forward, ``forward_impl(x, y) -> (out, *aux)``, and its backward,
+    ``backward_impl(x, y, out, *aux, g) -> (dx, dy)``, each with a vmap rule
+    that folds the mapped dim into the leading batch dims (an operand
+    without one broadcasts in the forward and is read through a stride-0
+    view in the backward) and calls the Function again on the folded
+    tensors, so that the implementation only ever sees plain tensors."""
 
-    @staticmethod
-    def backward(ctx, g):
-        return _logmatmulexp_bwd(*ctx.saved_tensors, g)
+    class Backward(torch.autograd.Function):
+        @staticmethod
+        def forward(*args):
+            return backward_impl(*args)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            pass
+
+        @staticmethod
+        def backward(ctx, *grads):
+            raise NotImplementedError(f"logmatmulexp ({route}): no second derivative")
+
+        @staticmethod
+        def vmap(info, in_dims, *args):
+            # x, y, out, g have two inner dims, the maxima (aux) one
+            r = logical_ndim(args[2], in_dims[2]) - 2
+            inner = [2, 2, 2] + [1] * (len(args) - 4) + [2]
+            moved = [func_rules.front(a, d, info.batch_size, r + k, expand=True)
+                     for a, d, k in zip(args, in_dims, inner)]
+            dx, dy = Backward.apply(*moved)
+            return (per_example(dx, args[0], in_dims[0]), per_example(dy, args[1], in_dims[1])), (0, 0)
+
+    class Forward(torch.autograd.Function):
+        @staticmethod
+        def forward(x, y):
+            return forward_impl(x, y)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.mark_non_differentiable(*output[1:])
+            ctx.save_for_backward(*inputs, *output)
+
+        @staticmethod
+        def backward(ctx, g, *aux_grads):
+            return Backward.apply(*ctx.saved_tensors, g)
+
+        @staticmethod
+        def vmap(info, in_dims, x, y):
+            r = max(logical_ndim(x, in_dims[0]), logical_ndim(y, in_dims[1]))
+            out = Forward.apply(*(func_rules.front(a, d, info.batch_size, r) for a, d in ((x, in_dims[0]),
+                                                                                        (y, in_dims[1]))))
+            return out, (0,) * len(out)
+
+    return Forward, Backward
+
+
+def _forward_plain(x, y):
+    return (_logmatmulexp_raw(x, y),)
+
+
+_LogMatMulExpPlain, _LogMatMulExpPlainBackward = _functions(_forward_plain, _logmatmulexp_bwd, "plain")
 
 
 def logmatmulexp_plain(x, y):
     """The plain PyTorch version, on any device, with the analytic VJP."""
-    return _LogMatMulExpPlain.apply(x, y)
+    return _LogMatMulExpPlain.apply(x, y)[0]
 
 
 # -- CUDA kernels -----------------------------------------------------------------
@@ -187,6 +240,19 @@ def _batch_layout(batch, tensors):
     return sizes, out
 
 
+def _kernel_layout(batch, tensors, direction):
+    """The operands and their ``_batch_layout``; where that needs more than
+    three batch dims (as a vmapped operand's stride-0 dims can), each
+    operand is copied to a contiguous tensor over the whole batch, whose
+    batch dims collapse to one, and the copies counted in ``copies``."""
+    try:
+        return tensors, _batch_layout(batch, tensors)
+    except ValueError:
+        tensors = [t.expand(*batch, *t.shape[-2:]).contiguous() for t in tensors]
+        copies[direction] += len(tensors)
+        return tensors, _batch_layout(batch, tensors)
+
+
 def _ll(strides):
     return (ctypes.c_longlong * 5)(*strides)
 
@@ -238,7 +304,7 @@ def _forward_cuda(x, y):
     x, y = _unit_columns([x, y], "forward")
     xs = torch.empty(batch + (M,), dtype=x.dtype, device=x.device)
     ys = torch.empty(batch + (N,), dtype=x.dtype, device=x.device)
-    sizes, (xst, yst) = _batch_layout(batch, [x, y])
+    (x, y), (sizes, (xst, yst)) = _kernel_layout(batch, [x, y], "forward")
     err = _lib().lme_forward(
         x.data_ptr(), _ll(xst), y.data_ptr(), _ll(yst), out.data_ptr(), xs.data_ptr(), ys.data_ptr(),
         _ints(sizes), M, K, N, int(_vectorizable([x, y], [xst, yst], K, N)), _stream(x),
@@ -259,12 +325,13 @@ def _backward_cuda(x, y, out, xs, ys, g):
     N = y.shape[-1]
     batch = out.shape[:-2]
     nb = math.prod(batch)
-    xu, yu, g = _unit_columns([x, y, g], "backward")
+    xu, yu, out, g = _unit_columns([x, y, out, g], "backward")
+    xs, ys = xs.contiguous(), ys.contiguous()
     dx = torch.empty(batch + (M, K), dtype=x.dtype, device=x.device)
     dy = torch.empty(batch + (K, N), dtype=x.dtype, device=x.device)
     # per-row shifts of both classes, then per 32-row strip the column shifts
     scratch = torch.empty(nb * 2 * (M + -(-M // 32) * N), dtype=x.dtype, device=x.device)
-    sizes, strides = _batch_layout(batch, [xu, yu, out, g])
+    (xu, yu, out, g), (sizes, strides) = _kernel_layout(batch, [xu, yu, out, g], "backward")
     xst, yst, ost, gst = strides
     err = _lib().lme_backward(
         xu.data_ptr(), _ll(xst), yu.data_ptr(), _ll(yst), out.data_ptr(), _ll(ost),
@@ -277,16 +344,9 @@ def _backward_cuda(x, y, out, xs, ys, g):
     return _unbroadcast(dx, x.shape), _unbroadcast(dy, y.shape)
 
 
-class _LogMatMulExpCUDA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, y):
-        out, xs, ys = _forward_cuda(x, y)
-        ctx.save_for_backward(x, y, out, xs, ys)
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        return _backward_cuda(*ctx.saved_tensors, g)
+# the launches looked up when called, so that a recording wrapper can stand in
+_LogMatMulExpCUDA, _LogMatMulExpCUDABackward = _functions(
+    lambda x, y: _forward_cuda(x, y), lambda *args: _backward_cuda(*args), "cuda")
 
 
 def logmatmulexp(x, y):
@@ -294,7 +354,7 @@ def logmatmulexp(x, y):
     backward; batch dims broadcast like ``torch.matmul``.  CUDA tensors go
     through the hand-written kernels, CPU tensors through the plain version."""
     if x.is_cuda or y.is_cuda:
-        return _LogMatMulExpCUDA.apply(x, y)
+        return _LogMatMulExpCUDA.apply(x, y)[0]
     return logmatmulexp_plain(x, y)
 
 

@@ -47,7 +47,7 @@ import functools
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, func_rules
 from .log_matmul import logmatmulexp_plain
 
 def _check_shapes(alpha0, A, R, L):
@@ -434,6 +434,9 @@ def _backward_cuda(A, L, saved, g):
     forward's route."""
     plan, alphas, zs, craw, Q, QT = saved
     _check_cuda(g, A, L, alphas, zs)
+    # one example's slice of a vmapped forward's stack is a strided view
+    alphas, zs, craw = alphas.contiguous(), zs.contiguous(), craw.contiguous()
+    Q, QT = (None if t is None else t.contiguous() for t in (Q, QT))
     T, B, S = alphas.shape
     if g.shape != (B, S):
         raise ValueError(f"markov_scan: gradient shape {tuple(g.shape)} != ({B}, {S})")
@@ -474,18 +477,126 @@ def _backward_cuda(A, L, saved, g):
     return dalpha0, dA.reshape(A.shape), dR, dL
 
 
-class _MarkovScanCUDA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, alpha0, A, R, L, plan):
-        out, (plan, *saved) = _forward_cuda(alpha0, A, R, L, plan)
-        ctx.plan = plan
-        ctx.save_for_backward(A, L, *saved)
-        return out
+def _saved_plan(plan, B, S, nA, Q, device):
+    """The route the backward runs on: the forward's, which kept Q on the
+    streaming route only; the cluster route's plan is the one given, or
+    ``plan_scan``'s for the backward's own rows (the backward reads the
+    forward's carry stack by global index, whatever the forward's rows)."""
+    if Q is not None:
+        return ScanPlan("stream")
+    if plan is not None and plan.route == "cluster":
+        return plan
+    return _device_plan(B, S, nA, device)
+
+
+def _fold_rows(t, dim, C, time_major):
+    """An operand of B rows (B, ...) or, ``time_major``, (T, B, ...), mapped
+    at ``dim`` (or None, then expanded), as C * B rows, chain-major."""
+    if dim is None:
+        t = t.unsqueeze(int(time_major)).expand(*t.shape[: int(time_major)], C, *t.shape[int(time_major):])
+    else:
+        t = t.movedim(dim, int(time_major))
+    return t.reshape(*t.shape[: int(time_major)], -1, *t.shape[int(time_major) + 2:])
+
+
+def _unfold_rows(t, C, time_major):
+    """The inverse of ``_fold_rows``: (C, B, ...) or (T, C, B, ...), mapped at 0 or 1."""
+    k = int(time_major)
+    return t.reshape(*t.shape[:k], C, -1, *t.shape[k + 1:])
+
+
+def _fold_A(A, dim, C, B, per_step):
+    """The transition(s) of the folded scan: a shared A ((S, S), or with
+    ``per_step`` (T, S, S)) with no mapped dim stays shared; else one A a
+    row of the C * B rows."""
+    k = int(per_step)
+    if dim is None and A.ndim == 2 + k:
+        return A
+    if dim is None:
+        A = A.unsqueeze(k).expand(*A.shape[:k], C, *A.shape[k:])
+    else:
+        A = A.movedim(dim, k)
+    if A.ndim == 3 + k:  # one A a chain: the same for its B rows
+        A = A.unsqueeze(k + 1).expand(*A.shape[: k + 1], B, *A.shape[k + 1:])
+    return A.reshape(*A.shape[:k], C * B, *A.shape[k + 2:])
+
+
+def _dA_per_example(dA, A, dim, C, per_step):
+    """dA of the folded scan, one a row, as each example's gradient of its A."""
+    k = int(per_step)
+    logical = A.ndim - (dim is not None)
+    dA = dA.reshape(*dA.shape[:k], C, -1, *dA.shape[k + 1:]).movedim(k, 0)
+    return dA.sum(k + 1) if logical == 2 + k else dA
+
+
+class _MarkovScanBackward(torch.autograd.Function):
+    """K2's backward launch, as a Function with a vmap rule of its own."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(A, L, alphas, zs, craw, Q, QT, g, plan):
+        T, B, S = alphas.shape
+        plan = _saved_plan(plan, B, S, craw.shape[0], Q, g.device)
+        return _backward_cuda(A, L, (plan, alphas, zs, craw, Q, QT), g)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("markov_scan: no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, A, L, alphas, zs, craw, Q, QT, g, plan):
+        args = (A, L, alphas, zs, craw, Q, QT, g, plan)
+        if in_dims[0] is None and A.ndim == 2:
+            # a shared A: each example's dA is its own sum over rows
+            return func_rules.loop(_MarkovScanBackward.apply, info, in_dims, args)
+        C, B = info.batch_size, func_rules.logical_shape(alphas, in_dims[2])[1]
+        Af = _fold_A(A, in_dims[0], C, B, False)
+        per_row = [None if t is None else _fold_rows(t, d, C, True) for t, d in zip((L, alphas, zs), in_dims[1:4])]
+        crawf, Qf, QTf = (None if t is None else _fold_rows(t, d, C, False) for t, d in zip((craw, Q, QT),
+                                                                                           in_dims[4:7]))
+        dalpha0, dA, dR, dL = _MarkovScanBackward.apply(Af, per_row[0], per_row[1], per_row[2], crawf, Qf, QTf,
+                                                         _fold_rows(g, in_dims[7], C, False), plan)
+        out = (_unfold_rows(dalpha0, C, False), _dA_per_example(dA, A, in_dims[0], C, False),
+               _unfold_rows(dR, C, True).movedim(1, 0), None if dL is None else _unfold_rows(dL, C, True).movedim(1, 0))
+        return out, (0, 0, 0, None if dL is None else 0)
+
+
+class _MarkovScanCUDA(torch.autograd.Function):
+    """K2's forward launch; its outputs after alpha_T are what the backward
+    reads (the carry stack, the z's, the raw column maxima of A and, on the
+    streaming route, Q and its transpose)."""
+
+    @staticmethod
+    def forward(alpha0, A, R, L, plan):
+        out, (_, alphas, zs, craw, Q, QT) = _forward_cuda(alpha0, A, R, L, plan)
+        return out, alphas, zs, craw, Q, QT
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*(t for t in output[1:] if t is not None))
+        ctx.plan = inputs[4]
+        ctx.save_for_backward(inputs[1], inputs[3], *output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *saved_grads):
         A, L, *saved = ctx.saved_tensors
-        return (*_backward_cuda(A, L, (ctx.plan, *saved), g), None)
+        return (*_MarkovScanBackward.apply(A, L, *saved, g, ctx.plan), None)
+
+    @staticmethod
+    def vmap(info, in_dims, alpha0, A, R, L, plan):
+        C, B = info.batch_size, func_rules.logical_shape(alpha0, in_dims[0])[0]
+        out, alphas, zs, craw, Q, QT = _MarkovScanCUDA.apply(
+            _fold_rows(alpha0, in_dims[0], C, False), _fold_A(A, in_dims[1], C, B, False),
+            _fold_rows(R, in_dims[2], C, True), None if L is None else _fold_rows(L, in_dims[3], C, True), plan)
+        shared = in_dims[1] is None and A.ndim == 2
+        per_A = (lambda t: t) if shared else (lambda t: None if t is None else _unfold_rows(t, C, False))
+        outs = (_unfold_rows(out, C, False), _unfold_rows(alphas, C, True), _unfold_rows(zs, C, True),
+                per_A(craw), per_A(Q), per_A(QT))
+        A_dim = None if shared else 0
+        return outs, (0, 1, 1, A_dim, None if Q is None else A_dim, None if QT is None else A_dim)
 
 
 def markov_scan(alpha0, A, R, L=None, plan=None):
@@ -494,7 +605,7 @@ def markov_scan(alpha0, A, R, L=None, plan=None):
     chooses by shape unless ``plan`` (a ``ScanPlan``) names one; CPU tensors
     go through the plain version."""
     if any(t is not None and t.is_cuda for t in (alpha0, A, R, L)):
-        return _MarkovScanCUDA.apply(alpha0, A, R, L, plan)
+        return _MarkovScanCUDA.apply(alpha0, A, R, L, plan)[0]
     return markov_scan_plain(alpha0, A, R, L)
 
 
@@ -563,6 +674,8 @@ def _tv_backward_cuda(A, L, saved, g):
     ``mstv_fold_kernel``."""
     plan, hs, os, cs = saved
     _check_cuda(g, A, L, hs, os, cs)
+    # one example's slice of a vmapped forward's stack is a strided view
+    hs, os, cs = hs.contiguous(), os.contiguous(), None if cs is None else cs.contiguous()
     T, B, S = hs.shape
     if g.shape != (B, S):
         raise ValueError(f"markov_scan_tv: gradient shape {tuple(g.shape)} != ({B}, {S})")
@@ -592,18 +705,73 @@ def _tv_backward_cuda(A, L, saved, g):
     return dalpha0, dA, dR, dL
 
 
-class _MarkovScanTVCUDA(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, alpha0, A, R, L, plan):
-        out, (plan, *saved) = _tv_forward_cuda(alpha0, A, R, L, plan)
-        ctx.plan = plan
-        ctx.save_for_backward(A, L, *saved)
-        return out
+class _MarkovScanTVBackward(torch.autograd.Function):
+    """K2g's backward launch, as a Function with a vmap rule of its own."""
 
     @staticmethod
-    def backward(ctx, g):
+    def forward(A, L, hs, os, cs, g, plan):
+        T, B, S = hs.shape
+        nA = 1 if A.ndim == 3 else B
+        if cs is None:
+            plan = ScanPlan("stream")
+        elif plan is None or plan.route != "cluster":
+            plan = _device_plan_tv(B, S, nA, g.device)
+        return _tv_backward_cuda(A, L, (plan, hs, os, cs), g)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("markov_scan_tv: no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, A, L, hs, os, cs, g, plan):
+        args = (A, L, hs, os, cs, g, plan)
+        if in_dims[0] is None and A.ndim == 3:
+            # a shared A_t: each example's dA_t is its own sum over rows
+            return func_rules.loop(_MarkovScanTVBackward.apply, info, in_dims, args)
+        C, B = info.batch_size, func_rules.logical_shape(hs, in_dims[2])[1]
+        Lf, hsf, osf, csf = (None if t is None else _fold_rows(t, d, C, True) for t, d in zip((L, hs, os, cs),
+                                                                                               in_dims[1:5]))
+        dalpha0, dA, dR, dL = _MarkovScanTVBackward.apply(_fold_A(A, in_dims[0], C, B, True), Lf, hsf, osf, csf,
+                                                           _fold_rows(g, in_dims[5], C, False), plan)
+        out = (_unfold_rows(dalpha0, C, False), _dA_per_example(dA, A, in_dims[0], C, True),
+               _unfold_rows(dR, C, True).movedim(1, 0), None if dL is None else _unfold_rows(dL, C, True).movedim(1, 0))
+        return out, (0, 0, 0, None if dL is None else 0)
+
+
+class _MarkovScanTVCUDA(torch.autograd.Function):
+    """K2g's forward launch; its outputs after alpha_T are what the
+    backward reads (hs, o and, on the cluster route, c)."""
+
+    @staticmethod
+    def forward(alpha0, A, R, L, plan):
+        out, (_, hs, os, cs) = _tv_forward_cuda(alpha0, A, R, L, plan)
+        return out, hs, os, cs
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.mark_non_differentiable(*(t for t in output[1:] if t is not None))
+        ctx.plan = inputs[4]
+        ctx.save_for_backward(inputs[1], inputs[3], *output[1:])
+
+    @staticmethod
+    def backward(ctx, g, *saved_grads):
         A, L, *saved = ctx.saved_tensors
-        return (*_tv_backward_cuda(A, L, (ctx.plan, *saved), g), None)
+        return (*_MarkovScanTVBackward.apply(A, L, *saved, g, ctx.plan), None)
+
+    @staticmethod
+    def vmap(info, in_dims, alpha0, A, R, L, plan):
+        C, B = info.batch_size, func_rules.logical_shape(R, in_dims[2])[1]
+        out, hs, os, cs = _MarkovScanTVCUDA.apply(
+            _fold_rows(alpha0, in_dims[0], C, False), _fold_A(A, in_dims[1], C, B, True),
+            _fold_rows(R, in_dims[2], C, True), None if L is None else _fold_rows(L, in_dims[3], C, True), plan)
+        shared = in_dims[1] is None and A.ndim == 3
+        cs_out = cs if shared or cs is None else _unfold_rows(cs, C, True)
+        outs = (_unfold_rows(out, C, False), _unfold_rows(hs, C, True), _unfold_rows(os, C, True), cs_out)
+        return outs, (0, 1, 1, None if shared or cs is None else 1)
 
 
 def markov_scan_tv(alpha0, A, R, L=None, plan=None):
@@ -615,5 +783,5 @@ def markov_scan_tv(alpha0, A, R, L=None, plan=None):
     version.  Replaces the general body of
     ``pyro_tpu/ops/markov_product.py:427-451`` scanned at ``:469``."""
     if any(t is not None and t.is_cuda for t in (alpha0, A, R, L)):
-        return _MarkovScanTVCUDA.apply(alpha0, A, R, L, plan)
+        return _MarkovScanTVCUDA.apply(alpha0, A, R, L, plan)[0]
     return markov_scan_tv_plain(alpha0, A, R, L)

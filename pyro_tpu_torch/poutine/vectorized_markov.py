@@ -64,7 +64,7 @@ class VectorizedMarkovMessenger(Messenger):
         super().__init__()
 
     def __iter__(self):
-        self._aux_infer = {}  # aux site name -> its infer dict
+        self._aux_msgs = {}  # aux site name -> its message (its infer dict may be replaced by outer handlers)
         self._aux_var = {}  # aux site name -> markov var prefix
         self._markov_vars = set()
         self._suffixes = list(range(min(self.history, self.size)))
@@ -106,7 +106,7 @@ class VectorizedMarkovMessenger(Messenger):
             # its enumerated value, but never scored
             msg["infer"]["_do_not_score"] = True
             self._aux_var[msg["name"]] = msg["name"][: -len(self._suffix_str)]
-            self._aux_infer[msg["name"]] = msg["infer"]
+            self._aux_msgs[msg["name"]] = msg
 
     def _pyro_post_sample(self, msg):
         if isinstance(msg["fn"], _Subsample) or self._suffix != self._suffixes[-1]:
@@ -118,8 +118,8 @@ class VectorizedMarkovMessenger(Messenger):
         if fn.event_dim:
             val_shape = val_shape[: len(val_shape) - fn.event_dim]
         lp_shape = broadcast_shape(fn.batch_shape, val_shape)
-        for aux_name, infer in self._aux_infer.items():
-            d = infer.get("_enumerate_dim")
+        for aux_name, aux_msg in self._aux_msgs.items():
+            d = aux_msg["infer"].get("_enumerate_dim")
             if d is not None and len(lp_shape) >= -d and lp_shape[d] > 1:
                 self._markov_vars.add(self._aux_var[aux_name])
 

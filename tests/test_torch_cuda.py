@@ -1548,3 +1548,109 @@ def test_independent_matern_gp_step_at_the_eeg_shape(cuda):
     assert loss32 == pytest.approx(loss64, rel=1e-5)
     for k in g64:
         torch.testing.assert_close(g32[k], g64[k], rtol=0, atol=1e-3 * float(g64[k].abs().max()))
+
+
+# -- the kernels under torch.func, and the NUTS leaf over an enumerated potential ----------
+
+# (x shape, y shape, x mapped, y mapped), the chain dim C=8 leading a mapped operand
+VMAP_K1_CASES = {
+    "x-mapped": ((20, 16, 16), (16, 16), True, False),
+    "y-mapped": ((20, 1, 16), (16, 16), False, True),
+    "both": ((20, 16, 16), (20, 16, 16), True, True),
+    "x-unmapped-batched": ((5, 1, 16, 24), (3, 24, 16), False, True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VMAP_K1_CASES))
+def test_k1_under_vmap_grad_matches_plain(cuda, name):
+    """vmap(grad) over 8 chains through K1 (the chains folded into its
+    batch: one launch each way) against the same through the plain
+    version, an operand without the chain dim among the cases."""
+    xs, ys, xm, ym = VMAP_K1_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(len(name))
+    x = torch.randn(((8,) if xm else ()) + xs, generator=gen, device=cuda)
+    y = torch.randn(((8,) if ym else ()) + ys, generator=gen, device=cuda)
+    w = torch.randn((8,) + torch.broadcast_shapes(xs[:-2], ys[:-2]) + (xs[-2], ys[-1]), generator=gen, device=cuda)
+    in_dims = (0 if xm else None, 0 if ym else None, 0)
+
+    def loss(fn):
+        return lambda x, y, w: (fn(x, y) * w).sum()
+
+    before = dict(lm.launches)
+    got = torch.func.vmap(torch.func.grad_and_value(loss(lm.logmatmulexp), argnums=(0, 1)), in_dims=in_dims)(x, y, w)
+    torch.cuda.synchronize()
+    assert lm.launches == {"forward": before["forward"] + 1, "backward": before["backward"] + 1}
+    want = torch.func.vmap(torch.func.grad_and_value(loss(lm.logmatmulexp_plain), argnums=(0, 1)),
+                           in_dims=in_dims)(x, y, w)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-3)
+    for a, b in zip(got[0], want[0]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("shared_A", [False, True])
+def test_k2_under_vmap_grad_matches_plain(cuda, shared_A):
+    """vmap(grad) over 8 chains through K2 (the chains folded into its rows:
+    one forward launch; the backward one launch, or one a chain where A is
+    shared) against the same through the plain scan."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    C, B, T, S = 8, 20, 31, 16
+    A = torch.randn((S, S) if shared_A else (C, S, S), generator=gen, device=cuda)
+    alpha0 = torch.randn(C, B, S, generator=gen, device=cuda)
+    R = torch.randn(C, T, B, S, generator=gen, device=cuda)
+    in_dims = (0, None if shared_A else 0, 0)
+
+    def loss(fn):
+        return lambda alpha0, A, R: fn(alpha0, A, R).logsumexp(-1).sum()
+
+    argnums = (0, 1, 2)
+    ms.reset_counts()
+    got = torch.func.vmap(torch.func.grad(loss(ms.markov_scan), argnums=argnums), in_dims=in_dims)(alpha0, A, R)
+    torch.cuda.synchronize()
+    assert ms.launches == {"forward": 1, "backward": C if shared_A else 1}
+    want = torch.func.vmap(torch.func.grad(loss(ms.markov_scan_plain), argnums=argnums), in_dims=in_dims)(alpha0, A, R)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+def test_nuts_leaf_over_the_enumerated_potential_replays_to_the_same_result(cuda):
+    """NUTS on model_1 (8 sequences, T=12, 16 tones, 8 states; K1 inside
+    the potential): the leaf is captured as a CUDA graph; two subtrees
+    built by replays from the same inputs are bitwise equal, and equal the
+    same subtree with the leaf run eagerly within 1e-5 of each field's
+    largest entry."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import hmm as example
+    from pyro_tpu_torch.infer import NUTS
+    from pyro_tpu_torch.infer.mcmc.nuts import _Leaves
+
+    pyro.set_default_device("cuda")
+    args = example.parse_args(["--model", "1", "--hidden-dim", "8", "--num-sequences", "8", "--max-length", "12",
+                               "--data-dim", "16"])
+    data = example.synthetic_sequences(0, 8, 12, 16)
+
+    class EagerNUTS(NUTS):
+        def _leaves(self, C, n_dim, like):
+            return self._leaf_buffers.setdefault((C, n_dim), _Leaves(C, n_dim, self.max_tree_depth, like))
+
+    kernels = [NUTS(example.model_1, max_plate_nesting=2), EagerNUTS(example.model_1, max_plate_nesting=2)]
+    for k in kernels:
+        k.setup(0, *data, args, generator=torch.Generator(device=cuda).manual_seed(0))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    z = kernels[0]._draw_init(gen, 8)
+    pe, grad = kernels[0]._potential_and_grad(z)
+    r = torch.randn(z.shape, generator=gen, device=cuda)
+    inv = torch.ones_like(z)
+    energy0 = pe + 0.5 * (r * r).sum(-1)
+    direction = torch.where(torch.rand(pe.shape, generator=gen, device=cuda) < 0.5, 1.0, -1.0)
+    step = torch.full_like(pe, 0.01)
+
+    def subtree(k):
+        return k._build_subtree(3, z, r, grad, energy0, direction, step, inv,
+                                torch.Generator(device=cuda).manual_seed(2))[0]
+
+    first, second, eager = subtree(kernels[0]), subtree(kernels[0]), subtree(kernels[1])
+    assert all(b.graph is not None for b in kernels[0]._leaf_buffers.values())
+    for name, a, b, c in zip(first._fields, first, second, eager):
+        assert torch.equal(a, b), name
+        a, c = a.double(), c.double()
+        assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max()) + 1e-6, name
