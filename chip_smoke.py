@@ -241,7 +241,32 @@ Phases (any failure exits non-zero):
      the leaf captured); and ``vmap(grad(GaussianHMM.log_prob))`` at the
      ``lgssm`` shape over 4 chains' parameters through K4b against the
      plain levels in float64 on the card;
-  21. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+  21. slice 19, forecasting through K4 (the card's name and power limit on
+     the phase's first line), ``examples/forecast_bart.py``'s ``Model``
+     (weekly seasonality and a GaussianHMM local level, whose noises'
+     batch dim of 1 sends ``log_prob`` down the K4b route): (a) the JAX
+     example as it stands, ``load_fake_od`` (744 hours, t_train 595):
+     ``Forecaster`` with 500 DCTAdam steps (lr 0.05), a forecast call of
+     100 draws over the 149 held-out hours, the MAE; (b) the same Model at
+     the length of upstream's BART counts (78,888 hours of a synthetic
+     total ridership, numpy seed 0, trained up to two weeks before the
+     end): a warm-up ``Forecaster`` step, 20 timed SVI steps, a forecast
+     call of 100 draws; (c) ``HMCForecaster`` on (a)'s model and data with
+     ``time_reparam="dct"``, 4 vectorized chains (``max_tree_depth`` 6, the
+     iteration counts cut by a probe toward 60 s, both printed as cuts),
+     NUTS's ``vmap(grad)`` through K4b inside the captured leaf, then a
+     forecast call of 100 draws.  For each: the K4 launches by kernel a
+     step, a forecast draw and a leaf (the profiler's record of a replayed
+     leaf), forward and backward; every K4 level recorded from a training
+     step and a forecast draw against its plain version; the first step's
+     -ELBO at one latent value and its gradients (the guide's parameters,
+     and the log joint's in the latents), or the potential and gradient of
+     the chains at fixed points, against float64 through the plain levels
+     on the card; (a)'s forecast moments at the guide's median against the
+     exact conditional of the local level (dense, float64); ms a step and
+     a forecast call (host clock, synced) and the busy share of one
+     profiled step or replayed leaf;
+  22. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
      backward on each route, K4a-c, K4a and K4b backward, K2g forward and
      backward on each route, K5a and K5b), the card's name and power
      limit, then the result line.
@@ -320,7 +345,13 @@ call atol 1e-4 plus 1e-6 of its largest log value forward (two ulps at
 1e2), its gradients and K2's as K1's and the main path's K2's above; the
 graphed subtree within 1e-5 of each field's largest entry of the eager
 one; the vmapped ``lgssm`` log_prob and gradients as a training step's
-above.  Without a CUDA
+above.  Forecasting: each recorded K4 level as phase 8's; the first step's
+-ELBO, and HMCForecaster's potential, rtol 1e-5 against float64, each
+gradient within 1e-3 times its largest entry (as a training step's); 4000
+draws of the prefix-conditioned noise at the guide's median, each step's
+mean within 5 standard errors and its variance within 10% of the exact
+conditional's, and the forecaster's 100 draws' mean within 5 standard
+errors of the exact mean.  Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result.
 """
@@ -3671,6 +3702,385 @@ def phase_nuts_enum(torch, lm, ms, gl, smi):
     return {"leaf_ms": leaf_ms, "iterations": n, "run_s": run_s}
 
 
+# -- slice 19: forecasting through K4 ---------------------------------------------------
+
+FC_STEPS, FC_DRAWS, FC_LR = 500, 100, 0.05  # examples/forecast_bart.py's defaults
+FC_LONG_STEPS = 20  # timed SVI steps at the length of upstream's BART counts, after a warm-up step
+FC_MOMENT_DRAWS = 4000  # draws of the prefix-conditioned noise held against its exact moments
+FC_SE, FC_VAR_RTOL = 5.0, 0.1  # the draws' mean within 5 standard errors, their variance within 10%
+FC_HMC_CHAINS, FC_HMC_ITERS, FC_HMC_MIN, FC_HMC_PROBE, FC_HMC_BUDGET_S = 4, 200, 10, 3, 60.0
+# HMCForecaster's tree depth in phase 21, cut from its default 10 as phase 20 cuts NUTS's
+FC_HMC_TREE_DEPTH = 6
+FC_KEYS = ("contract", "contract_bwd", "mids", "halving", "halving_bwd")
+
+
+def _per(counts, n):
+    return {k: v / n for k, v in counts.items() if v}
+
+
+def _guide_at(pyro, tdist, values):
+    """A guide whose sites are Deltas at ``values``."""
+
+    def guide(*args):
+        for name, value in values.items():
+            pyro.sample(name, tdist.Delta(value, event_dim=value.ndim))
+
+    return guide
+
+
+def _forecast_first_step(torch, gl, data, cov, latent):
+    """The example Model's -ELBO at one latent value (the AutoNormal guide's
+    sites conditioned there) with the gradient of every guide parameter,
+    and the gradient of the model's log joint in the latents, through the
+    kernels in float32 and through the plain levels in float64 on the card
+    at the same parameters."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.examples import forecast_bart as example
+    from pyro_tpu_torch.infer import Trace_ELBO
+    from pyro_tpu_torch.infer.autoguide import AutoNormal
+    from pyro_tpu_torch.params import param_store_from_jax
+
+    out, init = {}, None
+    for dtype in (torch.float32, torch.float64):
+        pyro.clear_param_store()
+        with default_dtype(torch, dtype), (plain_levels(gl) if dtype == torch.float64 else contextlib.nullcontext()):
+            model = example.Model()
+            guide = AutoNormal(lambda d, c: model(d, c), init_scale=0.1)
+            args = (data.to(dtype), cov.to(dtype))
+            Trace_ELBO().loss(lambda d, c: model(d, c), guide, *args)  # registers the params
+            store = pyro.get_param_store()
+            if init is None:
+                init = {k: store[k].detach().double().cpu().numpy() for k in store.get_all_unconstrained()}
+            else:
+                param_store_from_jax(init)
+            z = {k: v.detach().to(dtype).requires_grad_() for k, v in latent.items()}
+            gl.reset_counts()
+            with poutine.trace(param_only=True) as capture:
+                guide_trace = poutine.trace(poutine.condition(guide, data=z)).get_trace(*args)
+                model_trace = poutine.trace(poutine.condition(model, data=z)).get_trace(*args)
+                loss = guide_trace.log_prob_sum() - model_trace.log_prob_sum()
+            loss.backward()
+            torch.cuda.synchronize()
+            grads = {k: store.get_unconstrained(k).grad.double() for k in capture.trace.param_nodes()}
+            grads.update({f"latent {k}": v.grad.double() for k, v in z.items()})
+            out[dtype] = (float(loss.detach()), grads, dict(gl.launches))
+    pyro.clear_param_store()
+    return out[torch.float32], out[torch.float64]
+
+
+def _check_forecast_first_step(torch, gl, label, data, cov, latent):
+    (loss32, g32, launches), (loss64, g64, _) = _forecast_first_step(torch, gl, data, cov, latent)
+    rel = abs(loss32 - loss64) / abs(loss64)
+    print(f"  {label}: first step's -ELBO at one latent value {loss32!r} against float64 {loss64!r} (rel {rel:.3g}); "
+          f"its K4 launches {_per(launches, 1)}")
+    check(rel <= TRAIN_LOSS_RTOL, f"{label}: first-step loss rel {rel:.3g} against float64")
+    check(launches["contract"] > 0 and launches["contract_bwd"] > 0, f"{label}: first step launched {launches}")
+    check_grads(label, g32, g64, TRAIN_GRAD_TOL)
+
+
+def _recorded_levels(torch, gl, label, fn, names):
+    """``fn()`` with every call of the K4 wrappers ``names`` recorded, each
+    recorded call then run through the kernel and the plain version and
+    held against each other (``check_k4_level``); returns {name: (levels,
+    max abs err)}."""
+    plain = {"contract_pairs": gl.contract_pairs_plain, "level_mids": gl.level_mids_plain,
+             "_contract_bwd_cuda": gl.contract_pairs_bwd_plain}
+    with contextlib.ExitStack() as stack:
+        calls = {name: stack.enter_context(record_levels(gl, name)) for name in names}
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    with torch.no_grad():
+        for name, recorded in calls.items():
+            err = 0.0
+            for i, args in enumerate(recorded):
+                if name == "contract_pairs":
+                    got = gl.contract_pairs(*args)[:3]
+                    want = plain[name](*args)[:3]
+                elif name == "level_mids":
+                    got, want = (gl.level_mids(*args),), (plain[name](*args),)
+                else:
+                    got, want = _sym_p(gl._contract_bwd_cuda(*args)), _sym_p(plain[name](*args))
+                err = max(err, check_k4_level(f"{label} {name} level {i}", got, want))
+            out[name] = (len(recorded), err)
+    print(f"  {label}: recorded K4 levels against their plain versions (count, max abs err): {out}")
+    return out
+
+
+def _local_level_conditional(np, y, t_obs, trans_scale, obs_scale, init_scale=10.0):
+    """The exact mean and variance of y[t_obs:] given y[:t_obs] for the
+    local level y_t = z_t + v_t, z_t = z_{t-1} + w_t, z_0 ~ N(0,
+    init_scale^2) (t = 1 .. T), densely in float64."""
+    T_all = y.shape[0]
+    steps = np.arange(1, T_all + 1)
+    cov = init_scale**2 + np.minimum.outer(steps, steps) * trans_scale**2 + np.eye(T_all) * obs_scale**2
+    o, f = slice(0, t_obs), slice(t_obs, T_all)
+    gain = cov[f, o] @ np.linalg.inv(cov[o, o])
+    return gain @ y[o], np.diag(cov[f, f] - gain @ cov[o, f])
+
+
+def _check_forecast_moments(torch, label, forecaster, data, cov, t_train):
+    """With the latents at the guide's median: FC_MOMENT_DRAWS draws of the
+    prefix-conditioned noise against the exact conditional moments, then
+    the forecaster's own FC_DRAWS draws against the exact mean."""
+    import numpy as np
+
+    import pyro_tpu_torch as pyro
+    import pyro_tpu_torch.distributions as tdist
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.ops.tensor_utils import periodic_repeat
+
+    median = {k: v.detach() for k, v in forecaster.guide.median(data[:t_train], cov[:t_train]).items()}
+    with torch.no_grad():
+        trace = poutine.trace(poutine.condition(forecaster.model, data=median)).get_trace(data[:t_train], cov)
+        cond = trace.nodes["residual"]["fn"]
+        prediction = periodic_repeat(median["weekly"], data.shape[0], dim=-2)
+        residual = (data - prediction)[:, 0].double().cpu().numpy()
+        mean, var = _local_level_conditional(np, residual, t_train, float(median["trans_scale"]),
+                                             float(median["obs_scale"]))
+        draws = cond.rsample(torch.Generator(device="cuda").manual_seed(2), (FC_MOMENT_DRAWS,))[..., 0].double()
+        t_mean = np.abs(draws.mean(0).cpu().numpy() - mean) / np.sqrt(var / FC_MOMENT_DRAWS)
+        v_rel = np.abs(draws.var(0).cpu().numpy() - var) / var
+        guide = forecaster.guide
+        forecaster.guide = _guide_at(pyro, tdist, median)
+        try:
+            samples = forecaster(data[:t_train], cov, num_samples=FC_DRAWS,
+                                 generator=torch.Generator(device="cuda").manual_seed(3))
+        finally:
+            forecaster.guide = guide
+        f_mean = mean + prediction[t_train:, 0].double().cpu().numpy()
+        t_fc = np.abs(samples[..., 0].double().mean(0).cpu().numpy() - f_mean) / np.sqrt(var / FC_DRAWS)
+    print(f"  {label}: at the guide's median, {FC_MOMENT_DRAWS} draws of the prefix-conditioned noise over "
+          f"{data.shape[0] - t_train} steps: mean at most {t_mean.max():.2f} standard errors from the exact "
+          f"conditional's (mean {t_mean.mean():.2f}), variance at most {v_rel.max():.3g} of it off; the forecaster's "
+          f"{FC_DRAWS} draws at most {t_fc.max():.2f} standard errors from the exact mean")
+    check(t_mean.max() <= FC_SE and v_rel.max() <= FC_VAR_RTOL and t_fc.max() <= FC_SE,
+          f"{label}: forecast moments off the exact conditional ({t_mean.max():.3g} SE, {v_rel.max():.3g}, "
+          f"{t_fc.max():.3g} SE)")
+
+
+def _hmc_first_step(torch, gl, fc, data, cov):
+    """HMCForecaster's vmapped potential and gradient of its chains at fixed
+    unconstrained points (numpy seed 0) through the kernels in float32,
+    against the plain levels in float64 on the card; returns the K4
+    launches of the float32 call."""
+    import numpy as np
+
+    dims = sum(v[0].numel() for v in fc._samples.values())
+    z = np.random.default_rng(0).uniform(-1.0, 1.0, (FC_HMC_CHAINS, dims))
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        with default_dtype(torch, dtype), (plain_levels(gl) if dtype == torch.float64 else contextlib.nullcontext()):
+            pg = _flat_potential(torch, fc._model_fn, (data.to(dtype), cov.to(dtype)), None, "cuda")
+            gl.reset_counts()
+            pe, grad = pg(torch.tensor(z, dtype=dtype, device="cuda"))
+            torch.cuda.synchronize()
+            out[dtype] = (pe.double(), grad.double(), dict(gl.launches))
+    (pe32, g32, launches), (pe64, g64, _) = out[torch.float32], out[torch.float64]
+    rel = float(((pe32 - pe64).abs() / pe64.abs()).max())
+    g_err, g_scale = float((g32 - g64).abs().max()), float(g64.abs().max())
+    print(f"  HMCForecaster's vmapped potential of {FC_HMC_CHAINS} chains ({dims} dims): rel err {rel:.3g} against "
+          f"float64; gradient {g_err:.3g} of max {g_scale:.3g}; K4 launches in the call {_per(launches, 1)}")
+    check(rel <= TRAIN_LOSS_RTOL and g_err <= TRAIN_GRAD_TOL * g_scale,
+          f"HMC potential rel {rel:.3g}, gradient {g_err:.3g} of {g_scale:.3g} against float64")
+    check(launches["contract"] > 0 and launches["contract_bwd"] > 0, f"HMC potential launched {launches}")
+    return launches
+
+
+def phase_forecast(torch, gl, smi):
+    """Phase 21: forecasting through K4: (a) examples/forecast_bart.py as it
+    stands, (b) its Model at the length of upstream's BART counts, (c)
+    HMCForecaster with the DCT time reparam."""
+    print(f"phase 21: forecasting through K4 ({smi})")
+    import numpy as np
+
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.contrib.forecast import Forecaster, HMCForecaster
+    from pyro_tpu_torch.examples import forecast_bart as example
+    from pyro_tpu_torch.infer import SVI, Trace_ELBO
+    from pyro_tpu_torch.optim import DCTAdam
+
+    pyro.set_default_device("cuda")
+    out = {}
+
+    # (a) the JAX example as it stands: load_fake_od, 744 hours, t_train 595
+    pyro.clear_param_store()
+    data, t_train = example.fake_data()
+    T_all = data.shape[0]
+    cov = data.new_zeros((T_all, 0))
+    latent = {"weekly": data[:t_train - t_train % 168].reshape(-1, 168, 1).mean(0),
+              "trans_scale": torch.tensor(0.1, device="cuda"), "obs_scale": torch.tensor(0.2, device="cuda")}
+    _check_forecast_first_step(torch, gl, "(a) fake_od", data[:t_train], cov[:t_train], latent)
+    pyro.clear_param_store()
+    gl.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forecaster = Forecaster(example.Model(), data[:t_train], cov[:t_train], num_steps=FC_STEPS, learning_rate=FC_LR,
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+    train_s = time.perf_counter() - t0  # the losses were read: synced
+    train_launches = {k: gl.launches[k] for k in FC_KEYS}
+    losses = forecaster.losses
+    check(all(math.isfinite(l) for l in losses) and np.mean(losses[-20:]) < np.mean(losses[:20]),
+          f"(a): losses {losses[:3]} ... {losses[-3:]}")
+    check(train_launches["contract"] > 0 and train_launches["contract_bwd"] > 0, f"(a) training: {train_launches}")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    samples, call_launches = counted(torch, gl, "(a) a forecast call", lambda: forecaster(
+        data[:t_train], cov, num_samples=FC_DRAWS, generator=gen), FC_KEYS)
+    check(call_launches["contract"] > 0 and call_launches["mids"] > 0, f"(a) forecast: {call_launches}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = forecaster(data[:t_train], cov, num_samples=FC_DRAWS, generator=gen)
+    torch.cuda.synchronize()
+    call_ms = 1e3 * (time.perf_counter() - t0)
+    check(samples.shape == (FC_DRAWS, T_all - t_train, 1) and bool(samples.isfinite().all()),
+          f"(a) forecast {tuple(samples.shape)}")
+    mae = float((samples.mean(0)[:, 0] - data[t_train:, 0]).abs().mean())
+    print(f"  (a) fake_od (744 hours, t_train {t_train}): {FC_STEPS} DCTAdam steps in {train_s:.3f} s "
+          f"({1e3 * train_s / FC_STEPS:.3f} ms a step, with the set-up), loss {losses[0]:.2f} -> {losses[-1]:.2f}; "
+          f"K4 launches a step {_per(train_launches, FC_STEPS)}; a forecast call of {FC_DRAWS} draws {call_ms:.3f} ms "
+          f"({call_ms / FC_DRAWS:.3f} ms a draw), launches a draw {_per(call_launches, FC_DRAWS)}; MAE over the "
+          f"{T_all - t_train} held-out hours {mae:.4f}")
+    svi = SVI(lambda d, c: forecaster.model(d, c), forecaster.guide, DCTAdam({"lr": FC_LR}), Trace_ELBO())
+    step_levels = _recorded_levels(torch, gl, "(a) a training step", lambda: svi.step(data[:t_train], cov[:t_train]),
+                                   ("contract_pairs", "_contract_bwd_cuda"))
+    call_levels = _recorded_levels(torch, gl, "(a) a forecast draw", lambda: forecaster(
+        data[:t_train], cov, num_samples=1, generator=gen), ("contract_pairs", "level_mids"))
+    wall, busy, ops, kernels = profile_run(torch, lambda: svi.step(data[:t_train], cov[:t_train]), top=5)
+    k4_ms = sum(e.self_device_time_total for e in kernels if kernel_name(e).startswith("gl_")) / 1e3
+    print(f"  (a) profiled step: {ops} device operations, busy {100 * busy / wall:.1f}%, K4 {k4_ms:.4f} device ms")
+    _check_forecast_moments(torch, "(a)", forecaster, data, cov, t_train)
+    out["fake"] = {"step_ms": 1e3 * train_s / FC_STEPS, "call_ms": call_ms, "mae": mae, "busy_share": busy / wall,
+                   "step_launches": _per(train_launches, FC_STEPS), "draw_launches": _per(call_launches, FC_DRAWS),
+                   "levels": (step_levels, call_levels)}
+
+    # (b) the same Model at the length of upstream's BART counts
+    pyro.clear_param_store()
+    data, t_train = example.synthetic_total_ridership(0)
+    T_all = data.shape[0]
+    cov = data.new_zeros((T_all, 0))
+    latent = {"weekly": data[:t_train - t_train % 168].reshape(-1, 168, 1).mean(0),
+              "trans_scale": torch.tensor(0.1, device="cuda"), "obs_scale": torch.tensor(0.1, device="cuda")}
+    _check_forecast_first_step(torch, gl, f"(b) T={T_all}", data[:t_train], cov[:t_train], latent)
+    pyro.clear_param_store()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    forecaster = Forecaster(example.Model(), data[:t_train], cov[:t_train], num_steps=1, learning_rate=FC_LR,
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+    warm_s = time.perf_counter() - t0
+    svi = SVI(lambda d, c: forecaster.model(d, c), forecaster.guide, DCTAdam({"lr": FC_LR}), Trace_ELBO())
+    svi.step(data[:t_train], cov[:t_train])
+    _, step_launches = counted(torch, gl, f"(b) a step at T={t_train}",
+                               lambda: svi.step(data[:t_train], cov[:t_train]), FC_KEYS)
+    ms = []
+    for _ in range(FC_LONG_STEPS):
+        t0 = time.perf_counter()
+        svi.step(data[:t_train], cov[:t_train])  # reads the loss: synced
+        ms.append(1e3 * (time.perf_counter() - t0))
+    ms.sort()
+    step_ms = sum(ms) / len(ms)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples, long_call = counted(torch, gl, "(b) a forecast call", lambda: forecaster(
+        data[:t_train], cov, num_samples=FC_DRAWS, generator=gen), FC_KEYS)
+    long_call_ms = 1e3 * (time.perf_counter() - t0)
+    check(samples.shape == (FC_DRAWS, T_all - t_train, 1) and bool(samples.isfinite().all()),
+          f"(b) forecast {tuple(samples.shape)}")
+    check(step_launches["contract"] > 0 and step_launches["contract_bwd"] > 0 and long_call["mids"] > 0,
+          f"(b): launches {step_launches}, {long_call}")
+    mae = float((samples.mean(0)[:, 0] - data[t_train:, 0]).abs().mean())
+    print(f"  (b) T={T_all} (train {t_train}): warm-up Forecaster (set-up and one step) {warm_s:.3f} s; "
+          f"{FC_LONG_STEPS} steps mean {step_ms:.3f} ms, median {ms[len(ms) // 2]:.3f}, min {ms[0]:.3f}, max "
+          f"{ms[-1]:.3f}; launches a step {step_launches}; a forecast call of {FC_DRAWS} draws {long_call_ms:.3f} ms, "
+          f"launches a draw {_per(long_call, FC_DRAWS)}; MAE over the {T_all - t_train} held-out hours {mae:.4f}")
+    step_levels = _recorded_levels(torch, gl, "(b) a training step", lambda: svi.step(data[:t_train], cov[:t_train]),
+                                   ("contract_pairs", "_contract_bwd_cuda"))
+    call_levels = _recorded_levels(torch, gl, "(b) a forecast draw", lambda: forecaster(
+        data[:t_train], cov, num_samples=1, generator=gen), ("contract_pairs", "level_mids"))
+    wall, busy, ops, kernels = profile_run(torch, lambda: svi.step(data[:t_train], cov[:t_train]), top=5)
+    k4_ms = sum(e.self_device_time_total for e in kernels if kernel_name(e).startswith("gl_")) / 1e3
+    print(f"  (b) profiled step: {ops} device operations, busy {100 * busy / wall:.1f}%, K4 {k4_ms:.4f} device ms")
+    out["long"] = {"step_ms": step_ms, "call_ms": long_call_ms, "mae": mae, "busy_share": busy / wall,
+                   "step_launches": step_launches, "draw_launches": _per(long_call, FC_DRAWS),
+                   "levels": (step_levels, call_levels)}
+
+    # (c) HMCForecaster on the example's model and data, DCT time reparam
+    pyro.clear_param_store()
+    data, t_train = example.fake_data()
+    T_all = data.shape[0]
+    cov = data.new_zeros((T_all, 0))
+    print(f"  CUT: (c) max_tree_depth {FC_HMC_TREE_DEPTH} instead of HMCForecaster's 10")
+    t0 = time.perf_counter()
+    probe = HMCForecaster(example.Model(), data[:t_train], cov[:t_train], num_warmup=FC_HMC_PROBE, num_samples=1,
+                          num_chains=FC_HMC_CHAINS, time_reparam="dct", max_tree_depth=FC_HMC_TREE_DEPTH,
+                          generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    probe_s = time.perf_counter() - t0
+    kernel = probe._mcmc.kernel
+    b = next(iter(kernel._leaf_buffers.values()))
+    check(b.graph is not None, "(c): the NUTS leaf was not captured")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        b.graph.replay()
+    torch.cuda.synchronize()
+    leaf_s = (time.perf_counter() - t0) / 5
+    full_tree_s = (2 ** FC_HMC_TREE_DEPTH) * leaf_s
+    n = max(FC_HMC_MIN, min(FC_HMC_ITERS, int(FC_HMC_BUDGET_S / (2 * 1.2 * full_tree_s))))
+    print(f"  (c) probe: {FC_HMC_PROBE + 1} iterations with the set-up and the capture in {probe_s:.2f} s, "
+          f"{kernel.counts['leapfrogs'] / (FC_HMC_PROBE + 1):.1f} leaves each; a replayed leaf {1e3 * leaf_s:.3f} ms")
+    if n < FC_HMC_ITERS:
+        print(f"  CUT: (c) {n} warmup iterations and {n} samples instead of {FC_HMC_ITERS} and {FC_HMC_ITERS}, to "
+              f"stay near {FC_HMC_BUDGET_S} s")
+    leaf_launches = _hmc_first_step(torch, gl, probe, data[:t_train], cov[:t_train])
+    gl.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fc = HMCForecaster(example.Model(), data[:t_train], cov[:t_train], num_warmup=n, num_samples=n,
+                       num_chains=FC_HMC_CHAINS, time_reparam="dct", max_tree_depth=FC_HMC_TREE_DEPTH,
+                       generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run_launches = {k: gl.launches[k] for k in FC_KEYS}
+    leaves = fc._mcmc.kernel.counts["leapfrogs"]
+    check(sorted(fc._samples) == ["obs_scale", "trans_scale", "weekly_dct"], f"(c) sites {sorted(fc._samples)}")
+    check(all(bool(v.isfinite().all()) for v in fc._samples.values()), "(c) non-finite draws")
+    check(run_launches["contract"] > 0 and run_launches["contract_bwd"] > 0, f"(c) run launches {run_launches}")
+    accept = float(fc._mcmc._diagnostics_extra["accept_prob"].mean())
+    b = next(iter(fc._mcmc.kernel._leaf_buffers.values()))
+    wall, busy, ops, events = profile_run(torch, b.graph.replay, top=5)
+    by_name = {}
+    for e in events:
+        if kernel_name(e).startswith("gl_"):
+            by_name[kernel_name(e)] = by_name.get(kernel_name(e), 0) + e.count
+    k4_ms = sum(e.self_device_time_total for e in events if kernel_name(e).startswith("gl_")) / 1e3
+    print(f"  (c) {FC_HMC_CHAINS} chains, {n} + {n} iterations in {run_s:.2f} s ({2 * n / run_s:.2f} iterations/s), "
+          f"{leaves} leaves ({leaves / (2 * n):.1f} an iteration), mean accept probability {accept:.3f}; K4 launches "
+          f"over the run {run_launches} (the wrapper counts a graph's capture, not its replays); a leaf's K4 kernels "
+          f"by name from the profiler {by_name}, {k4_ms:.4f} device ms")
+    check(sum(by_name.values()) > 0, "(c) the replayed leaf ran no K4 kernel")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    samples, hmc_call = counted(torch, gl, "(c) a forecast call", lambda: fc(
+        data[:t_train], cov, num_samples=FC_DRAWS, generator=gen), FC_KEYS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    samples = fc(data[:t_train], cov, num_samples=FC_DRAWS, generator=gen)
+    torch.cuda.synchronize()
+    hmc_call_ms = 1e3 * (time.perf_counter() - t0)
+    check(samples.shape == (FC_DRAWS, T_all - t_train, 1) and bool(samples.isfinite().all()),
+          f"(c) forecast {tuple(samples.shape)}")
+    check(hmc_call["contract"] > 0 and hmc_call["mids"] > 0, f"(c) forecast launches {hmc_call}")
+    mae = float((samples.mean(0)[:, 0] - data[t_train:, 0]).abs().mean())
+    print(f"  (c) a forecast call of {FC_DRAWS} draws {hmc_call_ms:.3f} ms, launches a draw "
+          f"{_per(hmc_call, FC_DRAWS)}; MAE {mae:.4f}")
+    out["hmc"] = {"iterations": n, "run_s": run_s, "leaf_ms": 1e3 * leaf_s, "call_ms": hmc_call_ms, "mae": mae,
+                  "busy_share": busy / wall, "leaf_launches": leaf_launches}
+    pyro.clear_param_store()
+    torch.cuda.empty_cache()
+    return out
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -3770,6 +4180,7 @@ def main():
     phase_queries(torch, lm)
     phase_gp(torch, gl, smi)
     phase_nuts_enum(torch, lm, ms, gl, smi)
+    phase_forecast(torch, gl, smi)
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"

@@ -1,5 +1,6 @@
 """Constraints on distribution parameters and supports (the part of
-``pyro_tpu/distributions/constraints.py`` this package uses).  A constraint
+``pyro_tpu/distributions/constraints.py`` this package uses; the matrix
+constraints come with their first distribution).  A constraint
 knows its ``event_dim`` and can ``check`` values; ``biject_to`` and
 ``transform_to`` in ``transforms.py`` map constraints to transforms."""
 
@@ -73,6 +74,22 @@ class _GreaterThan(Constraint):
         return value > self.lower_bound
 
 
+class _GreaterThanEq(Constraint):
+    def __init__(self, lower_bound):
+        self.lower_bound = lower_bound
+
+    def check(self, value):
+        return value >= self.lower_bound
+
+
+class _LessThan(Constraint):
+    def __init__(self, upper_bound):
+        self.upper_bound = upper_bound
+
+    def check(self, value):
+        return value < self.upper_bound
+
+
 class _Interval(Constraint):
     def __init__(self, lower_bound, upper_bound):
         self.lower_bound = lower_bound
@@ -80,6 +97,11 @@ class _Interval(Constraint):
 
     def check(self, value):
         return (value >= self.lower_bound) & (value <= self.upper_bound)
+
+
+class _OpenInterval(_Interval):
+    def check(self, value):
+        return (value > self.lower_bound) & (value < self.upper_bound)
 
 
 class _IntegerInterval(Constraint):
@@ -91,6 +113,29 @@ class _IntegerInterval(Constraint):
 
     def check(self, value):
         return (value % 1 == 0) & (value >= self.lower_bound) & (value <= self.upper_bound)
+
+
+class _IntegerGreaterThan(Constraint):
+    is_discrete = True
+
+    def __init__(self, lower_bound):
+        self.lower_bound = lower_bound
+
+    def check(self, value):
+        return (value % 1 == 0) & (value >= self.lower_bound)
+
+
+class _Multinomial(Constraint):
+    """Count vectors whose total is at most ``upper_bound``."""
+
+    is_discrete = True
+    event_dim = 1
+
+    def __init__(self, upper_bound):
+        self.upper_bound = upper_bound
+
+    def check(self, value):
+        return (value >= 0).all(-1) & (value.sum(-1) <= self.upper_bound)
 
 
 class _LowerCholesky(Constraint):
@@ -126,9 +171,19 @@ boolean = _Boolean()
 real = _Real()
 real_vector = _IndependentConstraint(_Real(), 1)
 positive = _GreaterThan(0.0)
+nonnegative = _GreaterThanEq(0.0)
+negative = _LessThan(0.0)
 unit_interval = _Interval(0.0, 1.0)
 interval = _Interval
+open_interval = _OpenInterval
+greater_than = _GreaterThan
+greater_than_eq = _GreaterThanEq
+less_than = _LessThan
 integer_interval = _IntegerInterval
+integer_greater_than = _IntegerGreaterThan
+nonnegative_integer = _IntegerGreaterThan(0)
+positive_integer = _IntegerGreaterThan(1)
+multinomial = _Multinomial
 simplex = _Simplex()
 lower_cholesky = _LowerCholesky()
 softplus_positive = _SoftplusPositive()
@@ -139,11 +194,21 @@ __all__ = [
     "Constraint",
     "boolean",
     "dependent",
+    "greater_than",
+    "greater_than_eq",
     "independent",
+    "integer_greater_than",
     "integer_interval",
     "interval",
+    "less_than",
     "lower_cholesky",
+    "multinomial",
+    "negative",
+    "nonnegative",
+    "nonnegative_integer",
+    "open_interval",
     "positive",
+    "positive_integer",
     "real",
     "real_vector",
     "simplex",

@@ -6,11 +6,13 @@ The param store keeps unconstrained values and maps them through
 
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from . import constraints
-from .util import clamp_probs, sum_rightmost
+from .util import broadcast_shape, clamp_probs, sum_rightmost
 
 
 class Transform:
@@ -181,6 +183,89 @@ class ExpTransform(Transform):
 
     def _inverse(self, y):
         return torch.log(y)
+
+    def log_abs_det_jacobian(self, x, y):
+        return x
+
+
+class AbsTransform(Transform):
+    """|x|: not a bijection, so it has no Jacobian; ``FoldedDistribution``
+    scores its values itself."""
+
+    codomain = constraints.positive
+
+    def __call__(self, x):
+        return x.abs()
+
+    def _inverse(self, y):
+        return y
+
+
+class AffineTransform(Transform):
+    """``loc + scale * x``; with ``event_dim`` its Jacobian is summed over
+    that many rightmost dims."""
+
+    def __init__(self, loc, scale, event_dim: int = 0):
+        self.loc, self.scale, self._event_dim = loc, scale, event_dim
+
+    @property
+    def domain(self):  # type: ignore[override]
+        return constraints.independent(constraints.real, self._event_dim) if self._event_dim else constraints.real
+
+    codomain = domain
+
+    def __call__(self, x):
+        return self.loc + self.scale * x
+
+    def _inverse(self, y):
+        return (y - self.loc) / self.scale
+
+    def log_abs_det_jacobian(self, x, y):
+        if isinstance(self.scale, (int, float)):
+            result = torch.full(x.shape, math.log(abs(self.scale)), dtype=x.dtype, device=x.device)
+        else:
+            result = torch.log(self.scale.abs()).expand(x.shape)
+        return sum_rightmost(result, self._event_dim)
+
+    def forward_shape(self, shape):
+        return broadcast_shape(shape, *(getattr(p, "shape", ()) for p in (self.loc, self.scale)))
+
+    inverse_shape = forward_shape
+
+
+class PowerTransform(Transform):
+    """``x ** exponent`` on the positive reals."""
+
+    domain = constraints.positive
+    codomain = constraints.positive
+
+    def __init__(self, exponent):
+        self.exponent = exponent
+
+    def __call__(self, x):
+        return x.pow(self.exponent)
+
+    def _inverse(self, y):
+        return y.pow(1.0 / self.exponent)
+
+    def log_abs_det_jacobian(self, x, y):
+        return torch.log((self.exponent * y / x).abs()).expand(x.shape)
+
+
+class _BoundTransform(Transform):
+    """The reals -> (bound, inf) by ``bound + exp(x)`` (``sign`` +1) or ->
+    (-inf, bound) by ``bound - exp(x)`` (``sign`` -1): the JAX package's
+    composition of the exp and an affine map with scale +-1."""
+
+    def __init__(self, bound, sign):
+        self.bound, self.sign = bound, sign
+        self.codomain = constraints.greater_than(bound) if sign > 0 else constraints.less_than(bound)
+
+    def __call__(self, x):
+        return self.bound + self.sign * torch.exp(x)
+
+    def _inverse(self, y):
+        return torch.log(self.sign * (y - self.bound))
 
     def log_abs_det_jacobian(self, x, y):
         return x
@@ -359,9 +444,20 @@ def _biject_to_independent(constraint):
 
 
 @biject_to.register(constraints.positive)
+@biject_to.register(constraints.nonnegative)
 @transform_to.register(constraints.positive)
-def _transform_to_positive(constraint):
-    return ExpTransform()
+@transform_to.register(constraints.nonnegative)
+def _transform_to_greater_than(constraint):
+    # positive is greater_than(0): the exp, which the bound form equals there
+    if isinstance(constraint.lower_bound, (int, float)) and constraint.lower_bound == 0:
+        return ExpTransform()
+    return _BoundTransform(constraint.lower_bound, 1)
+
+
+@biject_to.register(constraints.less_than)
+@transform_to.register(constraints.less_than)
+def _transform_to_less_than(constraint):
+    return _BoundTransform(constraint.upper_bound, -1)
 
 
 @biject_to.register(constraints.softplus_positive)
@@ -383,7 +479,9 @@ def _transform_to_softplus_lower_cholesky(constraint):
 
 
 @biject_to.register(constraints.interval)
+@biject_to.register(constraints.open_interval)
 @transform_to.register(constraints.interval)
+@transform_to.register(constraints.open_interval)
 def _transform_to_interval(constraint):
     low, high = constraint.lower_bound, constraint.upper_bound
     if isinstance(low, (int, float)) and isinstance(high, (int, float)) and (low, high) == (0, 1):

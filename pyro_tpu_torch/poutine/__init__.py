@@ -1,6 +1,7 @@
 from .enum_messenger import EnumMessenger
 from .handlers import EscapeMessenger, block, condition, infer_config, mask, replay, scale, seed, trace
 from .messenger import Messenger
+from .reparam_messenger import ReparamMessenger, reparam
 from .runtime import NonlocalExit, am_i_wrapped, apply_stack
 from .trace_struct import Trace
 
@@ -9,6 +10,7 @@ __all__ = [
     "EscapeMessenger",
     "Messenger",
     "NonlocalExit",
+    "ReparamMessenger",
     "Trace",
     "am_i_wrapped",
     "apply_stack",
@@ -16,6 +18,7 @@ __all__ = [
     "condition",
     "infer_config",
     "mask",
+    "reparam",
     "replay",
     "scale",
     "seed",

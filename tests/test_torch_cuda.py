@@ -1654,3 +1654,89 @@ def test_nuts_leaf_over_the_enumerated_potential_replays_to_the_same_result(cuda
         assert torch.equal(a, b), name
         a, c = a.double(), c.double()
         assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max()) + 1e-6, name
+
+
+# -- forecasting at the length of upstream's BART counts (T = 78,888) ------------------
+
+
+def _record(module, name, calls):
+    """``module.<name>`` wrapped so that each call's arguments and result
+    land in ``calls``."""
+    fn = getattr(module, name)
+
+    def recorder(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    return recorder
+
+
+def _long_forecast_model(cuda):
+    """The example's Model over the synthetic series of 78,888 hours, its
+    latents fixed (the weekly profile at the training window's hour-of-week
+    means, both scales 0.1)."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.examples import forecast_bart as example
+
+    pyro.set_default_device("cuda")
+    data, t_train = example.synthetic_total_ridership(0)
+    weeks = data[:t_train - t_train % 168].reshape(-1, 168, 1)
+    latent = {"weekly": weeks.mean(0), "trans_scale": torch.tensor(0.1, device=cuda),
+              "obs_scale": torch.tensor(0.1, device=cuda)}
+    return example.Model(), data, t_train, latent
+
+
+def test_forecast_training_step_levels_at_the_bart_length(cuda, monkeypatch):
+    """One gradient of the example model's log joint over the 78,552-hour
+    training window: every K4b level it launches, forward (with its tape)
+    and backward, against the plain versions at the same inputs."""
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    model, data, t_train, latent = _long_forecast_model(cuda)
+    cov = data.new_zeros((t_train, 0))
+    fwd, bwd = [], []
+    monkeypatch.setattr(gl, "contract_pairs", _record(gl, "contract_pairs", fwd))
+    monkeypatch.setattr(gl, "_contract_bwd_cuda", _record(gl, "_contract_bwd_cuda", bwd))
+    z = {k: v.clone().requires_grad_() for k, v in latent.items()}
+    gl.reset_counts()
+    trace = poutine.trace(poutine.condition(model, data=z)).get_trace(data[:t_train], cov)
+    trace.log_prob_sum().backward()
+    torch.cuda.synchronize()
+    assert fwd and bwd and gl.launches["contract"] == len(fwd) and gl.launches["contract_bwd"] == len(bwd)
+    with torch.no_grad():
+        for args, kwargs, out in fwd:
+            for a, b in zip(out[:3], gl.contract_pairs_plain(*args, **kwargs)[:3]):
+                _assert_near(a, b)
+        for args, _, out in bwd:
+            want = gl.contract_pairs_bwd_plain(*args)
+            _assert_near(_sym(out[0]), _sym(want[0]))
+            for a, b in zip(out[1:], want[1:]):
+                _assert_near(a, b)
+    assert all(bool(torch.isfinite(v.grad).all()) for v in z.values())
+
+
+def test_forecast_call_levels_at_the_bart_length(cuda, monkeypatch):
+    """One forecast of the 336 held-out hours after the 78,552-hour window:
+    the filter's K4b levels, the draw's K4b levels (with their tapes) and
+    its K4c levels, each against the plain version at the same inputs."""
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.ops import gaussian_levels as gl
+
+    model, data, t_train, latent = _long_forecast_model(cuda)
+    cov = data.new_zeros((data.shape[0], 0))
+    contract, mids = [], []
+    monkeypatch.setattr(gl, "contract_pairs", _record(gl, "contract_pairs", contract))
+    monkeypatch.setattr(gl, "level_mids", _record(gl, "level_mids", mids))
+    gl.reset_counts()
+    with torch.no_grad(), poutine.seed(rng_seed=torch.Generator(device=cuda).manual_seed(0)):
+        forecast = poutine.condition(model, data=latent)(data[:t_train], cov)
+        torch.cuda.synchronize()
+        assert forecast.shape == (data.shape[0] - t_train, 1) and bool(torch.isfinite(forecast).all())
+        assert gl.launches["contract"] == len(contract) > 0 and gl.launches["mids"] == len(mids) > 0
+        for args, kwargs, out in contract:
+            for a, b in zip(out[:3], gl.contract_pairs_plain(*args, **kwargs)[:3]):
+                _assert_near(a, b)
+        for args, _, out in mids:
+            _assert_near(out, gl.level_mids_plain(*args))
