@@ -5,7 +5,7 @@
 
 Phases (any failure exits non-zero):
   1. device and build: the card's name and power limit, and the CUDA
-     kernels (``log_matmul.cu``, ``markov_scan.cu``,
+     kernels (``log_matmul.cu``, ``log_chain.cu``, ``markov_scan.cu``,
      ``gaussian_levels.cu``) built from ``pyro_tpu_torch/csrc`` with one
      nvcc each, started together;
   2. K1, log-matmul-exp forward and backward, against its plain PyTorch
@@ -130,7 +130,8 @@ Phases (any failure exits non-zero):
      K2g's device ms;
   14. the ten chain cases of ``tests/test_vectorized_markov.py``
      (``examples/vectorized_markov.py``) on the card through the route each
-     takes (K2, K2g, or the pairwise fallback's K1 rounds), loss and
+     takes (K2, K2g, or the pairwise fallback, whose windows of at most 64
+     states take K3f), loss and
      gradients against the port's float64 CPU run; model_5 (history 2) at
      x_dim 16, T=128, 51 tones (windows of 256 states, K1 at (63, 256, 256)
      in the first round): the first step against float64 on the CPU, 3 SVI
@@ -266,10 +267,32 @@ Phases (any failure exits non-zero):
      exact conditional of the local level (dense, float64); ms a step and
      a forecast call (host clock, synced) and the busy share of one
      profiled step or replayed leaf;
-  22. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
+  22. slice 20, epidemiology through K3f (``log_chain.cu``; the card's
+     name and power limit on the phase's first line):
+     ``CompartmentalModel.fit_mcmc(num_quant_bins=4)``, 4 chains, on (a)
+     ``examples/sir_hmc.py``'s data at its defaults (SIR, 16 enumerated
+     states, T=20), (b) ``SimpleSEIRModel`` at population 1000 over 60
+     days (64 states; data from the model's own prior at R0 2, response
+     rate 0.5, the first seed of 0, 1, ... with at least 30 observed
+     infections) and (c) ``examples/epidemiology_regional.py``'s defaults
+     (3 regions, 16 states, T=16: K3f over chains x regions rows), each
+     with NUTS at ``max_tree_depth`` 6, 100 + 100 iterations and a relaxed
+     SVI start of 200 steps (the cuts printed); for each, K3f's launches
+     in one vmapped potential-and-gradient call and in one profiled
+     replayed leaf (one each way), every K3f call of that vmapped call
+     against ``sequential_logmatmulexp_plain``, the potential and gradient
+     at the run's last state against the port's float64 CPU run, ms a
+     replayed leaf, leaves an iteration, iterations/s, the leaf's busy
+     share and K3f's device ms, ms an SVI step of the start, the posterior
+     median of R0, and K3f timed at the run's shape in turns with K1's
+     rounds and the plain version, beside its bound; (a)'s R0 median
+     against a relaxed NUTS fit's; (d) ``examples/epidemiology_sir.py`` at
+     its defaults with 300 SVI steps, then ``predict(forecast=10)``, which
+     reach no kernel;
+  23. a ``kernels`` JSON line (K1 forward and backward, K2 forward and
      backward on each route, K4a-c, K4a and K4b backward, K2g forward and
-     backward on each route, K5a and K5b), the card's name and power
-     limit, then the result line.
+     backward on each route, K5a and K5b, K3f forward and backward), the
+     card's name and power limit, then the result line.
 
 Tolerances: K1 forward atol 1e-4 on log values; gradients rtol 1e-4 with
 atol 1e-5 * max|g| (the kernel sums in another order than cuBLAS, and its
@@ -351,7 +374,12 @@ gradient within 1e-3 times its largest entry (as a training step's); 4000
 draws of the prefix-conditioned noise at the guide's median, each step's
 mean within 5 standard errors and its variance within 10% of the exact
 conditional's, and the forecaster's 100 draws' mean within 5 standard
-errors of the exact mean.  Without a CUDA
+errors of the exact mean.  Epidemiology: each K3f call -inf exactly where
+its plain version is, no NaN, finite values within 1e-5 * max|out| + 1e-5
+and gradients within 1e-4 * max|grad| of the plain version's (the same
+sums in another order); the quantized potential and gradient as NUTS's
+above; (a)'s quantized R0 median within 1.0 of the relaxed fit's (the JAX
+package's test criterion).  Without a CUDA
 device, or without the package beside this script, it exits non-zero and
 prints no result.
 """
@@ -2155,6 +2183,7 @@ def phase_fallback(torch, lm, ms):
             data = data_fn()
             ms.reset_counts()
             lm.launches.update(forward=0, backward=0)
+            lm.reset_chain_counts()
             markov_product.reset_routes()
             with poutine.trace(param_only=True) as capture:
                 loss = TraceEnum_ELBO(max_plate_nesting=3).differentiable_loss(model, vm.no_guide, data, *args)
@@ -2163,13 +2192,15 @@ def phase_fallback(torch, lm, ms):
                 torch.cuda.synchronize()
             store = pyro.get_param_store()
             grads = {k: store.get_unconstrained(k).grad.detach().double().cpu() for k in capture.trace.param_nodes()}
-            counts = {"routes": dict(markov_product.routes), "K1": dict(lm.launches), "K2": dict(ms.launches),
-                      "K2g": dict(ms.tv_launches)}
+            counts = {"routes": dict(markov_product.routes), "K1": dict(lm.launches), "K3f": dict(lm.chain_launches),
+                      "K2": dict(ms.launches), "K2g": dict(ms.tv_launches)}
         pyro.clear_param_store()
         pyro.set_default_device("cuda")
         return float(loss.detach()), grads, counts
 
-    kernel_of = {"scan": "K2", "general": "K2g", "pairwise": "K1"}
+    # the pairwise fallback's windows hold at most 64 states in these cases:
+    # their chains take K3f (at more states they would take K1 a round)
+    kernel_of = {"scan": "K2", "general": "K2g", "pairwise": "K3f"}
     for model, kind, shape, history in vm.CASES:
         label = f"{model.__name__} T={shape[-2]} history {history}"
         data_fn = functools.partial(vm.make_data, kind, shape)
@@ -2179,7 +2210,8 @@ def phase_fallback(torch, lm, ms):
         kern = counts[kernel_of[route]]
         rel = abs(loss32 - loss64) / abs(loss64)
         gerr = max(max_err(g32[k], g64[k]) / (float(g64[k].abs().max()) + 1e-30) for k in g64)
-        print(f"  {label}: route {route}, launches {counts['K1']} K1, {counts['K2']} K2, {counts['K2g']} K2g; "
+        print(f"  {label}: route {route}, launches {counts['K1']} K1, {counts['K3f']} K3f, {counts['K2']} K2, "
+              f"{counts['K2g']} K2g; "
               f"loss {loss32:.6f} vs float64 CPU {loss64:.6f} (rel {rel:.3g}); grads to float64 over max|grad| {gerr:.3g}")
         check(counts["routes"][route] == 1 and kern["forward"] > 0 and kern["backward"] > 0,
               f"{label}: expected the {route} route through {kernel_of[route]}, got {counts}")
@@ -3388,7 +3420,13 @@ def _potential_against_cpu(torch, label, model, model_args, nesting, z):
                 cpu[dtype] = cpu_pg(z.cpu().to(dtype))
     finally:
         pyro.set_default_device("cuda")
-    (pe64, g64), (pe32c, g32c) = cpu[torch.float64], cpu[torch.float32]
+    return _check_potential(torch, label, (pe, grad), cpu[torch.float64], cpu[torch.float32])
+
+
+def _check_potential(torch, label, card, cpu64, cpu32):
+    """The card's (potential, gradient) no further from the CPU's float64
+    run than NE_F32_FACTOR times the CPU's float32 run; returns the card's."""
+    (pe, grad), (pe64, g64), (pe32c, g32c) = card, cpu64, cpu32
     pe_err = float((pe.double().cpu() - pe64).abs().max())
     pe_ref = float((pe32c.double() - pe64).abs().max())
     g_err = float((grad.double().cpu() - g64).abs().max())
@@ -4081,6 +4119,310 @@ def phase_forecast(torch, gl, smi):
     return out
 
 
+# -- slice 20: epidemiology, the quantized compartmental models through K3f -------------
+
+# Cuts for the script's time limit: the relaxed SVI steps are host-bound
+# (about 130 ms a step at T = 20 and 540 at SEIR's T = 60 on an H100), so
+# the heuristic start, (a)'s relaxed comparison and (d) are cut in depth.
+EPI_CHAINS, EPI_ITERS, EPI_TREE_DEPTH, EPI_HEURISTIC, EPI_Q = 4, 100, 6, 100, 4
+EPI_RELAXED_ITERS = 50  # (a)'s relaxed NUTS fit, the yardstick of its R0
+EPI_SVI_STEPS, EPI_FORECAST = 150, 10  # (d): examples/epidemiology_sir.py, cut from 1000 steps
+EPI_SEIR = dict(population=1000, incubation_time=5.5, recovery_time=7.0, duration=60, R0=2.0, rho=0.5, min_obs=30)
+EPI_R0_GAP = 1.0  # (a)'s quantized R0 median against the relaxed fit's (tests/test_epidemiology.py:270-312)
+
+
+def _seir_data(torch):
+    """(b)'s data: a draw of SimpleSEIRModel's prior at R0 2 and response
+    rate 0.5, the first seed of 0, 1, ... with at least 30 observed
+    infections."""
+    from pyro_tpu_torch.contrib.epidemiology import SimpleSEIRModel
+
+    c = EPI_SEIR
+    ext = SimpleSEIRModel(c["population"], c["incubation_time"], c["recovery_time"], torch.zeros(c["duration"]))
+    for seed in range(100):
+        sample = ext.generate({"R0": c["R0"], "rho": c["rho"]}, generator=seed)
+        obs = torch.stack([sample[f"obs_{t}"] for t in range(c["duration"])])
+        if float(obs.sum()) >= c["min_obs"]:
+            return obs, seed
+    raise SmokeFailure("no SEIR prior draw with enough observed infections")
+
+
+def _check_chain_calls(torch, lm, calls, label):
+    """Every K3f launch recorded in a vmapped call against the plain version
+    at the same (folded) inputs; returns (forward, backward) max abs errors
+    and the forward inputs' shapes."""
+    worst_f, worst_b, shapes = 0.0, 0.0, set()
+    for (x,), (out, _) in calls["_chain_forward_cuda"]:
+        shapes.add(tuple(x.shape))
+        want = lm.sequential_logmatmulexp_plain(x)
+        check(bool(torch.equal(out == -torch.inf, want == -torch.inf)) and not bool(torch.isnan(out).any()),
+              f"{label}: K3f forward is -inf (or NaN) where the plain version is not")
+        finite = torch.isfinite(want)
+        if bool(finite.any()):
+            err = max_err(out[finite], want[finite])
+            worst_f = max(worst_f, err)
+            check(err <= 1e-5 * float(want[finite].abs().max()) + 1e-5, f"{label}: K3f forward off by {err}")
+    for (x, tape, g), dx in calls["_chain_backward_cuda"]:
+        want = lm._chain_backward_plain(x, lm._chain_forward_plain(x)[1], g)
+        err = max_err(dx, want)
+        worst_b = max(worst_b, err)
+        check(not bool(torch.isnan(dx).any()) and err <= 1e-4 * float(want.abs().max()) + 1e-30,
+              f"{label}: K3f backward off by {err} (max {float(want.abs().max())})")
+    print(f"  {label}: {len(calls['_chain_forward_cuda'])} K3f forward and {len(calls['_chain_backward_cuda'])} "
+          f"backward launches at {sorted(shapes)}; against the plain version: forward max abs err {worst_f:.3g}, "
+          f"backward {worst_b:.3g}")
+    return worst_f, worst_b, sorted(shapes)
+
+
+def k3f_bounds(lm, T, B, S):
+    """(forward, backward) bounds of one K3f launch over B rows of T factors:
+    each input read once and each output written once (the forward reads
+    the factors and writes their product; its tape of the rounds' outputs
+    is the kernel's own residual, not part of the function, so it is not
+    counted; the backward reads the factors, the tape it needs and the
+    adjoint and writes the factors' adjoint); a pair's S^3 terms take an
+    add, an exp and an add forward (the max pass an add and a compare
+    more), and twice an add, an exp, a multiply and an add backward, each
+    counted as one float32 operation."""
+    pairs = B * (T - 1)
+    tape = B * sum(lm._level_sizes(T)) * S * S
+    out = []
+    for flops, nbytes in ((pairs * 5 * S**3, 4 * (T * B * S * S + B * S * S)),
+                          (pairs * 8 * S**3, 4 * (2 * T * B * S * S + tape + B * S * S))):
+        out.append(bound(flops, nbytes) + (flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3))
+    return out
+
+
+def _time_k3f(torch, lm, x):
+    """K3f forward and backward at ``x`` (T, B, S, S) in turns with K1's
+    rounds and the plain version (each way: the forward, then the forward
+    with the backward); ms of each."""
+    g = torch.randn(x.shape[1:], device="cuda")
+    _, tape = lm._chain_forward_cuda(x)
+    xg = x.detach().requires_grad_()
+
+    def both(fn):
+        def run():
+            out = fn(xg)
+            out.backward(g)
+        return run
+
+    fwd = alternate({
+        "kernel": lambda: lm._chain_forward_cuda(x),
+        "k1": lambda: lm._rounds(x, lm.logmatmulexp),
+        "plain": lambda: lm._chain_forward_plain(x),
+    }, iters=5)
+    bwd = alternate({"kernel": lambda: lm._chain_backward_cuda(x, tape, g)}, iters=5)
+    total = alternate({
+        "kernel": both(lm.log_chain),
+        "k1": both(lambda z: lm._rounds(z, lm.logmatmulexp)),
+        "plain": both(lm.sequential_logmatmulexp_plain),
+    }, iters=5)
+    plain_bwd = max(total["plain"] - fwd["plain"], 0.0)
+    return fwd, bwd["kernel"], total, plain_bwd
+
+
+def _epi_quantized(torch, lm, label, make_model):
+    """fit_mcmc(num_quant_bins=4) on ``make_model()`` on the card, and the
+    checks and times of phase 22; returns what the kernels line takes."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.infer.mcmc.util import _ravel_fns, batched_potential_and_grad, get_potential_fn
+
+    pyro.set_default_device("cuda")
+    pyro.clear_param_store()
+    model = make_model()
+    svi_s = []
+    fit_svi = model.fit_svi
+
+    def timed_fit_svi(**kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = fit_svi(**kwargs)
+        torch.cuda.synchronize()
+        svi_s.append(time.perf_counter() - t0)
+        return losses
+
+    model.fit_svi = timed_fit_svi
+    lm.reset_chain_counts()
+    lm.launches.update(forward=0, backward=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mcmc = model.fit_mcmc(num_quant_bins=EPI_Q, num_samples=EPI_ITERS, warmup_steps=EPI_ITERS, num_chains=EPI_CHAINS,
+                          max_tree_depth=EPI_TREE_DEPTH, heuristic_num_steps=EPI_HEURISTIC,
+                          generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = {"launches": dict(lm.chain_launches), "routes": dict(lm.routes), "k1": dict(lm.launches)}
+    kernel = mcmc.kernel
+    nuts_s = wall - svi_s[0]
+    leaves = kernel.counts["leapfrogs"]
+    R0 = model.samples["R0"]
+    check(all(bool(torch.isfinite(v).all()) for v in model.samples.values()), f"{label}: non-finite draws")
+    check(all(b.graph is not None for b in kernel._leaf_buffers.values()), f"{label}: the NUTS leaf was not captured")
+    check(run["launches"]["forward"] > 0 and run["launches"]["backward"] > 0 and run["routes"]["rounds"] == 0
+          and run["k1"] == {"forward": 0, "backward": 0},
+          f"{label}: the run's chains did not all take K3f: {run}")
+    accept = float(mcmc._diagnostics_extra["accept_prob"].mean())
+    print(f"  {label}: heuristic SVI {EPI_HEURISTIC} steps in {svi_s[0]:.2f} s "
+          f"({1e3 * svi_s[0] / EPI_HEURISTIC:.3f} ms a step); NUTS {EPI_ITERS} + {EPI_ITERS} iterations in "
+          f"{nuts_s:.2f} s ({2 * EPI_ITERS / nuts_s:.2f} iterations/s), {leaves} leaves ({leaves / (2 * EPI_ITERS):.1f} an iteration), mean accept probability "
+          f"{accept:.3f}, divergences {int(mcmc._diagnostics_extra['diverging'].sum())}; K3f launches over the run "
+          f"{run['launches']} (the wrapper counts a graph's capture, not its replays), routes {run['routes']}; "
+          f"posterior median of R0 {float(R0.median()):.4f}")
+
+    # a replayed leaf: CUDA events, and one profiled replay
+    b = next(iter(kernel._leaf_buffers.values()))
+    b.graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(10):
+        b.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    leaf_ms = start.elapsed_time(end) / 10
+    pwall, busy, _, events = profile_run(torch, b.graph.replay, top=5)
+    by_name = {kernel_name(e): e.count for e in events if kernel_name(e).startswith("lc_")}
+    k3f_ms = sum(e.self_device_time_total for e in events if kernel_name(e).startswith("lc_")) / 1e3
+    print(f"  {label}: a replayed leaf {leaf_ms:.4f} ms (CUDA events, 10 replays), busy {100 * busy / pwall:.1f}% "
+          f"of a profiled replay, K3f {k3f_ms:.4f} device ms, K3f kernels {by_name}")
+    check(by_name == {"lc_forward_kernel": 1, "lc_backward_kernel": 1},
+          f"{label}: the replayed leaf ran K3f {by_name}, not one launch each way")
+
+    # one vmapped potential-and-gradient call at the last state: one launch
+    # each way, every launch against the plain version
+    z = mcmc.last_state.z
+    lm.reset_chain_counts()
+    with record_calls(lm, ("_chain_forward_cuda", "_chain_backward_cuda")) as calls:
+        pe, grad = kernel._potential_and_grad(z)
+        torch.cuda.synchronize()
+    call_launches = dict(lm.chain_launches)
+    print(f"  {label}: K3f launches in one vmapped potential-and-gradient call of {EPI_CHAINS} chains: {call_launches}")
+    check(call_launches == {"forward": 1, "backward": 1}, f"{label}: the vmapped call launched K3f {call_launches}")
+    err_f, err_b, shapes = _check_chain_calls(torch, lm, calls, label)
+
+    # the same potential on the CPU in float64 (and float32, the rounding reference)
+    cpu = {}
+    try:
+        for dtype in (torch.float64, torch.float32):
+            pyro.set_default_device("cpu")
+            with default_dtype(torch, dtype):
+                m = make_model()
+                m.num_quant_bins, m.relaxed = EPI_Q, False
+                potential, _, transforms, proto, _ = get_potential_fn(
+                    m._quantized_model, generator=torch.Generator().manual_seed(0))
+                _, unravel = _ravel_fns({k: t.inv(proto.nodes[k]["value"]) for k, t in transforms.items()})
+                cpu[dtype] = batched_potential_and_grad(lambda f: potential(unravel(f)))(z.cpu().to(dtype))
+    finally:
+        pyro.set_default_device("cuda")
+    _check_potential(torch, f"{label} potential", (pe, grad), cpu[torch.float64], cpu[torch.float32])
+
+    # K3f at this shape in turns with K1's rounds and the plain version
+    x = calls["_chain_forward_cuda"][0][0][0].contiguous()
+    T, S, B = x.shape[0], x.shape[-1], math.prod(x.shape[1:-2])
+    fwd, bwd_ms, total, plain_bwd = _time_k3f(torch, lm, x)
+    (fb, fby, f_ops, f_bytes), (bb, bby, b_ops, b_bytes) = k3f_bounds(lm, T, B, S)
+    print(f"  {label}: K3f at T={T}, {B} rows, S={S}: forward {fwd['kernel']:.4f} ms (K1's {len(lm._level_sizes(T))} "
+          f"rounds {fwd['k1']:.4f}, plain {fwd['plain']:.4f}; bound {fb:.6f} ms by {fby}: operations {f_ops:.6f}, "
+          f"bytes {f_bytes:.6f}), backward {bwd_ms:.4f} ms (bound {bb:.6f} ms by {bby}: operations {b_ops:.6f}, "
+          f"bytes {b_bytes:.6f}); forward and backward {total['kernel']:.4f} ms, K1's rounds {total['k1']:.4f}, "
+          f"plain {total['plain']:.4f}")
+    return {
+        "R0": R0, "shape": (T, B, S), "leaf_ms": leaf_ms, "leaves": leaves, "run_s": nuts_s,
+        "svi_ms": 1e3 * svi_s[0] / EPI_HEURISTIC,
+        "busy_share": busy / pwall, "k3f_device_ms": k3f_ms, "launches": run["launches"],
+        "forward": {"max_abs_err": err_f, "ms": fwd["kernel"], "plain_ms": fwd["plain"], "k1_ms": fwd["k1"],
+                    "bound": (fb, fby)},
+        "backward": {"max_abs_err": err_b, "ms": bwd_ms, "plain_ms": plain_bwd,
+                     "k1_ms": max(total["k1"] - fwd["k1"], 0.0), "bound": (bb, bby)},
+    }
+
+
+def phase_epidemiology(torch, lm, smi):
+    """Phase 22: quantized compartmental models under NUTS through K3f, and
+    relaxed SVI with prediction."""
+    print(f"phase 22: epidemiology, quantized compartmental models under NUTS through K3f ({smi})")
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch.contrib.epidemiology import SimpleSEIRModel, SimpleSIRModel
+    from pyro_tpu_torch.examples import epidemiology_regional, epidemiology_sir, sir_hmc
+
+    pyro.set_default_device("cuda")
+    t_phase = time.perf_counter()
+    print(f"  CUT: NUTS max_tree_depth {EPI_TREE_DEPTH} (fit_mcmc's default 8), {EPI_ITERS} warmup and {EPI_ITERS} "
+          f"samples ((a)'s relaxed fit {EPI_RELAXED_ITERS} and {EPI_RELAXED_ITERS}), heuristic_num_steps "
+          f"{EPI_HEURISTIC} (default 500); (d) {EPI_SVI_STEPS} SVI steps (the example's 1000)")
+    out = {}
+    a_args = sir_hmc.parse_args([])
+    data_a = sir_hmc.generate_data(a_args)
+    print(f"  (a) examples/sir_hmc.py's data at its defaults: {data_a.long().tolist()}")
+    out["a"] = _epi_quantized(torch, lm, "(a) SIR", lambda: SimpleSIRModel(a_args.population, a_args.recovery_time,
+                                                                           data_a))
+    # (a) relaxed, the JAX package test's yardstick
+    pyro.clear_param_store()
+    relaxed = SimpleSIRModel(a_args.population, a_args.recovery_time, data_a)
+    t0 = time.perf_counter()
+    relaxed.fit_mcmc(num_samples=EPI_RELAXED_ITERS, warmup_steps=EPI_RELAXED_ITERS, num_chains=EPI_CHAINS,
+                     max_tree_depth=EPI_TREE_DEPTH, generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    r0_q, r0_r = float(out["a"]["R0"].median()), float(relaxed.samples["R0"].median())
+    print(f"  (a) relaxed NUTS, {EPI_RELAXED_ITERS} + {EPI_RELAXED_ITERS} iterations in {time.perf_counter() - t0:.2f} "
+          f"s: R0 median {r0_r:.4f} against the quantized {r0_q:.4f} (true {a_args.R0})")
+    check(abs(r0_q - r0_r) < EPI_R0_GAP, f"(a): quantized R0 median {r0_q} against relaxed {r0_r}")
+
+    seir_obs, seed = _seir_data(torch)
+    c = EPI_SEIR
+    print(f"  (b) SimpleSEIRModel data (prior draw at seed {seed}): {int(seir_obs.sum())} observed infections over "
+          f"{c['duration']} days")
+    out["b"] = _epi_quantized(torch, lm, "(b) SEIR", lambda: SimpleSEIRModel(
+        c["population"], c["incubation_time"], c["recovery_time"], seir_obs))
+
+    r_args = epidemiology_regional.parse_args([])
+    pyro.clear_param_store()
+    r_obs = epidemiology_regional.generate_data(r_args)
+    out["c"] = _epi_quantized(torch, lm, "(c) regional SIR",
+                              lambda: epidemiology_regional.make_model(r_args, r_obs[: r_args.duration]))
+
+    # (d) relaxed SVI and a forecast, no kernel
+    d_args = epidemiology_sir.parse_args(["--num-steps", str(EPI_SVI_STEPS), "--forecast", str(EPI_FORECAST)])
+    pyro.clear_param_store()
+    obs, _ = epidemiology_sir.generate_data(d_args)
+    model = SimpleSIRModel(d_args.population, d_args.recovery_time, obs[: d_args.duration])
+    lm.reset_chain_counts()
+    lm.launches.update(forward=0, backward=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = model.fit_svi(num_steps=EPI_SVI_STEPS, learning_rate=d_args.learning_rate,
+                           generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    svi_ms = 1e3 * (time.perf_counter() - t0) / EPI_SVI_STEPS
+    t0 = time.perf_counter()
+    samples = model.predict(forecast=EPI_FORECAST, generator=torch.Generator(device="cuda").manual_seed(1))
+    torch.cuda.synchronize()
+    predict_ms = 1e3 * (time.perf_counter() - t0)
+    T_all = d_args.duration + EPI_FORECAST
+    check(all(math.isfinite(l) for l in losses) and losses[-1] < losses[0], f"(d) losses {losses[:3]}...{losses[-3:]}")
+    check(all(f"obs_{t}" in samples and bool(torch.isfinite(samples[f"I_{t}"]).all()) for t in range(T_all)),
+          "(d): the forecast's sites are missing or not finite")
+    check(lm.chain_launches == {"forward": 0, "backward": 0} and lm.launches == {"forward": 0, "backward": 0},
+          f"(d) reached a kernel: K3f {lm.chain_launches}, K1 {lm.launches}")
+    r0 = samples["R0"]
+    print(f"  (d) examples/epidemiology_sir.py: {EPI_SVI_STEPS} SVI steps at {svi_ms:.3f} ms a step (loss {losses[0]:.1f} "
+          f"-> {losses[-1]:.1f}), predict(forecast={EPI_FORECAST}) of 100 draws {predict_ms:.1f} ms; R0 "
+          f"{float(r0.mean()):.3f} +- {float(r0.std()):.3f} (true {d_args.basic_reproduction_number}); no kernel "
+          f"launched")
+    pyro.clear_param_store()
+    for key in ("a", "b", "c"):
+        r = out[key]
+        print(f"  summary ({key}): ms a leaf {r['leaf_ms']:.4f}, {r['leaves'] / (2 * EPI_ITERS):.1f} leaves an "
+              f"iteration, {2 * EPI_ITERS / r['run_s']:.2f} iterations/s, busy {100 * r['busy_share']:.1f}%, K3f "
+              f"{r['k3f_device_ms']:.4f} device ms a leaf, SVI {r['svi_ms']:.3f} ms a step, R0 median "
+              f"{float(r['R0'].median()):.4f}; K3f at {r['shape']}: forward {r['forward']['ms']:.4f} ms (bound "
+              f"{r['forward']['bound'][0]:.6f}, K1's rounds {r['forward']['k1_ms']:.4f}, plain "
+              f"{r['forward']['plain_ms']:.4f}), backward {r['backward']['ms']:.4f} ms (bound "
+              f"{r['backward']['bound'][0]:.6f})")
+    print(f"  phase 22 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def profile_step(torch, svi, sequences, lengths):
     """One more SVI step under torch.profiler: device time by kernel, and
     the device's busy share of the step's wall time."""
@@ -4153,9 +4495,9 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(f"  {torch.cuda.get_device_name(0)}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    cuda_build.build_all(["log_matmul", "markov_scan", "gaussian_levels"])
-    print(f"  built log_matmul, markov_scan and gaussian_levels in {time.perf_counter() - t0:.2f} s")
-    for name in ("log_matmul", "markov_scan", "gaussian_levels"):
+    cuda_build.build_all(["log_matmul", "log_chain", "markov_scan", "gaussian_levels"])
+    print(f"  built log_matmul, log_chain, markov_scan and gaussian_levels in {time.perf_counter() - t0:.2f} s")
+    for name in ("log_matmul", "log_chain", "markov_scan", "gaussian_levels"):
         for line in cuda_build.BUILD_LOGS.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 print("   ", name, line.strip())
@@ -4181,6 +4523,14 @@ def main():
     phase_gp(torch, gl, smi)
     phase_nuts_enum(torch, lm, ms, gl, smi)
     phase_forecast(torch, gl, smi)
+    epi = phase_epidemiology(torch, lm, smi)
+    # K3f on the kernels line: its times and bound at (b)'s shape (S=64, the
+    # widest, where it does more than launch latency; (a)'s and (c)'s are
+    # printed in phase 22), its largest error over (a)-(c), and its launches
+    # over the three quantized runs (counted from zero before each)
+    k3f_launches = {way: sum(epi[k]["launches"][way] for k in ("a", "b", "c")) for way in ("forward", "backward")}
+    k3f = {way: dict(epi["b"][way], max_abs_err=max(epi[k][way]["max_abs_err"] for k in ("a", "b", "c")))
+           for way in ("forward", "backward")}
 
     kernels = []
     scan = "pyro_tpu/ops/markov_product.py:469"
@@ -4215,6 +4565,10 @@ def main():
          k5_launches["gamma_halving"]),
         ("gamma_gaussian_contract", "gaussian_levels.cu", "pyro_tpu/ops/gamma_gaussian.py:464",
          k5["gamma_contract"], k5_launches["gamma_contract"]),
+        ("log_chain_fwd", "log_chain.cu", "pyro_tpu/ops/log_matmul.py:134", k3f["forward"],
+         k3f_launches["forward"]),
+        ("log_chain_bwd", "log_chain.cu", "pyro_tpu/ops/log_matmul.py:134", k3f["backward"],
+         k3f_launches["backward"]),
     ):
         kernels.append({
             "name": name,
@@ -4229,7 +4583,8 @@ def main():
             "bound_by": r["bound"][1],
             "library_ms": None,
         })
-    print(f"total {time.perf_counter() - t_start:.1f} s")
+    print(f"total {time.perf_counter() - t_start:.1f} s (the script through phase 21 took 496.6 s on the H100 "
+          f"at 700 W)")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,7 @@ from . import constraints
 from .distribution import Distribution, TransformedDistribution
 from .multivariate import _standard_gamma
 from .transforms import AffineTransform, ExpTransform, PowerTransform
-from .util import as_float, broadcast_shape, clamp_probs
+from .util import broadcast_shape, clamp_probs
 
 
 def _param(value, like=None):
@@ -69,12 +69,7 @@ class Beta(Distribution):
     has_rsample = True
 
     def __init__(self, concentration1, concentration0):
-        c1 = as_float(concentration1)
-        c0 = as_float(concentration0, device=c1.device)
-        dtype = torch.promote_types(c1.dtype, c0.dtype)
-        c1, c0 = c1.to(dtype), c0.to(dtype)
-        shape = broadcast_shape(c1.shape, c0.shape)
-        self.concentration1, self.concentration0 = c1.expand(shape), c0.expand(shape)
+        shape, (self.concentration1, self.concentration0) = _params(concentration1, concentration0)
         super().__init__(shape)
 
     def rsample(self, generator=None, sample_shape=()):
@@ -239,11 +234,7 @@ class Uniform(Distribution):
     has_rsample = True
 
     def __init__(self, low=0.0, high=1.0):
-        low = as_float(low)
-        high = as_float(high, device=low.device)
-        dtype = torch.promote_types(low.dtype, high.dtype)
-        shape = broadcast_shape(low.shape, high.shape)
-        self.low, self.high = low.to(dtype).expand(shape), high.to(dtype).expand(shape)
+        shape, (self.low, self.high) = _params(low, high)
         super().__init__(shape)
 
     @property

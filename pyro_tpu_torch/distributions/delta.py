@@ -1,6 +1,6 @@
 """Delta, a point mass used by AutoDelta guides and ``deterministic``
-sites, and Unit, the site of ``factor`` (counterpart of
-``pyro_tpu/distributions/delta.py``)."""
+sites, Unit, the site of ``factor``, and ImproperUniform, a flat density
+over a support (counterpart of ``pyro_tpu/distributions/delta.py``)."""
 
 from __future__ import annotations
 
@@ -77,3 +77,30 @@ class Unit(Distribution):
 
     def expand(self, batch_shape, _instance=None):
         return Unit(self.log_factor.expand(tuple(batch_shape)))
+
+
+class ImproperUniform(Distribution):
+    """A log density of 0 over ``support`` that cannot be sampled: a prior
+    where only the support matters, as in MAP or MCMC models whose site is
+    scored by other factors."""
+
+    arg_constraints = {}
+
+    def __init__(self, support, batch_shape, event_shape):
+        self._support = support
+        super().__init__(tuple(batch_shape), tuple(event_shape))
+
+    @property
+    def support(self):  # type: ignore[override]
+        return self._support
+
+    def sample(self, generator=None, sample_shape=()):
+        raise NotImplementedError(
+            "ImproperUniform.sample is undefined; use a proper prior or condition this site"
+        )
+
+    def log_prob(self, value):
+        return value.new_zeros(value.shape[: value.ndim - self.event_dim])
+
+    def expand(self, batch_shape, _instance=None):
+        return ImproperUniform(self._support, tuple(batch_shape), self.event_shape)

@@ -171,6 +171,16 @@ class OneHotCategorical(Distribution):
         return OneHotCategorical(logits=self._categorical._logits.expand(batch_shape + (n,)))
 
 
+def _count_device(total_count, probs, logits):
+    """Where a number ``probs`` or ``logits`` goes: the device of a tensor
+    ``total_count`` (else it would land on the CPU and pull the count
+    there), or None."""
+    param = probs if probs is not None else logits
+    if isinstance(total_count, torch.Tensor) and not isinstance(param, torch.Tensor):
+        return total_count.device
+    return None
+
+
 class _ProbsOrLogits(Distribution):
     """Holds exactly one of ``probs`` and ``logits`` (binary) and derives
     the other."""
@@ -206,7 +216,7 @@ class Binomial(_ProbsOrLogits):
     has_enumerate_support = True
 
     def __init__(self, total_count=1, probs=None, logits=None):
-        param = self._set_probs_or_logits(probs, logits)
+        param = self._set_probs_or_logits(probs, logits, _count_device(total_count, probs, logits))
         self.total_count = torch.as_tensor(total_count, dtype=param.dtype, device=param.device)
         super().__init__(broadcast_shape(self.total_count.shape, param.shape))
 
@@ -362,7 +372,7 @@ class NegativeBinomial(_ProbsOrLogits):
     is_discrete = True
 
     def __init__(self, total_count, probs=None, logits=None):
-        param = self._set_probs_or_logits(probs, logits)
+        param = self._set_probs_or_logits(probs, logits, _count_device(total_count, probs, logits))
         self.total_count = as_float(total_count, param.device)
         super().__init__(broadcast_shape(self.total_count.shape, param.shape))
 

@@ -5,8 +5,9 @@ and ``GaussianMRF`` in ``pyro_tpu/distributions/hmm.py``).
 Generative semantics: ``z ~ initial; repeat T times: z ~ trans(z); emit
 y ~ obs(z)``, so ``event_shape = (T,) + observation event shape`` and
 homogeneous parameters broadcast along a size-1 time axis.  DiscreteHMM
-eliminates time by a pairwise log-matmul-exp reduction, one batched
-``logmatmulexp`` (the CUDA kernel on the card) per round; GaussianHMM by the
+eliminates time by a pairwise log-matmul-exp reduction: at S <= 64 states
+the whole chain in one launch each way (K3f on the card), above it one
+batched ``logmatmulexp`` (K1) per round; GaussianHMM by the
 information-form Gaussian algebra of ``ops/gaussian.py``, whose halving
 levels are the K4 kernels on the card; GammaGaussianHMM (Student-t noise
 through a shared Gamma scale) by the gamma-Gaussian algebra of
@@ -37,13 +38,14 @@ from ..ops.gamma_gaussian import (
     sequential_gamma_gaussian_tensordot,
     sequential_gamma_gaussian_tensordot_homogeneous,
 )
-from ..ops.log_matmul import logmatmulexp, sequential_logmatmulexp_timemajor
+from ..ops.log_matmul import sequential_logmatmulexp_timemajor
 
 
-def _sequential_logmatmulexp(logits, logmatmulexp=logmatmulexp):
+def _sequential_logmatmulexp(logits, logmatmulexp=None):
     """Reduce a (..., T, S, S) chain of log transition factors to one
     (..., S, S) factor: ``sequential_logmatmulexp_timemajor`` on the view
-    with time leading."""
+    with time leading (K3f at S <= 64, K1 rounds above, or rounds of the
+    ``logmatmulexp`` given)."""
     return sequential_logmatmulexp_timemajor(logits.movedim(-3, 0), logmatmulexp)
 
 

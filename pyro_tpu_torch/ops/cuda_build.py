@@ -5,8 +5,9 @@ compiled by ``nvcc`` for ``sm_90a`` into ``build/kernels/lib<name>-<hash>.so``
 at the root of the checkout on first use (the hash is of the source, so an
 edited source is rebuilt) and loaded with ctypes.  ``build_all`` starts one
 ``nvcc`` per source at once and waits for all of them; the sources are
-``log_matmul.cu`` (K1), ``markov_scan.cu`` (K2 and the time-varying K2g)
-and ``gaussian_levels.cu`` (K4a-c and the K4a and K4b backward).
+``log_matmul.cu`` (K1), ``log_chain.cu`` (K3f), ``markov_scan.cu`` (K2 and
+the time-varying K2g) and ``gaussian_levels.cu`` (K4a-c, K5 and the K4a and
+K4b backward).
 """
 
 from __future__ import annotations

@@ -9,6 +9,12 @@ the plain version below runs instead, which mirrors the JAX package's
 keeps the entries whose Z was clipped as a class with shifts of their own
 (see ``_logmatmulexp_bwd``).  A CUDA tensor never falls back to the plain
 version: the kernel launches or the call raises.
+
+The chain reduction of K3 (``sequential_logmatmulexp_timemajor``) takes
+K1 a round above 64 states and, at or below, K3f (``log_chain``,
+``csrc/log_chain.cu``): the whole chain in one launch each way, with the
+exact log-sum-exp of each entry, so an entry with no finite path is -inf
+(K1 clips it at log(FLT_MIN) plus its shifts).
 """
 
 from __future__ import annotations
@@ -358,21 +364,276 @@ def logmatmulexp(x, y):
     return logmatmulexp_plain(x, y)
 
 
-def sequential_logmatmulexp_timemajor(logits, logmatmulexp=logmatmulexp):
-    """Reduce a (T, ..., S, S) chain of log transition factors to one
-    (..., S, S) factor in ceil(log2 T) halving rounds, each one batched
-    ``logmatmulexp`` over the time-paired halves (K1 on the card: one
-    launch a round each way).  Counterpart of
-    ``pyro_tpu/ops/log_matmul.py::sequential_logmatmulexp_timemajor``
-    (K3), whose body is ``logmatmulexp`` in rounds.  The halves are strided
-    views along the leading time axis, which the kernel reads in place; an
-    odd round's last factor passes through to the next."""
+def _rounds(logits, pair):
+    """ceil(log2 T) halving rounds of ``pair`` over the time-paired
+    halves (strided views along the leading time axis, which K1 reads in
+    place); an odd round's last factor passes through to the next."""
     while logits.shape[0] > 1:
         time = logits.shape[0]
         even = time // 2 * 2
         pairs = logits[:even].reshape((time // 2, 2) + logits.shape[1:])
-        contracted = logmatmulexp(pairs[:, 0], pairs[:, 1])
+        contracted = pair(pairs[:, 0], pairs[:, 1])
         if time > even:
             contracted = torch.cat([contracted, logits[even:]], dim=0)
         logits = contracted
     return logits[0]
+
+
+def sequential_logmatmulexp_timemajor(logits, pair=None):
+    """Reduce a (T, ..., S, S) chain of log transition factors to one
+    (..., S, S) factor in ceil(log2 T) halving rounds.  Counterpart of
+    ``pyro_tpu/ops/log_matmul.py::sequential_logmatmulexp_timemajor`` (K3).
+
+    The route is chosen by shape and counted in ``routes``: at S <= 64
+    (``CHAIN_MAX_STATES``) the whole chain is ``log_chain``, K3f on the card
+    (one launch each way) and ``sequential_logmatmulexp_plain`` on the CPU;
+    above it, each round is one batched ``logmatmulexp``, K1 on the card.
+    A given ``pair`` function (``logmatmulexp_plain``, say) forces the
+    rounds through it."""
+    if pair is None:
+        if logits.shape[-1] <= CHAIN_MAX_STATES:
+            routes["chain"] += 1
+            return log_chain(logits)
+        routes["rounds"] += 1
+        pair = logmatmulexp
+    return _rounds(logits, pair)
+
+
+# -- K3f: a chain of small log-space matrices in one launch each way ---------------
+
+# S up to which a chain takes K3f: a CTA stages a pair of S x S factors at
+# once (four with the backward's out and adjoint) in shared memory.
+CHAIN_MAX_STATES = 64
+# Routes ``sequential_logmatmulexp_timemajor`` took, by shape.
+routes = {"chain": 0, "rounds": 0}
+# Launches of K3f, counted by its wrapper (a CUDA graph's capture counts
+# once, its replays not at all), and inputs it copied to a contiguous tensor
+# because their batch layout needs more than three strided dims.
+chain_launches = {"forward": 0, "backward": 0}
+chain_copies = {"forward": 0, "backward": 0}
+
+
+def reset_chain_counts():
+    for d in (routes, chain_launches, chain_copies):
+        for k in d:
+            d[k] = 0
+
+
+def _level_sizes(time):
+    """The factor counts of the rounds' outputs, n_1 .. n_R (n_R = 1)."""
+    sizes = []
+    while time > 1:
+        time = (time + 1) // 2
+        sizes.append(time)
+    return sizes
+
+
+def _pair_plain(x, y):
+    """log sum_k exp(x[..., i, k] + y[..., k, j]): the max over k, then the
+    shifted sum, so an entry with no finite path is exactly -inf."""
+    s = x.unsqueeze(-1) + y.unsqueeze(-3)  # (..., i, k, j)
+    m = s.amax(-2, keepdim=True)
+    m = torch.where(m == -torch.inf, 0.0, m)
+    return (m + torch.log(torch.exp(s - m).sum(-2, keepdim=True))).squeeze(-2)
+
+
+def _pair_vjp_plain(x, y, out, g):
+    """dx[i, k] = sum_j g exp(x + y - out) and dy[k, j] = sum_i likewise,
+    skipping every (i, j) where out is -inf (its g is never read)."""
+    live = out != -torch.inf
+    g = torch.where(live, g, 0.0)
+    w = torch.exp(x.unsqueeze(-1) + y.unsqueeze(-3) - torch.where(live, out, 0.0).unsqueeze(-2))
+    w = w * g.unsqueeze(-2)
+    return w.sum(-1), w.sum(-3)
+
+
+def _chain_forward_plain(logits):
+    """(out, tape): the chain's product and every round's outputs,
+    (..., L, S, S) with L = sum of ``_level_sizes(T)``."""
+    levels, cur = [], logits
+    while cur.shape[0] > 1:
+        time = cur.shape[0]
+        even = time // 2 * 2
+        nxt = _pair_plain(cur[0:even:2], cur[1:even:2])
+        if time > even:
+            nxt = torch.cat([nxt, cur[even:]], dim=0)
+        levels.append(nxt)
+        cur = nxt
+    return cur[0], torch.cat(levels, dim=0).movedim(0, -3)
+
+
+def _chain_backward_plain(logits, tape, g):
+    """The VJP of ``_chain_forward_plain`` from its tape: the rounds'
+    adjoints in reverse."""
+    sizes = _level_sizes(logits.shape[0])
+    levels = [logits] + list(torch.split(tape.movedim(-3, 0), sizes, dim=0))
+    adj = g.unsqueeze(0)
+    for r in reversed(range(len(sizes))):
+        cur = levels[r]
+        time, half = cur.shape[0], cur.shape[0] // 2
+        dx, dy = _pair_vjp_plain(cur[0:2 * half:2], cur[1:2 * half:2], levels[r + 1][:half], adj[:half])
+        new = torch.stack([dx, dy], dim=1).reshape((2 * half,) + cur.shape[1:])
+        if time > 2 * half:
+            new = torch.cat([new, adj[half:]], dim=0)
+        adj = new
+    return adj
+
+
+def _chain_functions(forward_impl, backward_impl, route):
+    """The pair of ``torch.autograd.Function``s of one route of K3f: the
+    forward, ``forward_impl(logits) -> (out, tape)``, and its backward,
+    ``backward_impl(logits, tape, g) -> dlogits``.  Their vmap rules put
+    the mapped dim right after time, where it joins the batch rows (an
+    operand without it gets it as a stride-0 view in the backward), and
+    call the Function again, so a vmapped chain of C chains is one call
+    each way."""
+
+    class Backward(torch.autograd.Function):
+        @staticmethod
+        def forward(logits, tape, g):
+            return backward_impl(logits, tape, g)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            pass
+
+        @staticmethod
+        def backward(ctx, grad):
+            raise NotImplementedError(f"log_chain ({route}): no second derivative")
+
+        @staticmethod
+        def vmap(info, in_dims, logits, tape, g):
+            n = info.batch_size
+            dl, dt, dg = in_dims
+            logits = logits.movedim(dl, 1) if dl is not None else logits.unsqueeze(1).expand(
+                logits.shape[:1] + (n,) + logits.shape[1:])
+            tape = tape.movedim(dt, 0) if dt is not None else tape.expand((n,) + tape.shape)
+            g = g.movedim(dg, 0) if dg is not None else g.expand((n,) + g.shape)
+            return Backward.apply(logits, tape, g), 1
+
+    class Forward(torch.autograd.Function):
+        @staticmethod
+        def forward(logits):
+            return forward_impl(logits)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.mark_non_differentiable(output[1])
+            ctx.save_for_backward(inputs[0], output[1])
+
+        @staticmethod
+        def backward(ctx, g, g_tape):
+            return Backward.apply(*ctx.saved_tensors, g)
+
+        @staticmethod
+        def vmap(info, in_dims, logits):
+            (d,) = in_dims
+            return Forward.apply(logits.movedim(d, 1)), (0, 0)
+
+    return Forward, Backward
+
+
+_LogChainPlain, _LogChainPlainBackward = _chain_functions(_chain_forward_plain, _chain_backward_plain, "plain")
+
+
+def sequential_logmatmulexp_plain(logits):
+    """The plain PyTorch version of K3f, on any device: the halving rounds of
+    an exact pairwise log-sum-exp (``_pair_plain``) with the analytic VJP.
+    An entry with no finite path is -inf and passes a gradient of exactly
+    0."""
+    if logits.shape[0] == 1:
+        return logits[0]
+    return _LogChainPlain.apply(logits)[0]
+
+
+_LLP = ctypes.POINTER(ctypes.c_longlong)
+
+
+@functools.cache
+def _chain_lib():
+    lib = cuda_build.load("log_chain")
+    lib.lc_tape_factors.argtypes = [_c]
+    lib.lc_tape_factors.restype = ctypes.c_longlong
+    lib.lc_forward.argtypes = [_P, _LLP, _I, _c, _c, _P, _P, _P]
+    lib.lc_forward.restype = ctypes.c_int
+    lib.lc_backward.argtypes = [_P, _LLP, _I, _c, _c, _P, _P, _P, _P, _P]
+    lib.lc_backward.restype = ctypes.c_int
+    return lib
+
+
+def _check_chain(logits):
+    if not logits.is_cuda:
+        raise ValueError(f"log_chain: the factors must lie on a CUDA device, got {logits.device}")
+    if logits.dtype != torch.float32:
+        raise TypeError(f"log_chain: the CUDA kernel takes float32, got {logits.dtype}")
+    if logits.ndim < 3 or logits.shape[-1] != logits.shape[-2]:
+        raise ValueError(f"log_chain: factors must be (T, ..., S, S), got shape {tuple(logits.shape)}")
+    if not 1 <= logits.shape[-1] <= CHAIN_MAX_STATES or logits.shape[0] < 2:
+        raise ValueError(f"log_chain: the kernel takes 2 <= T and 1 <= S <= {CHAIN_MAX_STATES}, got shape "
+                         f"{tuple(logits.shape)}")
+
+
+def _chain_layout(logits, direction):
+    """``logits`` (copied to a contiguous tensor, and counted, where its
+    batch dims need more than three strided dims), the three batch sizes
+    and the six strides (time, three batch, row, column)."""
+    batch = logits.shape[1:-2]
+    try:
+        sizes, (st,) = _batch_layout(batch, [logits[0]])
+    except ValueError:
+        logits = logits.contiguous()
+        chain_copies[direction] += 1
+        sizes, (st,) = _batch_layout(batch, [logits[0]])
+    return logits, sizes, (ctypes.c_longlong * 6)(logits.stride(0), *st)
+
+
+def _chain_forward_cuda(logits):
+    _check_chain(logits)
+    T, S = logits.shape[0], logits.shape[-1]
+    batch = logits.shape[1:-2]
+    logits, sizes, st = _chain_layout(logits, "forward")
+    lib = _chain_lib()
+    tape = torch.empty(batch + (lib.lc_tape_factors(T), S, S), dtype=logits.dtype, device=logits.device)
+    out = torch.empty(batch + (S, S), dtype=logits.dtype, device=logits.device)
+    err = lib.lc_forward(logits.data_ptr(), st, _ints(sizes), T, S, tape.data_ptr(), out.data_ptr(),
+                         _stream(logits))
+    if err:
+        raise RuntimeError(f"log_chain forward kernel failed to launch: CUDA error {err}")
+    chain_launches["forward"] += 1
+    return out, tape
+
+
+def _chain_backward_cuda(logits, tape, g):
+    _check_chain(logits)
+    T, S = logits.shape[0], logits.shape[-1]
+    batch = logits.shape[1:-2]
+    if tuple(g.shape) != tuple(batch) + (S, S) or tape.shape[:-3] != batch:
+        raise ValueError(f"log_chain: gradient {tuple(g.shape)} or tape {tuple(tape.shape)} does not match "
+                         f"factors {tuple(logits.shape)}")
+    logits, sizes, st = _chain_layout(logits, "backward")
+    tape, g = tape.contiguous(), g.contiguous()
+    adj = torch.empty_like(tape)
+    dx = torch.empty((T,) + tuple(batch) + (S, S), dtype=logits.dtype, device=logits.device)
+    err = _chain_lib().lc_backward(logits.data_ptr(), st, _ints(sizes), T, S, tape.data_ptr(), g.data_ptr(),
+                                   adj.data_ptr(), dx.data_ptr(), _stream(logits))
+    if err:
+        raise RuntimeError(f"log_chain backward kernel failed to launch: CUDA error {err}")
+    chain_launches["backward"] += 1
+    return dx
+
+
+# the launches looked up when called, so that a recording wrapper can stand in
+_LogChainCUDA, _LogChainCUDABackward = _chain_functions(
+    lambda logits: _chain_forward_cuda(logits), lambda *args: _chain_backward_cuda(*args), "cuda")
+
+
+def log_chain(logits):
+    """The ordered log-space product of a (T, ..., S, S) chain of factors,
+    (..., S, S), in the halving association of K3: K3f on a CUDA tensor
+    (float32, S <= 64; anything else raises), its plain version
+    ``sequential_logmatmulexp_plain`` on a CPU tensor."""
+    if logits.shape[0] == 1:
+        return logits[0]
+    if logits.is_cuda:
+        return _LogChainCUDA.apply(logits)[0]
+    return sequential_logmatmulexp_plain(logits)

@@ -1,5 +1,17 @@
 from .enum_messenger import EnumMessenger
-from .handlers import EscapeMessenger, block, condition, infer_config, mask, replay, scale, seed, trace
+from .handlers import (
+    EscapeMessenger,
+    UnconditionMessenger,
+    block,
+    condition,
+    infer_config,
+    mask,
+    replay,
+    scale,
+    seed,
+    trace,
+    uncondition,
+)
 from .messenger import Messenger
 from .reparam_messenger import ReparamMessenger, reparam
 from .runtime import NonlocalExit, am_i_wrapped, apply_stack
@@ -12,6 +24,7 @@ __all__ = [
     "NonlocalExit",
     "ReparamMessenger",
     "Trace",
+    "UnconditionMessenger",
     "am_i_wrapped",
     "apply_stack",
     "block",
@@ -23,4 +36,5 @@ __all__ = [
     "scale",
     "seed",
     "trace",
+    "uncondition",
 ]

@@ -1,6 +1,6 @@
 """Core effect handlers (counterpart of ``pyro_tpu/poutine/handlers.py``):
-trace, replay, block, seed, mask, scale, condition, infer_config, and the
-escape that stops a model at a site.
+trace, replay, block, seed, mask, scale, condition, uncondition,
+infer_config, and the escape that stops a model at a site.
 
 Each handler is dual-use: ``trace(fn)(*args)`` or ``with trace() as t: ...``.
 """
@@ -96,6 +96,21 @@ class ConditionMessenger(Messenger):
             msg["value"] = self.data[msg["name"]]
             msg["is_observed"] = True
             msg["done"] = True
+
+
+class UnconditionMessenger(Messenger):
+    """Strip observations, so that the model samples every site; the
+    observed value stays in the site's ``infer`` dict under ``"obs"``, with
+    ``"was_observed"`` set."""
+
+    def _pyro_sample(self, msg):
+        if msg["is_observed"]:
+            msg["is_observed"] = False
+            msg["infer"] = dict(msg["infer"])
+            msg["infer"]["was_observed"] = True
+            msg["infer"]["obs"] = msg["value"]
+            msg["value"] = None
+            msg["done"] = False
 
 
 class SeedMessenger(Messenger):
@@ -218,6 +233,7 @@ def _make_handler(msngr_cls, name):
 trace = _make_handler(TraceMessenger, "trace")
 replay = _make_handler(ReplayMessenger, "replay")
 condition = _make_handler(ConditionMessenger, "condition")
+uncondition = _make_handler(UnconditionMessenger, "uncondition")
 block = _make_handler(BlockMessenger, "block")
 mask = _make_handler(MaskMessenger, "mask")
 scale = _make_handler(ScaleMessenger, "scale")

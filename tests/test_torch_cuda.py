@@ -41,6 +41,12 @@ streaming route forced), with a built underflow case and a transition read
 in place with time stride 0; model_1vt's step as a
 training step's; the pairwise fallback's loss rtol 1e-5 and gradients rtol
 1e-4 with atol 1e-5 times their largest entry of the float64 CPU run's.
+K3f, the chain of small log-space factors: -inf exactly where its plain
+version has it, finite values within 1e-5 * max|out| + 1e-5, gradients
+within 1e-4 * max|grad| (the same sums in another order), two launches
+bit-equal; the quantized SIR potential on the card against the port's
+float64 CPU run within 1e-5 of its value and its gradient within 1e-3 *
+max|grad| (float32 rounds the spline logits and the chain's sums).
 """
 
 import numpy as np
@@ -1400,9 +1406,10 @@ def test_model_1vt_on_the_card_runs_k2g_not_the_plain_loop(cuda, monkeypatch):
 @pytest.mark.parametrize("case", [3, 5, 9])
 def test_pairwise_fallback_on_the_card(cuda, case):
     """The O(log T) fallback of vectorized chains (model_3, model_5 with
-    history 2, model_7 at T=23) through K1 on the card: the loss and every
-    param's gradient against the port's float64 CPU run (loss rtol 1e-5,
-    gradients rtol 1e-4 with atol 1e-5 * max|grad|), K1 launched each way."""
+    history 2, model_7 at T=23) through K3f on the card (their windows hold
+    at most 64 states): the loss and every param's gradient against the
+    port's float64 CPU run (loss rtol 1e-5, gradients rtol 1e-4 with atol
+    1e-5 * max|grad|), K3f launched each way."""
     import pyro_tpu_torch as pyro
     from pyro_tpu_torch import poutine
     from pyro_tpu_torch.examples import vectorized_markov as vm
@@ -1417,7 +1424,7 @@ def test_pairwise_fallback_on_the_card(cuda, case):
             torch.set_default_dtype(dtype)
             pyro.clear_param_store()
             data = vm.make_data(kind, shape)
-            n = dict(lm.launches)
+            n = dict(lm.chain_launches)
             markov_product.reset_routes()
             with poutine.trace(param_only=True) as capture:
                 loss = TraceEnum_ELBO(max_plate_nesting=3).differentiable_loss(model, vm.no_guide, data, history, True)
@@ -1425,7 +1432,7 @@ def test_pairwise_fallback_on_the_card(cuda, case):
             assert markov_product.routes["pairwise"] == 1
             if device == "cuda":
                 torch.cuda.synchronize()
-                assert lm.launches["forward"] > n["forward"] and lm.launches["backward"] > n["backward"]
+                assert lm.chain_launches["forward"] > n["forward"] and lm.chain_launches["backward"] > n["backward"]
             store = pyro.get_param_store()
             out.append((float(loss.detach()), {k: store.get_unconstrained(k).grad.double().cpu()
                                       for k in capture.trace.param_nodes()}))
@@ -1740,3 +1747,133 @@ def test_forecast_call_levels_at_the_bart_length(cuda, monkeypatch):
                 _assert_near(a, b)
         for args, _, out in mids:
             _assert_near(out, gl.level_mids_plain(*args))
+
+
+# -- K3f: the chain of small log-space factors -------------------------------------------
+
+CHAIN_CASES = [(T, (3,), S) for T in (2, 3, 5, 20, 60) for S in (1, 16, 64)] + [(33, (2, 2, 2, 2), 8)]
+
+
+def _chain_inputs(gen, T, batch, S, cuda, neg_inf=0.0, strided=False):
+    x = 3 * torch.randn((T,) + batch + (S, S), generator=gen, device=cuda)
+    if neg_inf:
+        x = torch.where(torch.rand(x.shape, generator=gen, device=cuda) < neg_inf, -torch.inf, x)
+        x[0, ..., 0, :] = -torch.inf  # an all -inf row
+        x[-1, ..., :, S // 2] = -torch.inf  # an all -inf column
+    if strided:
+        big = torch.randn((T,) + batch + (S, 2 * S), generator=gen, device=cuda)
+        big[..., :S] = x
+        x = big[..., :S]
+    return x
+
+
+def _compare_chain(x, g):
+    xk, xp = x.clone().requires_grad_(), x.clone().requires_grad_()
+    out = lm.log_chain(xk)
+    ref = lm.sequential_logmatmulexp_plain(xp)
+    out.backward(g)
+    ref.backward(g)
+    torch.cuda.synchronize()
+    assert torch.equal(out == -torch.inf, ref == -torch.inf) and not torch.isnan(out).any()
+    finite = torch.isfinite(ref)
+    if finite.any():
+        scale = float(ref[finite].abs().max())
+        torch.testing.assert_close(out[finite], ref[finite], rtol=0, atol=1e-5 * scale + 1e-5)
+    assert not torch.isnan(xk.grad).any()
+    torch.testing.assert_close(xk.grad, xp.grad, rtol=0, atol=1e-4 * float(xp.grad.abs().max()) + 1e-30)
+    return out.detach()
+
+
+@pytest.mark.parametrize("T,batch,S", CHAIN_CASES)
+def test_chain_kernel_matches_plain(cuda, T, batch, S):
+    gen = torch.Generator(device=cuda).manual_seed(T * 100 + S)
+    x = _chain_inputs(gen, T, batch, S, cuda)
+    g = torch.randn(x.shape[1:], generator=gen, device=cuda)
+    n = dict(lm.chain_launches)
+    out = _compare_chain(x, g)
+    assert lm.chain_launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1}
+    assert torch.equal(out, lm.log_chain(x))  # two launches bit-equal
+
+
+@pytest.mark.parametrize("T,batch,S,strided", [(20, (4,), 16, False), (60, (4,), 64, False), (20, (2, 3), 16, True)])
+def test_chain_kernel_neg_inf(cuda, T, batch, S, strided):
+    gen = torch.Generator(device=cuda).manual_seed(T + S)
+    x = _chain_inputs(gen, T, batch, S, cuda, neg_inf=0.3, strided=strided)
+    out = _compare_chain(x, torch.randn(x.shape[1:], generator=gen, device=cuda))
+    assert (out == -torch.inf).any()
+
+
+def test_chain_kernel_infeasible_chain_under_logsumexp(cuda):
+    """Every path of one row -inf: the row is -inf and no NaN reaches the
+    factors through the logsumexp's NaN adjoint."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = _chain_inputs(gen, 7, (2,), 16, cuda).requires_grad_()
+    with torch.no_grad():
+        x[3, 0] = -torch.inf
+    lse = torch.logsumexp(lm.log_chain(x), dim=(-2, -1))
+    lse.sum().backward()
+    torch.cuda.synchronize()
+    assert torch.isneginf(lse[0]) and torch.isfinite(lse[1])
+    assert not torch.isnan(x.grad).any() and bool((x.grad[:, 0] == 0).all())
+
+
+def test_chain_vmap_grad_is_one_launch_each_way(cuda):
+    x = torch.randn(4, 20, 16, 16, device=cuda)
+    lm.reset_chain_counts()
+
+    def f(fn):
+        return lambda z: torch.logsumexp(fn(z), dim=(-2, -1))
+
+    got = torch.func.vmap(torch.func.grad(f(lm.log_chain)))(x)
+    assert lm.chain_launches == {"forward": 1, "backward": 1}
+    want = torch.func.vmap(torch.func.grad(f(lm.sequential_logmatmulexp_plain)))(x)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * float(want.abs().max()))
+
+
+def test_chain_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError):
+        lm.log_chain(torch.zeros(3, 4, 4, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError):
+        lm.log_chain(torch.zeros(3, 65, 65, device=cuda))
+    lm.reset_chain_counts()
+    out = lm.sequential_logmatmulexp_timemajor(torch.zeros(3, 65, 65, device=cuda))  # K1's rounds
+    assert lm.routes == {"chain": 0, "rounds": 1} and out.shape == (65, 65)
+
+
+def test_quantized_sir_potential_on_the_card(cuda):
+    """The quantized SIR model's log joint and gradient through K3f against
+    the port's float64 CPU run at the same point."""
+    import pyro_tpu_torch as pyro
+    from pyro_tpu_torch import poutine
+    from pyro_tpu_torch.contrib.epidemiology import SimpleSIRModel
+
+    data = np.array([1, 2, 3, 5, 4, 6, 8, 5, 7, 6, 4, 5], np.float32)
+    rng = np.random.default_rng(0)
+    infections = np.cumsum(data) * 1.6
+    aux = np.stack([199 - infections, 1 + 0.6 * infections]) + rng.uniform(0, 1, (2, len(data)))
+    point = {"R0": 1.7, "rho": 0.45, "auxiliary": aux}
+    out = []
+    try:
+        for device, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+            pyro.set_default_device(device)
+            torch.set_default_dtype(dtype)
+            m = SimpleSIRModel(200, 4.0, torch.tensor(data))
+            m.num_quant_bins, m.relaxed = 4, False
+            values = {k: torch.tensor(np.asarray(v), dtype=dtype, device=device, requires_grad=True)
+                      for k, v in point.items()}
+            n = dict(lm.chain_launches)
+            tr = poutine.trace(poutine.condition(m._quantized_model, data=values)).get_trace()
+            lj = tr.log_prob_sum(site_filter=lambda name, site: not site["infer"].get("_deterministic"))
+            lj.backward()
+            if device == "cuda":
+                torch.cuda.synchronize()
+                assert lm.chain_launches == {"forward": n["forward"] + 1, "backward": n["backward"] + 1}
+            out.append((float(lj.detach()), {k: v.grad.double().cpu() for k, v in values.items()}))
+    finally:
+        torch.set_default_dtype(torch.float32)
+        pyro.set_default_device("cuda")
+    (lj32, g32), (lj64, g64) = out
+    assert abs(lj32 - lj64) <= 1e-5 * abs(lj64) + 1e-5
+    scale = max(float(g.abs().max()) for g in g64.values())
+    for k in g64:
+        torch.testing.assert_close(g32[k], g64[k], rtol=0, atol=1e-3 * scale)
